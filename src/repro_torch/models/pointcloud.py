@@ -1,0 +1,305 @@
+"""The paper's evaluation networks on the Spira engine (torch port of
+``repro.models.pointcloud``): SparseResNet-21, MinkUNet-42,
+CenterPoint-Large and the small ``tiny_segnet``.
+
+A network is a list of :class:`SpConvSpec`; its parameters are one
+:class:`PointCloudModel` holding a :class:`SpConv` per layer plus the
+classifier ``head`` [C, n_classes]. All voxel indexing happens once, up
+front (``core.build_network_plan``); :func:`pointcloud_forward` then reads
+the plan's kernel maps layer by layer.
+
+Per-scene BN: batched rows are batch-major-sorted, so every per-scene
+statistic is a reduction over a contiguous row segment, computed by the
+segment engine (``kernels.segsum``) under its canonical add schedule.
+Because that schedule depends only on a row's position relative to its
+segment's start, a scene's statistics are bitwise the same alone or in a
+batch, and under zero extension to a larger bucket. The OS kernel adds
+each output element's terms in a fixed order, and the head runs over
+fixed-shape row chunks, so a batch of B is bitwise equal to B single runs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..core.network_plan import NetworkPlan
+from ..core.packing import BitLayout
+from ..core.spconv import SpConv, SpConvSpec, apply_spconv, init_spconv
+from ..kernels.segsum import SegmentSpec, segment_gather, segment_moments
+
+
+@dataclasses.dataclass(frozen=True)
+class PointCloudNet:
+    name: str
+    specs: Tuple[SpConvSpec, ...]
+    in_channels: int
+    n_classes: int
+
+    def conv_specs(self) -> Tuple[SpConvSpec, ...]:
+        return self.specs
+
+
+def _res_stage(name: str, c_in: int, c_out: int, m: int, n_blocks: int,
+               K: int = 3, dataflow: str = "os", t: int = 0,
+               backend: str = "auto") -> List[SpConvSpec]:
+    """Downsample conv (except stage 0) + n_blocks residual submanifold pairs."""
+    specs: List[SpConvSpec] = []
+    if m > 0:
+        specs.append(SpConvSpec(f"{name}_down", c_in, c_out, K=3,
+                                m_in=m - 1, m_out=m, dataflow=dataflow,
+                                backend=backend))
+        c_in = c_out
+    for b in range(n_blocks):
+        specs.append(SpConvSpec(f"{name}_b{b}a", c_in, c_out, K=K, m_in=m,
+                                m_out=m, dataflow=dataflow, t=t, backend=backend))
+        specs.append(SpConvSpec(f"{name}_b{b}b", c_out, c_out, K=K, m_in=m,
+                                m_out=m, dataflow=dataflow, t=t, backend=backend))
+        c_in = c_out
+    return specs
+
+
+def sparse_resnet21(in_channels: int = 4, n_classes: int = 20,
+                    width: Sequence[int] = (16, 32, 64, 128),
+                    dataflow: str = "os", backend: str = "auto") -> PointCloudNet:
+    """21 SpC layers: stem + 4 stages × (down + a residual pair) + head convs."""
+    specs: List[SpConvSpec] = [
+        SpConvSpec("stem", in_channels, width[0], K=3, m_in=0, m_out=0,
+                   dataflow=dataflow, backend=backend)]
+    c = width[0]
+    for s, w in enumerate(width):
+        specs += _res_stage(f"s{s}", c, w, m=s, n_blocks=1,
+                            dataflow=dataflow, backend=backend)
+        c = w
+    while len(specs) < 21:
+        specs.append(SpConvSpec(f"head{len(specs)}", c, c, K=3,
+                                m_in=len(width) - 1, m_out=len(width) - 1,
+                                dataflow=dataflow, backend=backend))
+    return PointCloudNet("sparse_resnet21", tuple(specs), in_channels, n_classes)
+
+
+def minkunet42(in_channels: int = 4, n_classes: int = 20,
+               width: Sequence[int] = (32, 64, 128, 256),
+               dataflow: str = "os", backend: str = "auto") -> PointCloudNet:
+    """Encoder (4 downsample stages) + decoder (4 inverse-conv stages) with
+    submanifold pairs at each level and UNet skips — 42 SpC layers."""
+    specs: List[SpConvSpec] = [
+        SpConvSpec("stem0", in_channels, width[0], K=3, m_in=0, m_out=0,
+                   dataflow=dataflow, backend=backend),
+        SpConvSpec("stem1", width[0], width[0], K=3, m_in=0, m_out=0,
+                   dataflow=dataflow, backend=backend)]
+    c = width[0]
+    for s, w in enumerate(width):
+        specs.append(SpConvSpec(f"enc{s}_down", c, w, K=3, m_in=s, m_out=s + 1,
+                                dataflow=dataflow, backend=backend))
+        specs.append(SpConvSpec(f"enc{s}_a", w, w, K=3, m_in=s + 1, m_out=s + 1,
+                                dataflow=dataflow, backend=backend))
+        specs.append(SpConvSpec(f"enc{s}_b", w, w, K=3, m_in=s + 1, m_out=s + 1,
+                                dataflow=dataflow, backend=backend))
+        c = w
+    dec_width = (128, 96, 96, 96)
+    for s in range(4):
+        lvl = 4 - s - 1
+        w = dec_width[s]
+        specs.append(SpConvSpec(f"dec{s}_up", c, w, K=3, m_in=lvl + 1,
+                                m_out=lvl, dataflow=dataflow, backend=backend))
+        skip_c = width[lvl - 1] if lvl > 0 else width[0]
+        specs.append(SpConvSpec(f"dec{s}_a", w + skip_c, w, K=3, m_in=lvl,
+                                m_out=lvl, dataflow=dataflow, backend=backend))
+        specs.append(SpConvSpec(f"dec{s}_b", w, w, K=3, m_in=lvl, m_out=lvl,
+                                dataflow=dataflow, backend=backend))
+        c = w
+    i = 0
+    while len(specs) < 42:
+        specs.append(SpConvSpec(f"tail{i}", c, c, K=3, m_in=0, m_out=0,
+                                dataflow=dataflow, backend=backend))
+        i += 1
+    return PointCloudNet("minkunet42", tuple(specs), in_channels, n_classes)
+
+
+def centerpoint_large(in_channels: int = 5, n_classes: int = 10,
+                      width: Sequence[int] = (16, 32, 32, 64),
+                      dataflow: str = "hybrid", t: int = 3,
+                      backend: str = "auto") -> PointCloudNet:
+    """CenterPoint-Large (ResNL): K=5 submanifold layers in all stages. Its
+    default hybrid dataflow needs the WS kernel (ROADMAP Queue 2)."""
+    specs: List[SpConvSpec] = [
+        SpConvSpec("stem", in_channels, width[0], K=5, m_in=0, m_out=0,
+                   dataflow=dataflow, t=t, backend=backend)]
+    c = width[0]
+    for s, w in enumerate(width):
+        specs += _res_stage(f"s{s}", c, w, m=s, n_blocks=1, K=5,
+                            dataflow=dataflow, t=t, backend=backend)
+        c = w
+    while len(specs) < 20:
+        specs.append(SpConvSpec(f"head{len(specs)}", c, c, K=5, m_in=3,
+                                m_out=3, dataflow=dataflow, t=t, backend=backend))
+    return PointCloudNet("centerpoint_large", tuple(specs), in_channels,
+                         n_classes)
+
+
+def tiny_segnet(in_channels: int = 4, n_classes: int = 8, width: int = 16,
+                depth: int = 4, dataflow: str = "os",
+                backend: str = "auto") -> PointCloudNet:
+    """A small all-submanifold segmentation net (logits on the input set)."""
+    specs: List[SpConvSpec] = [
+        SpConvSpec("stem", in_channels, width, K=3, m_in=0, m_out=0,
+                   dataflow=dataflow, backend=backend)]
+    for i in range(depth - 1):
+        specs.append(SpConvSpec(f"sub{i}", width, width, K=3, m_in=0, m_out=0,
+                                dataflow=dataflow, backend=backend))
+    return PointCloudNet("tiny_segnet", tuple(specs), in_channels, n_classes)
+
+
+NETWORKS = {
+    "sparse_resnet21": sparse_resnet21,
+    "minkunet42": minkunet42,
+    "centerpoint_large": centerpoint_large,
+    "tiny_segnet": tiny_segnet,
+}
+
+
+# ---------------------------------------------------------------------------
+# parameters + feature pass
+# ---------------------------------------------------------------------------
+
+HEAD_ROWS = 8192   # fixed row-chunk shape of the classifier head
+
+
+class PointCloudModel(nn.Module):
+    """Parameters of a :class:`PointCloudNet`: one :class:`SpConv` per
+    layer (``layers[spec.name]``) and the classifier ``head``
+    [C_last, n_classes]."""
+
+    def __init__(self, net: PointCloudNet, layers: Dict[str, SpConv],
+                 head: torch.Tensor):
+        super().__init__()
+        self.net = net
+        self.layers = nn.ModuleDict(layers)
+        self.head = nn.Parameter(head)
+
+    def forward(self, plan: NetworkPlan, features: torch.Tensor, *,
+                layout: Optional[BitLayout] = None,
+                segment: Optional[SegmentSpec] = None) -> torch.Tensor:
+        return pointcloud_forward(self, self.net, plan, features,
+                                  layout=layout, segment=segment)
+
+
+def init_pointcloud(net: PointCloudNet, *, seed: int = 0, device="cuda",
+                    dtype=torch.float32) -> PointCloudModel:
+    """Random weights from ``torch.Generator().manual_seed(seed)``, drawn on
+    the CPU so one seed gives the same model on every device."""
+    gen = torch.Generator().manual_seed(seed)
+    layers = {s.name: init_spconv(s, generator=gen, device=device,
+                                  dtype=dtype) for s in net.specs}
+    head = torch.randn((net.specs[-1].cout, net.n_classes), generator=gen,
+                       dtype=torch.float32) * 0.02
+    return PointCloudModel(net, layers, head.to(device=device, dtype=dtype))
+
+
+def _relu_bn(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,
+             *, segment: Optional[SegmentSpec] = None) -> torch.Tensor:
+    """ReLU + masked per-scene feature standardization (train-mode BN) on
+    the segment engine. ``seg = (sid, starts, counts, S)``
+    (:func:`level_segments`); ``None`` is the single-scene S=1 case over
+    the valid prefix. Moments are one segment sum of ``concat([z, z²])``
+    (one-pass var = E[x²] − mean²); the per-scene application is a segment
+    gather of ``concat([mean, inv])``."""
+    x = torch.relu(x)
+    cap, c = x.shape
+    dev = x.device
+    if seg is None:
+        sid = torch.where(torch.arange(cap, device=dev) < count, 0, 1).to(
+            torch.int32)
+        starts = torch.zeros(1, dtype=torch.int32, device=dev)
+        counts = count.to(torch.int32).reshape(1)
+        S = 1
+    else:
+        sid, starts, counts, S = seg
+    sx, sx2 = segment_moments(x, sid, starts, counts, num_segments=S,
+                              spec=segment)
+    denom = counts.to(torch.float32).clamp(min=1.0)[:, None]
+    mean = sx / denom
+    var = (sx2 / denom - mean * mean).clamp(min=0.0)
+    inv = torch.rsqrt(var + 1e-5)
+    stats = torch.cat([mean, inv], dim=1).to(x.dtype)
+    r = segment_gather(stats, sid, starts, counts, num_segments=S,
+                       spec=segment)
+    return torch.where((sid < S)[:, None], (x - r[:, :c]) * r[:, c:],
+                       torch.zeros((), dtype=x.dtype, device=dev))
+
+
+def packed_segments(packed: torch.Tensor, count: torch.Tensor,
+                    layout: BitLayout) -> tuple:
+    """Scene segmentation ``(sid, starts, counts, S)`` of one packed-row
+    buffer from its batch bits (the segment engine's input contract); PAD
+    rows get scene id S."""
+    S = 1 << layout.bb
+    dev = packed.device
+    rows = torch.arange(packed.shape[0], device=dev)
+    sid_raw = (packed >> layout.shift_b).to(torch.int32) & (S - 1)
+    sid = torch.where(rows < count, sid_raw, S).to(torch.int32)
+    scene_ids = torch.arange(S, dtype=torch.int32, device=dev)
+    starts = torch.searchsorted(sid, scene_ids, side="left", out_int32=True)
+    ends = torch.searchsorted(sid, scene_ids, side="right", out_int32=True)
+    return (sid, starts, ends - starts, S)
+
+
+def level_segments(plan: NetworkPlan, layout: BitLayout) -> Dict[int, tuple]:
+    """:func:`packed_segments` of every level's coordinate set."""
+    return {m: packed_segments(cs.packed, cs.count, layout)
+            for m, cs in plan.coords.items()}
+
+
+def head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over fixed ``[HEAD_ROWS, C]`` row chunks (the last one
+    zero-padded), so every call multiplies the same shape: a library GEMM
+    may pick another algorithm, and another add order, at another row
+    count, and the batched-equals-single contract must not depend on the
+    capacity bucket."""
+    n, c = x.shape
+    chunks = -(-n // HEAD_ROWS)
+    xp = x.new_zeros((chunks * HEAD_ROWS, c))
+    xp[:n] = x
+    out = torch.cat([torch.matmul(xp[i * HEAD_ROWS:(i + 1) * HEAD_ROWS], w)
+                     for i in range(chunks)])
+    return out[:n]
+
+
+def pointcloud_forward(params: PointCloudModel, net: PointCloudNet,
+                       plan: NetworkPlan, features: torch.Tensor, *,
+                       layout: Optional[BitLayout] = None,
+                       segment: Optional[SegmentSpec] = None) -> torch.Tensor:
+    """The feature pass over a precomputed plan. UNet skips: encoder outputs
+    are stashed per level and concatenated (channels) at ``dec*_a``. With a
+    batched ``layout`` (``bb > 0``), BN statistics are per scene."""
+    missing = [s.name for s in net.specs if s.name not in plan.kmaps]
+    if missing:
+        raise ValueError(
+            f"plan has no kernel map for layer(s) {missing[:3]} — it was "
+            "built for different specs than this network's")
+    lvl0 = net.specs[0].m_in
+    in_cap = plan.coords[lvl0].capacity
+    if features.shape[0] != in_cap:
+        raise ValueError(
+            f"features rows ({features.shape[0]}) != plan input capacity "
+            f"({in_cap}); pad features to the plan's V0 capacity")
+    segs = level_segments(plan, layout) if (layout and layout.bb) else {}
+    skips: Dict[int, torch.Tensor] = {}
+    x = features
+    for spec in net.specs:
+        kmap = plan.kmaps[spec.name]
+        if spec.name.startswith("dec") and spec.name.endswith("_a"):
+            skip = skips.get(spec.m_in)
+            if skip is not None:
+                x = torch.cat([x, skip], dim=-1)
+        x = apply_spconv(params.layers[spec.name], spec, x, kmap)
+        x = _relu_bn(x, kmap.out_count, segs.get(spec.m_out),
+                     segment=segment)
+        if spec.name.startswith("enc") and spec.name.endswith("_b"):
+            skips[spec.m_out] = x
+        if spec.name.startswith("stem"):
+            skips[0] = x
+    return head_matmul(x, params.head.to(x.dtype))
