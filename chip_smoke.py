@@ -14,6 +14,9 @@ printing its lines; any failed check raises and the exit code is nonzero:
 1. device: torch version, card name and ``nvidia-smi`` power limit; TF32
    off (the port sets it on import);
 2. build: compile ``src/repro_torch/csrc/*.cu`` with nvcc, timed;
+
+MinkUNet-42 (OS dataflow):
+
 3. kernels vs plain versions on the card, at the shapes of the main path:
    every launch of one batch-of-2 forward is recorded and re-run through
    the kernel and its plain PyTorch version — superwindow maps and
@@ -25,12 +28,32 @@ printing its lines; any failed check raises and the exit code is nonzero:
    ``SpiraSession`` on two outdoor LiDAR-sized scenes — scene 0 alone,
    then the batch of 2, each twice — checking finite logits, batched
    scene 0 bitwise equal to the single run, one compiled key per bucket,
-   and 42 launches of each kernel per call; then one more batch-of-2
-   call under ``torch.profiler`` for the device's busy share and its
-   time by kernel;
+   and 42 launches of each of its kernels per call; then one more
+   batch-of-2 call under ``torch.profiler`` for the device's busy share
+   and its time by kernel;
 5. the same session on the plain path (engine "zdelta", backends "torch")
    on the same card: kernel maps equal, logits within
    ``1e-3 * max|logits|``.
+
+CenterPoint-Large (hybrid dataflow, t = 3, K = 5), same scenes:
+
+3. every kernel launch of one batch-of-2 forward against its plain
+   version as above — WS within ``1e-5 * max(1, max|ref|)`` in fp32, also
+   at ``s2_b0a``'s shapes with a capacity that drops pairs (dropped set
+   equal to the kept map's), and ``2e-2`` relative in bf16 at ``stem``,
+   ``s2_down`` and ``s3_b0a``; then the per-group window search kernel on
+   every layer of the plan (phase 4d's launches): maps and counters equal;
+4b. main path at full width: scene 0 alone, then the batch of 2, each
+   twice — finite logits, batched scene 0 bitwise equal to the single
+   run, two compiled keys, and per call 20 superwindow, 20 segment-sum,
+   17 OS and 20 WS launches; one profiled batch-of-2 call;
+4c. escalation: every layer at ``ws_capacity = 32768`` drops pairs, the
+   session replans once (bucket 524,288) and its logits equal the
+   lossless session's bitwise;
+4d. the per-group window engine: its plan's maps equal the superwindow
+   engine's for all 20 layers; repaired cells per layer;
+5b. the plain path (engine "zdelta", backends "torch"): maps equal, logits
+   within ``1e-3 * max|logits|``, no kernel launched.
 
 The second-to-last lines are the kernel table as JSON and the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
@@ -38,6 +61,7 @@ The second-to-last lines are the kernel table as JSON and the raw
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,6 +73,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32, CUDA cores
+LOSSY_CAPACITY = 32768          # below s2_b0a's largest WS column (63,255)
 REPLACES = {
     "zdelta_superwindow_search": ("src/repro_torch/csrc/zdelta_superwindow.cu",
                                   "src/repro/kernels/zdelta_window.py:246"),
@@ -56,6 +81,10 @@ REPLACES = {
                            "src/repro/kernels/spconv_gather_gemm.py:97"),
     "segment_sum": ("src/repro_torch/csrc/segsum.cu",
                     "src/repro/kernels/segsum.py:252"),
+    "ws_scatter_gemm": ("src/repro_torch/csrc/ws_scatter_gemm.cu",
+                        "src/repro/kernels/ws_scatter_gemm.py:119"),
+    "zdelta_window_search": ("src/repro_torch/csrc/zdelta_window.cu",
+                             "src/repro/kernels/zdelta_window.py:130"),
 }
 
 
@@ -127,7 +156,10 @@ class Recorder:
         self.targets = [(zdelta_window, "zdelta_superwindow_cuda",
                          "zdelta_superwindow_search"),
                         (ops, "spconv_gather_gemm", "spconv_gather_gemm"),
-                        (segsum, "segment_sum_cuda", "segment_sum")]
+                        (segsum, "segment_sum_cuda", "segment_sum"),
+                        (ops, "ws_scatter_gemm", "ws_scatter_gemm"),
+                        (zdelta_window, "zdelta_window_cuda",
+                         "zdelta_window_search")]
         self.calls = {name: [] for _, _, name in self.targets}
 
     def __enter__(self):
@@ -150,6 +182,293 @@ class Recorder:
         return False
 
 
+def check_superwindow(calls) -> dict:
+    """Superwindow launches: kernel maps and counters equal to the plain
+    version; per-forward kernel, plain and bound times."""
+    import torch
+    from repro_torch.kernels.zdelta_window import (zdelta_superwindow_cuda,
+                                                   zdelta_superwindow_torch)
+    t_k = t_p = b_tot = 0.0
+    for i, (a, kw) in enumerate(calls):
+        mk, ok = zdelta_superwindow_cuda(*a, **kw)
+        mp, op = zdelta_superwindow_torch(*a, **kw)
+        if not (torch.equal(mk, mp) and torch.equal(ok, op)):
+            raise RuntimeError(f"superwindow launch {i}: map or counters "
+                               "differ from the plain version")
+        t_k += cuda_ms(lambda: zdelta_superwindow_cuda(*a, **kw), 3)
+        t_p += cuda_ms(lambda: zdelta_superwindow_torch(*a, **kw), 2)
+        arr, out2d, anchors, starts = a[:4]
+        nb = 4 * (arr.numel() + out2d.numel() + anchors.numel()
+                  + starts.numel() + mk.numel() + ok.numel())
+        b_tot += bound_ms(nb, 0)[0]
+    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
+                bound_by="bytes", library_ms=None)
+
+
+def check_window(calls) -> dict:
+    """Per-group window launches: maps and counters equal."""
+    import torch
+    from repro_torch.kernels.zdelta_window import (zdelta_window_cuda,
+                                                   zdelta_window_torch)
+    t_k = t_p = b_tot = 0.0
+    for i, (a, kw) in enumerate(calls):
+        mk, ok = zdelta_window_cuda(*a, **kw)
+        mp, op = zdelta_window_torch(*a, **kw)
+        if not (torch.equal(mk, mp) and torch.equal(ok, op)):
+            raise RuntimeError(f"window launch {i}: map or counters differ "
+                               "from the plain version")
+        t_k += cuda_ms(lambda: zdelta_window_cuda(*a, **kw), 3)
+        t_p += cuda_ms(lambda: zdelta_window_torch(*a, **kw), 2)
+        arr, out2d, anchors, starts = a[:4]
+        nb = 4 * (arr.numel() + out2d.numel() + anchors.numel()
+                  + starts.numel() + mk.numel() + ok.numel())
+        b_tot += bound_ms(nb, 0)[0]
+    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
+                bound_by="bytes", library_ms=None)
+
+
+def check_os(calls) -> dict:
+    """OS launches: fp32 within ``1e-5 * max(1, max|ref|)``."""
+    from repro_torch.kernels.spconv_gather_gemm import (
+        spconv_gather_gemm, spconv_gather_gemm_torch)
+    err = t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
+    for i, (a, kw) in enumerate(calls):
+        F, m, W = a
+        got = spconv_gather_gemm(F, m, W)
+        ref = spconv_gather_gemm_torch(F, m, W)
+        d = float((got - ref).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        if not d <= tol:
+            raise RuntimeError(f"OS launch {i} ({F.shape[1]}->{W.shape[2]}): "
+                               f"max|diff| {d} > {tol}")
+        err = max(err, d)
+        t_k += cuda_ms(lambda: spconv_gather_gemm(F, m, W), 3)
+        t_p += cuda_ms(lambda: spconv_gather_gemm_torch(F, m, W), 2)
+        nnz = int((m >= 0).sum())
+        ops = 2.0 * nnz * F.shape[1] * W.shape[2]
+        nb = 4 * (F.numel() + m.numel() + W.numel() + got.numel())
+        b_tot += bound_ms(nb, ops)[0]
+        ops_tot += ops
+        bytes_tot += nb
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
+                bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None,
+                gflop=ops_tot / 1e9)
+
+
+def check_segsum(calls, *, library: bool) -> dict:
+    """Segment-sum launches: bitwise equal to the plain version, within
+    1e-3 relative of an fp64 sum; ``library`` also times (and scores)
+    ``torch.segment_reduce`` on the same rows."""
+    import torch
+    from repro_torch.kernels import segsum as segsum_mod
+    from repro_torch.kernels.segsum import segment_sum_torch
+    lib_rel = f64_rel = 0.0
+    t_k = t_p = t_l = b_tot = ops_tot = bytes_tot = 0.0
+    for i, (a, kw) in enumerate(calls):
+        x, sid, starts, counts = a
+        got = segsum_mod.segment_sum_cuda(x, sid, starts, counts, **kw)
+        ref = segment_sum_torch(x, sid, starts, counts, **kw)
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"segment_sum launch {i}: not bitwise equal "
+                               f"(max|diff| {float((got - ref).abs().max())})")
+        t_k += cuda_ms(lambda: segsum_mod.segment_sum_cuda(x, sid, starts,
+                                                           counts, **kw), 3)
+        t_p += cuda_ms(lambda: segment_sum_torch(x, sid, starts, counts,
+                                                 **kw), 2)
+        rows = int(counts.sum())
+        exact = torch.stack([x[int(s0):int(s0) + int(c)].double().sum(0)
+                             for s0, c in zip(starts, counts)])
+        floor = 1e-6 * float(exact.abs().max()) + 1e-30
+        rel = float(((got.double() - exact).abs()
+                     / exact.abs().clamp(min=floor)).max())
+        if not rel <= 1e-3:
+            raise RuntimeError(f"segment_sum launch {i}: {rel:.2e} relative "
+                               "from the fp64 sum")
+        f64_rel = max(f64_rel, rel)
+        if library:
+            xs = x[:rows]
+            lengths = counts.long()
+            lib_out = torch.segment_reduce(xs, "sum", lengths=lengths)
+            lib_rel = max(lib_rel, float(((lib_out.double() - exact).abs()
+                                          / exact.abs().clamp(min=floor))
+                                         .max()))
+            t_l += cuda_ms(lambda: torch.segment_reduce(xs, "sum",
+                                                        lengths=lengths), 3)
+        nb = 4 * (rows * x.shape[1] + got.numel())
+        ops = float(rows * x.shape[1])
+        b_tot += bound_ms(nb, ops)[0]
+        ops_tot += ops
+        bytes_tot += nb
+    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
+                bound_by=bound_ms(bytes_tot, ops_tot)[1],
+                library_ms=t_l if library else None, f64_rel=f64_rel,
+                lib_rel=lib_rel)
+
+
+def ws_bound(F, m, W, capacity) -> tuple:
+    """(bound ms, bytes, operations) of one WS launch: F, m and W read
+    once, the fp32 output written once; 2 * Cin * Cout per kept pair."""
+    import torch
+    cols = torch.clamp((m >= 0).sum(0), max=capacity)
+    ops = 2.0 * float(cols.sum()) * F.shape[1] * W.shape[2]
+    nb = (F.numel() * F.element_size() + 4 * m.numel()
+          + W.numel() * W.element_size() + 4 * m.shape[0] * W.shape[2])
+    return bound_ms(nb, ops)[0], nb, ops
+
+
+def check_ws(calls) -> dict:
+    """WS launches: fp32 within ``1e-5 * max(1, max|ref|)``."""
+    from repro_torch.kernels.ws_scatter_gemm import (ws_scatter_gemm,
+                                                     ws_scatter_gemm_torch)
+    err = t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
+    for i, (a, kw) in enumerate(calls):
+        F, m, W = a
+        cap = kw["capacity"]
+        got = ws_scatter_gemm(F, m, W, **kw)
+        ref = ws_scatter_gemm_torch(F, m, W, capacity=cap)
+        d = float((got - ref).abs().max())
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        if not d <= tol:
+            raise RuntimeError(f"WS launch {i} ({F.shape[1]}->{W.shape[2]}, "
+                               f"Ks={m.shape[1]}): max|diff| {d} > {tol}")
+        err = max(err, d)
+        t_k += cuda_ms(lambda: ws_scatter_gemm(F, m, W, **kw), 3)
+        t_p += cuda_ms(lambda: ws_scatter_gemm_torch(F, m, W, capacity=cap),
+                       2)
+        b, nb, ops = ws_bound(F, m, W, cap)
+        b_tot += b
+        ops_tot += ops
+        bytes_tot += nb
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
+                bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None,
+                gflop=ops_tot / 1e9)
+
+
+def per_forward(r: dict) -> dict:
+    """The per-forward times of a check's result."""
+    return {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
+
+
+def drive(session, inputs, expected: dict, label: str, kind: str,
+          card: str) -> tuple:
+    """The main path: scene 0 alone, then the batch of 2, each twice, with
+    the launch counters set to 0 just before and read just after. Checks
+    finite logits, launches per call, batched scene 0 bitwise equal to the
+    single run and one compiled key per bucket. Returns the batch-of-2
+    output and health, the ms per call by input, and the launch counts."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    answers, times = {}, {}
+    for name, st in inputs:
+        for _ in range(2):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, health = session.run_with_health(st)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = launch_counts()
+            grew = {k: after[k] - before[k] for k in after}
+            if grew != expected:
+                raise RuntimeError(f"{label} {name}: launches per call "
+                                   f"{grew}, expected {expected}")
+            n = int(out.count)
+            logits = out.features
+            if tuple(logits.shape) != (health.bucket, session.net.n_classes):
+                raise RuntimeError(f"{label} {name}: logits "
+                                   f"{tuple(logits.shape)}")
+            if not bool(torch.isfinite(logits[:n]).all()):
+                raise RuntimeError(f"{label} {name}: non-finite logits")
+            times.setdefault(name, []).append(dt * 1e3)
+            answers[name] = (out, health)
+    counts = launch_counts()
+    (n1_name, _), (nb_name, _) = inputs
+    out1, h1 = answers[n1_name]
+    outb, hb = answers[nb_name]
+    n1 = int(out1.count)
+    b0 = outb.unbatch()[0]
+    if int(b0.count) != n1 or not torch.equal(b0.packed[:n1],
+                                              out1.packed[:n1]):
+        raise RuntimeError(f"{label}: batched scene-0 coordinates differ "
+                           "from single")
+    if not torch.equal(b0.features[:n1], out1.features[:n1]):
+        d = float((b0.features[:n1] - out1.features[:n1]).abs().max())
+        raise RuntimeError(f"{label}: batched scene-0 logits not bitwise "
+                           f"equal to the single-scene run (max|diff| {d})")
+    if session.compile_count != 2:
+        raise RuntimeError(f"{label}: compile_count {session.compile_count} "
+                           "!= 2 distinct buckets")
+    per_call = {k: v for k, v in expected.items() if v}
+    log(f"[{label}] {session.net.name} full width, 4 requests: logits "
+        f"finite, batched scene 0 == single bitwise ({n1} rows), "
+        f"compile_count {session.compile_count} (buckets {h1.bucket}, "
+        f"{hb.bucket}), launches {counts} ({per_call} per call)")
+    log(f"[{label}] steady-state ms per call: scene0 "
+        f"{times[n1_name][1]:.1f} (first {times[n1_name][0]:.1f}), batch2 "
+        f"{times[nb_name][1]:.1f} (first {times[nb_name][0]:.1f}) | {kind} | "
+        f"{card} | peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        "GiB")
+    log(f"[{label} overflow cells per layer] "
+        + " ".join(f"{k}={v}" for k, v in hb.window_overflow_cells.items()))
+    return outb, hb, times, counts
+
+
+def profile_line(label: str, fn, steady: float, card: str) -> None:
+    """One call under the profiler: the device's busy and idle share of
+    the unprofiled ``steady`` ms, and the top device entries by name."""
+    wall, dev_ms = profile_call(fn)
+    busy = sum(dev_ms.values())
+    if busy > 0:
+        top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[{label} profile] batch2 under torch.profiler: wall "
+            f"{wall:.1f} ms, device busy {busy:.1f} ms = {busy / steady:.1%} "
+            f"of the unprofiled {steady:.1f} ms call (idle share "
+            f"{1 - busy / steady:.1%}) | {card}")
+        log(f"[{label} profile] device ms by kernel: "
+            + "; ".join(f"{k} {v:.2f}" for k, v in top))
+    else:
+        log(f"[{label} profile] device time not measured: the profiler saw "
+            "no device events")
+
+
+def plain_path(session, net_plain, st, out_kernel, label: str) -> float:
+    """The same session on the plain path (engine "zdelta", every backend
+    "torch") on the card: maps equal, no kernel launched, logits within
+    ``1e-3 * max|logits|``; returns the relative max difference."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import compile_network
+    plain = compile_network(net_plain, session.layout, batch=2,
+                            params=session.params, engine="zdelta",
+                            segment_backend="torch")
+    plan_k = session.plan(st)
+    plan_p = plain.plan(st)
+    for s in net_plain.specs:
+        if not torch.equal(plan_k.kmaps[s.name].m, plan_p.kmaps[s.name].m):
+            raise RuntimeError(f"{label}: kernel map of {s.name} differs "
+                               "between the kernel engine and the torch "
+                               "search")
+    del plan_k, plan_p
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    outp = plain(st)
+    if any(launch_counts().values()):
+        raise RuntimeError(f"{label}: plain path launched kernels: "
+                           f"{launch_counts()}")
+    nb = int(out_kernel.count)
+    ref = outp.features[:nb]
+    d = float((out_kernel.features[:nb] - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not d <= 1e-3 * scale:
+        raise RuntimeError(f"{label}: kernel path vs plain path: max|diff| "
+                           f"{d} > 1e-3 * {scale}")
+    log(f"[{label}] {len(net_plain.specs)} kernel maps equal; logits "
+        f"max|diff| {d:.3e} vs 1e-3 * max|logits| = {1e-3 * scale:.3e} "
+        f"({d / scale:.2e} relative); no kernel launched")
+    return d / scale
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -159,23 +478,24 @@ def main() -> int:
     torch.set_grad_enabled(False)    # inference only: no autograd graphs
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.core.dataflow import ws_kept_map
+    from repro_torch.core.kernel_map import l1_partition
     from repro_torch.core.sparse_tensor import SparseTensor
     from repro_torch.data import scenes
     from repro_torch.kernels import (_build, launch_counts,
                                      reset_launch_counts)
-    from repro_torch.kernels.segsum import segment_sum_torch
     from repro_torch.kernels.spconv_gather_gemm import (
         spconv_gather_gemm, spconv_gather_gemm_torch)
+    from repro_torch.kernels.ws_scatter_gemm import (
+        ws_compaction, ws_scatter_gemm, ws_scatter_gemm_torch)
     from repro_torch.kernels.zdelta_window import (zdelta_superwindow_cuda,
                                                    zdelta_superwindow_torch)
-    from repro_torch.kernels import segsum as segsum_mod
     from repro_torch.models import pointcloud as pc
     from repro_torch.serve import bucket_capacity, compile_network
     if "jax" in sys.modules or "repro" in sys.modules:
         raise RuntimeError("the port must not load jax or the JAX package")
 
     # -- 1. device ---------------------------------------------------------
-    dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -219,65 +539,31 @@ def main() -> int:
         session(st2)
     torch.cuda.synchronize()
     results = {}
+    paths = {}          # kernel -> {path: per-forward numbers}
 
     # superwindow search: maps and overflow counters equal
     z = rec.calls["zdelta_superwindow_search"]
-    err = 0
-    t_k = t_p = b_tot = 0.0
-    for i, (a, kw) in enumerate(z):
-        mk, ok = zdelta_superwindow_cuda(*a, **kw)
-        mp, op = zdelta_superwindow_torch(*a, **kw)
-        if not (torch.equal(mk, mp) and torch.equal(ok, op)):
-            raise RuntimeError(f"superwindow launch {i}: map or counters "
-                               "differ from the plain version")
-        err = max(err, int((mk - mp).abs().max()), int((ok - op).abs().max()))
-        t_k += cuda_ms(lambda: zdelta_superwindow_cuda(*a, **kw), 3)
-        t_p += cuda_ms(lambda: zdelta_superwindow_torch(*a, **kw), 2)
-        arr, out2d, anchors, starts = a[:4]
-        nb = 4 * (arr.numel() + out2d.numel() + anchors.numel()
-                  + starts.numel() + mk.numel() + ok.numel())
-        b_tot += bound_ms(nb, 0)[0]
     fine, coarse = z[0], z[[s.m_out for s in net.specs].index(4)]
     for label, (a, kw) in (("fine L0", fine), ("coarse L4", coarse)):
         log(f"[3 superwindow {label}] M={a[1].numel()} N={a[0].numel()} "
             f"G={a[2].numel()} SW={kw['SW']}: maps+counters equal, kernel "
             f"{cuda_ms(lambda: zdelta_superwindow_cuda(*a, **kw), 10):.4f} ms, "
             f"plain {cuda_ms(lambda: zdelta_superwindow_torch(*a, **kw), 3):.4f} ms")
-    results["zdelta_superwindow_search"] = dict(
-        max_abs_err=float(err), ms=t_k, plain_ms=t_p, bound_ms=b_tot,
-        bound_by="bytes", library_ms=None)
+    r = results["zdelta_superwindow_search"] = check_superwindow(z)
     log(f"[3 superwindow] {len(z)} launches equal; per forward kernel "
-        f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_tot:.4f} ms")
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms")
 
     # OS implicit GEMM: fp32 within 1e-5 * max(1, max|ref|)
     o = rec.calls["spconv_gather_gemm"]
-    err = 0.0
-    t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
-    for i, (a, kw) in enumerate(o):
-        F, m, W = a
-        ok_ = spconv_gather_gemm(F, m, W)
-        ref = spconv_gather_gemm_torch(F, m, W)
-        d = float((ok_ - ref).abs().max())
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        if not d <= tol:
-            raise RuntimeError(f"OS launch {i} ({F.shape[1]}->{W.shape[2]}): "
-                               f"max|diff| {d} > {tol}")
-        err = max(err, d)
-        t_k += cuda_ms(lambda: spconv_gather_gemm(F, m, W), 3)
-        t_p += cuda_ms(lambda: spconv_gather_gemm_torch(F, m, W), 2)
-        nnz = int((m >= 0).sum())
-        ops = 2.0 * nnz * F.shape[1] * W.shape[2]
-        nb = 4 * (F.numel() + m.numel() + W.numel() + ok_.numel())
-        b_tot += bound_ms(nb, ops)[0]
-        ops_tot += ops
-        bytes_tot += nb
-    results["spconv_gather_gemm"] = dict(
-        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
-        bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None)
+    r = check_os(o)
+    gflop = r.pop("gflop")
+    results["spconv_gather_gemm"] = r
     log(f"[3 os] {len(o)} launches within 1e-5*max(1,|ref|) (max|diff| "
-        f"{err:.3e}); per forward kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-        f"bound {b_tot:.3f} ms ({ops_tot / 1e9:.1f} GFLOP useful, "
-        f"{ops_tot / (t_k * 1e-3) / 1e12:.2f} TFLOP/s)")
+        f"{r['max_abs_err']:.3e}); per forward kernel {r['ms']:.3f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+        f"({gflop:.1f} GFLOP useful, "
+        f"{gflop / r['ms']:.2f} TFLOP/s)")
     names = [s.name for s in net.specs]
     for name in ("stem0", "enc3_a", "dec0_up"):
         F, m, W = o[names.index(name)][0]
@@ -300,150 +586,220 @@ def main() -> int:
 
     # segment sums: bitwise
     s_calls = rec.calls["segment_sum"]
-    lib_rel = f64_rel = 0.0
-    t_k = t_p = t_l = b_tot = ops_tot = bytes_tot = 0.0
-    for i, (a, kw) in enumerate(s_calls):
-        x, sid, starts, counts = a
-        got = segsum_mod.segment_sum_cuda(x, sid, starts, counts, **kw)
-        ref = segment_sum_torch(x, sid, starts, counts, **kw)
-        if not torch.equal(got, ref):
-            raise RuntimeError(f"segment_sum launch {i}: not bitwise equal "
-                               f"(max|diff| {float((got - ref).abs().max())})")
-        t_k += cuda_ms(lambda: segsum_mod.segment_sum_cuda(x, sid, starts,
-                                                           counts, **kw), 3)
-        t_p += cuda_ms(lambda: segment_sum_torch(x, sid, starts, counts,
-                                                 **kw), 2)
-        rows = int(counts.sum())
-        xs = x[:rows]
-        lengths = counts.long()
-        exact = torch.stack([x[int(s0):int(s0) + int(c)].double().sum(0)
-                             for s0, c in zip(starts, counts)])
-        floor = 1e-6 * float(exact.abs().max()) + 1e-30
-        rel = float(((got.double() - exact).abs()
-                     / exact.abs().clamp(min=floor)).max())
-        if not rel <= 1e-3:
-            raise RuntimeError(f"segment_sum launch {i}: {rel:.2e} relative "
-                               "from the fp64 sum")
-        f64_rel = max(f64_rel, rel)
-        lib_out = torch.segment_reduce(xs, "sum", lengths=lengths)
-        lib_rel = max(lib_rel, float(((lib_out.double() - exact).abs()
-                                      / exact.abs().clamp(min=floor)).max()))
-        t_l += cuda_ms(lambda: torch.segment_reduce(xs, "sum",
-                                                    lengths=lengths), 3)
-        nb = 4 * (rows * x.shape[1] + got.numel())
-        ops = float(rows * x.shape[1])
-        b_tot += bound_ms(nb, ops)[0]
-        ops_tot += ops
-        bytes_tot += nb
-    results["segment_sum"] = dict(
-        max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
-        bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=t_l)
+    r = check_segsum(s_calls, library=True)
+    f64_rel, lib_rel = r.pop("f64_rel"), r.pop("lib_rel")
+    results["segment_sum"] = r
     log(f"[3 segsum] {len(s_calls)} launches bitwise equal (max rel diff "
         f"to an fp64 sum {f64_rel:.2e}); per forward "
-        f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, torch.segment_reduce "
-        f"{t_l:.3f} ms (max rel diff to fp64 {lib_rel:.2e}), bound "
-        f"{b_tot:.4f} ms")
+        f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"torch.segment_reduce {r['library_ms']:.3f} ms (max rel diff to "
+        f"fp64 {lib_rel:.2e}), bound {r['bound_ms']:.4f} ms")
     del rec, z, o, s_calls
     torch.cuda.empty_cache()
 
     # -- 4. main path --------------------------------------------------------
-    reset_launch_counts()
-    answers = {}
-    times = {}
-    for label, st in (("scene0", st1), ("batch2", st2)):
-        for rep in range(2):
-            before = launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, health = session.run_with_health(st)
-            logits = out.features
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            after = launch_counts()
-            grew = {k: after[k] - before[k] for k in after}
-            if any(v != len(net.specs) for v in grew.values()):
-                raise RuntimeError(f"{label}: launches per call {grew}, "
-                                   f"expected {len(net.specs)} each")
-            n = int(out.count)
-            if tuple(logits.shape) != (health.bucket, net.n_classes):
-                raise RuntimeError(f"{label}: logits {tuple(logits.shape)}")
-            if not bool(torch.isfinite(logits[:n]).all()):
-                raise RuntimeError(f"{label}: non-finite logits")
-            times.setdefault(label, []).append(dt * 1e3)
-            answers[label] = (out, health)
-    counts = launch_counts()
-    out1, h1 = answers["scene0"]
-    outb, hb = answers["batch2"]
-    n1 = int(out1.count)
-    b0 = outb.unbatch()[0]
-    if int(b0.count) != n1 or not torch.equal(b0.packed[:n1], out1.packed[:n1]):
-        raise RuntimeError("batched scene-0 coordinates differ from single")
-    if not torch.equal(b0.features[:n1], out1.features[:n1]):
-        d = float((b0.features[:n1] - out1.features[:n1]).abs().max())
-        raise RuntimeError(f"batched scene-0 logits not bitwise equal to the "
-                           f"single-scene run (max|diff| {d})")
-    if session.compile_count != 2:
-        raise RuntimeError(f"compile_count {session.compile_count} != 2 "
-                           "distinct buckets")
-    ovf = hb.window_overflow_cells
-    log(f"[4 main path] MinkUNet-42 full width, 4 requests: logits finite, "
-        f"batched scene 0 == single bitwise ({n1} rows), compile_count "
-        f"{session.compile_count} (buckets {h1.bucket}, {hb.bucket}), "
-        f"launches {counts} ({len(net.specs)} per kernel per call)")
-    log(f"[4 main path] steady-state ms per call: scene0 "
-        f"{times['scene0'][1]:.1f} (first {times['scene0'][0]:.1f}), batch2 "
-        f"{times['batch2'][1]:.1f} (first {times['batch2'][0]:.1f}) | {kind} | "
-        f"{card} | peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log(f"[4 overflow cells per layer] "
-        + " ".join(f"{k}={v}" for k, v in ovf.items()))
-    wall, dev_ms = profile_call(lambda: session(st2))
-    busy = sum(dev_ms.values())
-    if busy > 0:
-        steady = times["batch2"][1]
-        top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
-        log(f"[4 profile] batch2 under torch.profiler: wall {wall:.1f} ms, "
-            f"device busy {busy:.1f} ms = {busy / steady:.1%} of the "
-            f"unprofiled {steady:.1f} ms call (idle share "
-            f"{1 - busy / steady:.1%}) | {card}")
-        log("[4 profile] device ms by kernel: "
-            + "; ".join(f"{k} {v:.2f}" for k, v in top))
-    else:
-        log("[4 profile] device time not measured: the profiler saw no "
-            "device events")
+    expected = {k: 0 for k in launch_counts()}
+    expected.update({"zdelta_superwindow_search": 42,
+                     "spconv_gather_gemm": 42, "segment_sum": 42})
+    outb, hb, times, counts = drive(session, (("scene0", st1),
+                                              ("batch2", st2)),
+                                    expected, "4 main path", kind, card)
+    for k in ("zdelta_superwindow_search", "spconv_gather_gemm",
+              "segment_sum"):
+        paths[k] = {"minkunet42": dict(launches=counts[k],
+                                       **per_forward(results[k]))}
+    profile_line("4", lambda: session(st2), times["batch2"][1], card)
 
     # -- 5. plain path on the same card --------------------------------------
-    net_plain = pc.minkunet42(in_channels=4, n_classes=20, backend="torch")
-    plain = compile_network(net_plain, batch[0].layout, batch=2,
-                            params=session.params, engine="zdelta",
-                            segment_backend="torch")
-    plan_k = session.plan(st2)
-    plan_p = plain.plan(st2)
-    for name in names:
-        if not torch.equal(plan_k.kmaps[name].m, plan_p.kmaps[name].m):
-            raise RuntimeError(f"kernel map of {name} differs between the "
-                               "superwindow kernel and the torch search")
-    del plan_k, plan_p
+    plain_path(session, pc.minkunet42(in_channels=4, n_classes=20,
+                                      backend="torch"),
+               st2, outb, "5 plain path")
+    del session, outb, hb, st1, st2
     torch.cuda.empty_cache()
+
+    # == CenterPoint-Large: hybrid (OS + WS), K = 5 ==========================
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    clouds = [(sc.coords, rng.normal(size=(len(sc.coords), 5))
+               .astype(np.float32)) for sc in batch]
+    cp = pc.centerpoint_large()
+    cps = compile_network(cp, batch[0].layout, batch=2, seed=0)
+    st1 = SparseTensor.from_point_clouds(clouds[:1], cps.layout)
+    st2 = SparseTensor.from_point_clouds(clouds, cps.layout)
+    log(f"[inputs cp] {cp.name}: {len(cp.specs)} layers, dataflow "
+        f"{cp.specs[0].dataflow} t={cp.specs[0].t} K={cp.specs[0].K}, "
+        f"{cp.in_channels} input channels, {cp.n_classes} classes, same "
+        f"scenes, made in {time.perf_counter() - t0:.1f} s")
+
+    # -- 3 (CenterPoint). kernels vs plain at its shapes ---------------------
+    with Recorder() as rec:
+        cps(st2)
+    torch.cuda.synchronize()
+    cp_names = [s.name for s in cp.specs]
+    w_calls = rec.calls["ws_scatter_gemm"]
+    if len(w_calls) != len(cp.specs):
+        raise RuntimeError(f"cp: {len(w_calls)} WS launches in one forward, "
+                           f"expected {len(cp.specs)}")
+    r = check_ws(w_calls)
+    gflop = r.pop("gflop")
+    results["ws_scatter_gemm"] = r
+    log(f"[3 cp ws] {len(w_calls)} launches within 1e-5*max(1,|ref|) "
+        f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful, "
+        f"{gflop / r['ms']:.2f} TFLOP/s)")
+    for name, (a, kw) in zip(cp_names, w_calls):
+        F, m, W = a
+        b, _, ops = ws_bound(F, m, W, kw["capacity"])
+        ms = cuda_ms(lambda: ws_scatter_gemm(F, m, W, **kw), 3)
+        log(f"[3 cp ws {name}] M={m.shape[0]} N={F.shape[0]} Ks={m.shape[1]} "
+            f"{F.shape[1]}->{W.shape[2]} pairs={int((m >= 0).sum())} "
+            f"largest column {int((m >= 0).sum(0).max())}: kernel "
+            f"{ms:.4f} ms, bound {b:.4f} ms, "
+            f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    # a capacity below s2_b0a's largest column: the same pairs drop
+    F, m, W = w_calls[cp_names.index("s2_b0a")][0]
+    cap = LOSSY_CAPACITY
+    kept_k = ws_compaction(m, cap).pidx >= 0
+    kept_p = ws_kept_map(m, cap) >= 0
+    if not torch.equal(kept_k, kept_p):
+        raise RuntimeError("lossy WS: the kernel's kept pairs differ from "
+                           "the kept map's")
+    got = ws_scatter_gemm(F, m, W, capacity=cap)
+    ref = ws_scatter_gemm_torch(F, m, W, capacity=cap)
+    d = float((got - ref).abs().max())
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    if not d <= tol:
+        raise RuntimeError(f"lossy WS s2_b0a: max|diff| {d} > {tol}")
+    dropped = int((m >= 0).sum()) - int(kept_k.sum())
+    log(f"[3 cp ws s2_b0a lossy] capacity {cap}: {dropped} pairs dropped, "
+        f"dropped set equal to the kept map's, max|diff| {d:.3e} "
+        f"(tol {tol:.1e})")
+    for name in ("stem", "s2_down", "s3_b0a"):
+        (F, m, W), kw = w_calls[cp_names.index(name)]
+        Fd, Wd = F.to(torch.bfloat16), W.to(torch.bfloat16)
+        got = ws_scatter_gemm(Fd, m, Wd, **kw)
+        ref = ws_scatter_gemm_torch(Fd, m, Wd, capacity=kw["capacity"])
+        d = float((got - ref).abs().max())
+        tol = 2e-2 * max(float(ref.abs().max()), 1e-30)
+        if not d <= tol:
+            raise RuntimeError(f"WS {name} bf16: max|diff| {d} > {tol}")
+        ms = cuda_ms(lambda: ws_scatter_gemm(Fd, m, Wd, **kw), 10)
+        log(f"[3 cp ws {name} bf16] max|diff| {d:.3e} (tol {tol:.1e}), "
+            f"kernel {ms:.4f} ms")
+    # the slice-1 kernels at CenterPoint's shapes
+    for kname, fn in (("zdelta_superwindow_search", check_superwindow),
+                      ("spconv_gather_gemm", check_os),
+                      ("segment_sum",
+                       lambda c: check_segsum(c, library=False))):
+        c = rec.calls[kname]
+        r = fn(c)
+        paths[kname]["centerpoint_large"] = per_forward(r)
+        log(f"[3 cp {kname}] {len(c)} launches equal to the plain version "
+            f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms")
+    del rec, w_calls, F, m, W
+    torch.cuda.empty_cache()
+
+    # -- 4b. main path ------------------------------------------------------
+    expected = {k: 0 for k in launch_counts()}
+    n_os = sum(1 for s in cp.specs
+               if l1_partition(s.K, s.offset_stride, s.t)[0].size)
+    expected.update({"zdelta_superwindow_search": 20, "segment_sum": 20,
+                     "spconv_gather_gemm": n_os, "ws_scatter_gemm": 20})
+    outb, hb, times, counts = drive(cps, (("scene0", st1), ("batch2", st2)),
+                                    expected, "4b main path", kind, card)
+    for k in ("zdelta_superwindow_search", "spconv_gather_gemm",
+              "segment_sum"):
+        paths[k]["centerpoint_large"]["launches"] = counts[k]
+    results["ws_scatter_gemm"]["launches"] = counts["ws_scatter_gemm"]
+    paths["ws_scatter_gemm"] = {"centerpoint_large": dict(
+        launches=counts["ws_scatter_gemm"],
+        **per_forward(results["ws_scatter_gemm"]))}
+    profile_line("4b", lambda: cps(st2), times["batch2"][1], card)
+
+    # -- 4c. escalation -----------------------------------------------------
+    lossy_net = dataclasses.replace(cp, specs=tuple(
+        dataclasses.replace(s, ws_capacity=LOSSY_CAPACITY) for s in cp.specs))
+    esc = compile_network(lossy_net, cps.layout, batch=2, params=cps.params)
+    _, h0 = esc.run_with_health(st2, max_replans=0)
+    drops = {k: v for k, v in h0.ws_dropped_pairs.items() if v}
+    if not drops:
+        raise RuntimeError(f"4c: ws_capacity {LOSSY_CAPACITY} dropped no "
+                           "pair")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oute, he = esc.run_with_health(st2)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    if not (he.replans == 1 and he.escalation == 1 and he.ok
+            and he.bucket == 2 * hb.bucket):
+        raise RuntimeError(f"4c: escalation health {he.summary()}")
+    n = int(outb.count)
+    if not (torch.equal(oute.packed[:n], outb.packed[:n])
+            and torch.equal(oute.features[:n], outb.features[:n])):
+        raise RuntimeError("4c: escalated logits not bitwise equal to the "
+                           "lossless session's")
+    log(f"[4c escalation] ws_capacity {LOSSY_CAPACITY} on every layer: "
+        f"first plan drops "
+        f"{drops}; session replanned {he.replans}x to bucket {he.bucket} "
+        f"(escalation {he.escalation}, ok={he.ok}) in {dt:.1f} ms; logits "
+        f"bitwise equal to the lossless session's ({n} rows)")
+    del esc, oute
+    torch.cuda.empty_cache()
+
+    # -- 4d. per-group window engine -----------------------------------------
+    win = compile_network(cp, cps.layout, batch=2, params=cps.params,
+                          engine="zdelta_cuda_window")
     reset_launch_counts()
-    outp = plain(st2)
-    if any(launch_counts().values()):
-        raise RuntimeError(f"plain path launched kernels: {launch_counts()}")
-    nb = int(outb.count)
-    ref = outp.features[:nb]
-    d = float((outb.features[:nb] - ref).abs().max())
-    scale = float(ref.abs().max())
-    if not d <= 1e-3 * scale:
-        raise RuntimeError(f"kernel path vs plain path: max|diff| {d} > "
-                           f"1e-3 * {scale}")
-    log(f"[5 plain path] 42 kernel maps equal; logits max|diff| {d:.3e} vs "
-        f"1e-3 * max|logits| = {1e-3 * scale:.3e} ({d / scale:.2e} relative)")
+    plan_w = win.plan(st2)
+    torch.cuda.synchronize()
+    wcount = launch_counts()["zdelta_window_search"]
+    if wcount != len(cp.specs):
+        raise RuntimeError(f"4d: {wcount} window launches, expected "
+                           f"{len(cp.specs)}")
+    plan_s = cps.plan(st2)
+    for s in cp.specs:
+        if not torch.equal(plan_w.kmaps[s.name].m, plan_s.kmaps[s.name].m):
+            raise RuntimeError(f"4d: window-engine map of {s.name} differs "
+                               "from the superwindow engine's")
+    log(f"[4d window engine] {len(cp.specs)} kernel maps equal to the "
+        f"superwindow engine's; window launches {wcount}; repaired cells "
+        "per layer: " + " ".join(f"{k}={int(v)}"
+                                 for k, v in plan_w.stats.items()))
+    del plan_w, plan_s
+    torch.cuda.empty_cache()
+    with Recorder() as rec:             # the same plan, for the comparison
+        win.plan(st2)
+    v_calls = rec.calls["zdelta_window_search"]
+    r = results["zdelta_window_search"] = check_window(v_calls)
+    paths["zdelta_window_search"] = {"centerpoint_large plan (4d)": dict(
+        launches=wcount, **per_forward(r))}
+    r["launches"] = wcount
+    log(f"[3 cp window] {len(v_calls)} launches: maps+counters equal; per "
+        f"plan kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms (superwindow at the same shapes: "
+        f"{paths['zdelta_superwindow_search']['centerpoint_large']['ms']:.3f}"
+        " ms)")
+    del rec, v_calls
+    torch.cuda.empty_cache()
+
+    # -- 5b. plain path -------------------------------------------------------
+    plain_path(cps, pc.centerpoint_large(backend="torch"), st2, outb,
+               "5b plain path")
 
     # -- result ----------------------------------------------------------------
     table = []
-    for name, r in results.items():
+    for name in REPLACES:
+        r = dict(results[name])
+        launches = r.pop("launches", None)
+        if launches is None:            # slice 1's main path
+            launches = paths[name]["minkunet42"]["launches"]
         src, rep = REPLACES[name]
         table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": rep, "launches": counts[name], **r})
+                      "replaces": rep, "launches": launches, **r,
+                      "paths": paths.get(name, {})})
     log(json.dumps({"kernels": table}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -13,9 +13,16 @@ Engines:
   package's ``"zdelta"``;
 * ``"zdelta_cuda"`` — the superwindow search kernel
   (``kernels.zdelta_window``; the plain version on CPU tensors), the JAX
-  package's ``"zdelta_pallas"``. Cells whose queries ran past their window
-  are repaired with the exact ``"zdelta"`` search, so the map is exact
-  either way; ``NetworkPlan.stats`` counts the repaired cells per layer.
+  package's ``"zdelta_pallas"``;
+* ``"zdelta_cuda_window"`` — the per-group window search kernel (one
+  window per (tile, anchor group)), the JAX package's
+  ``"zdelta_pallas_window"``: the baseline the superwindow search is
+  measured against. As there, it never takes the §5.4 symmetric
+  half-search.
+
+On both kernel engines, cells whose queries ran past their window are
+repaired with the exact ``"zdelta"`` search, so the map is exact either
+way; ``NetworkPlan.stats`` counts the repaired cells per layer.
 """
 from __future__ import annotations
 
@@ -32,14 +39,14 @@ from .zdelta import (expand_half_map, symmetrize_kernel_map,
                      symmetry_anchor_count, zdelta_offsets, zdelta_search,
                      zdelta_search_symmetric)
 
-ENGINES = ("zdelta", "zdelta_cuda")
+ENGINES = ("zdelta", "zdelta_cuda", "zdelta_cuda_window")
 
 
 @dataclasses.dataclass
 class NetworkPlan:
     """All coordinate sets (by stride level) + all kernel maps (by layer).
 
-    ``stats`` holds per layer the number of superwindow (tile, group) cells
+    ``stats`` holds per layer the number of window (tile, group) cells
     that overflowed their window and were repaired by the exact search (an
     int32 0-d tensor; 0 for the ``"zdelta"`` engine). A persistent nonzero
     count means the window is undersized for the traffic."""
@@ -57,18 +64,20 @@ def plan_levels(specs: Sequence[SpConvSpec]) -> Tuple[int, ...]:
     return tuple(sorted(lv))
 
 
-PLAN_BM = 128   # output-tile rows of the superwindow search
+PLAN_BM = 128   # output-tile rows of the windowed searches
 
 
 def _kernel_map_search(inputs: CoordSet, outputs: CoordSet,
                        anchors: torch.Tensor, zstep: int, *, K: int,
-                       W: int = 0, backend: str = "auto"):
-    """Superwindow search with the per-tile overflow repair: cells whose
-    queries ran past the window are recomputed by :func:`zdelta_search`.
-    Outputs are PAD-padded to a multiple of ``PLAN_BM`` so the kernel runs
-    full tiles; the map is sliced back. Returns ``(map, overflowed
-    cells)``."""
-    from ..kernels.zdelta_window import zdelta_superwindow_search
+                       W: int = 0, superwindow: bool = True,
+                       backend: str = "auto"):
+    """Superwindow (or per-group window) search with the per-cell overflow
+    repair: cells whose queries ran past their window are recomputed by
+    :func:`zdelta_search`. Outputs are PAD-padded to a multiple of
+    ``PLAN_BM`` so the kernel runs full tiles; the map is sliced back.
+    Returns ``(map, overflowed cells)``."""
+    from ..kernels.zdelta_window import (zdelta_superwindow_search,
+                                         zdelta_window_search)
 
     mcap = outputs.packed.shape[0]
     bm = PLAN_BM
@@ -81,9 +90,15 @@ def _kernel_map_search(inputs: CoordSet, outputs: CoordSet,
         outp[:mcap] = outputs.packed
         out_padded = CoordSet(packed=outp, count=outputs.count)
     n = inputs.packed.shape[0]
-    W = min(W or max(16 * bm, 2048), n)
-    m, ovf = zdelta_superwindow_search(inputs, out_padded, anchors, zstep,
-                                       K=K, W=W, bm=bm, backend=backend)
+    if superwindow:
+        W = min(W or max(16 * bm, 2048), n)
+        m, ovf = zdelta_superwindow_search(inputs, out_padded, anchors,
+                                           zstep, K=K, W=W, bm=bm,
+                                           backend=backend)
+    else:
+        W = min(W or max(4 * bm, 512), n)
+        m, ovf = zdelta_window_search(inputs, out_padded, anchors, zstep,
+                                      K=K, W=W, bm=bm, backend=backend)
     m = m[:mcap]
     bad_cells = (ovf > 0).sum(dtype=torch.int32)
     if int(bad_cells):          # the map is exact either way (module doc)
@@ -101,11 +116,13 @@ def _layer_map(inputs: CoordSet, outputs: CoordSet, s: SpConvSpec,
     if engine not in ENGINES:
         raise NotImplementedError(
             f"engine {engine!r} is not ported (the port has {ENGINES}; "
-            "bsearch, hash and zdelta_pallas_window are in ROADMAP Queue 1)")
+            "bsearch and hash are in ROADMAP Queue 1)")
     dev = inputs.packed.device
     _, anchors, zstep = zdelta_offsets(s.K, s.offset_stride, layout,
                                        device=dev)
-    use_sym = s.symmetry and s.submanifold
+    # the per-group window engine never takes the half-search, as in JAX
+    use_sym = (s.symmetry and s.submanifold
+               and engine in ("zdelta", "zdelta_cuda"))
     if engine == "zdelta":
         no_ovf = torch.zeros((), dtype=torch.int32, device=dev)
         if use_sym:
@@ -115,7 +132,8 @@ def _layer_map(inputs: CoordSet, outputs: CoordSet, s: SpConvSpec,
     if use_sym:
         anchors = anchors[: symmetry_anchor_count(s.K)]
     m, ovf = _kernel_map_search(inputs, outputs, anchors, zstep, K=s.K,
-                                W=s.window)
+                                W=s.window,
+                                superwindow=(engine == "zdelta_cuda"))
     if use_sym:
         m = symmetrize_kernel_map(expand_half_map(m, K=s.K), K=s.K)
     return m, ovf

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .dataflow import _mask_rows, output_stationary
+from .dataflow import (_mask_rows, hybrid, output_stationary,
+                       weight_stationary)
 from .kernel_map import KernelMap, l1_norm_max
 
 Dataflow = Literal["os", "ws", "hybrid"]
@@ -88,14 +89,21 @@ def apply_spconv(params: SpConv, spec: SpConvSpec, features: torch.Tensor,
                  kmap: KernelMap) -> torch.Tensor:
     """Feature computation with the spec's dataflow; output rows at and
     beyond ``kmap.out_count`` are zero."""
-    if spec.dataflow != "os":
-        raise NotImplementedError(
-            f"layer {spec.name}: dataflow {spec.dataflow!r} needs the "
-            "weight-stationary kernel ws_scatter_gemm, not ported yet "
-            "(ROADMAP Queue 2); use dataflow='os'")
     w = params.weight.to(features.dtype)
-    out = output_stationary(features, kmap.m, w, fuse=spec.fuse_dense,
-                            backend=spec.backend, bm=spec.bm, bn=spec.bn)
+    cap = spec.ws_capacity or kmap.m.shape[0]
+    if spec.dataflow == "os":
+        out = output_stationary(features, kmap.m, w, fuse=spec.fuse_dense,
+                                backend=spec.backend, bm=spec.bm, bn=spec.bn)
+    elif spec.dataflow == "ws":
+        out = weight_stationary(features, kmap.m, w, capacity=cap,
+                                backend=spec.backend, bm=spec.bm, bn=spec.bn)
+    elif spec.dataflow == "hybrid":
+        out = hybrid(features, kmap, w, K=spec.K, stride=spec.offset_stride,
+                     t=spec.t, ws_capacity=cap, fuse_dense=spec.fuse_dense,
+                     backend=spec.backend, bm=spec.bm, bn=spec.bn)
+    else:
+        raise ValueError(f"layer {spec.name}: unknown dataflow "
+                         f"{spec.dataflow!r}; want os|ws|hybrid")
     if params.bias is not None:
         # a plain broadcast add: exact in the forward pass (the reference's
         # rank-1 dot exists for its backward's reduction order)

@@ -1,17 +1,21 @@
 """Hand-written Hopper kernels of the engine's hot path, each beside its
 plain PyTorch version and a launch counter on its wrapper:
 
-  zdelta_window      — superwindow z-delta kernel-map search
-                       (csrc/zdelta_superwindow.cu)
+  zdelta_window      — superwindow and per-group window z-delta
+                       kernel-map searches (csrc/zdelta_superwindow.cu,
+                       csrc/zdelta_window.cu)
   spconv_gather_gemm — output-stationary implicit GEMM, gather fused in
                        (csrc/spconv_gather_gemm.cu)
+  ws_scatter_gemm    — weight-stationary pair GEMM + ordered merge
+                       (csrc/ws_scatter_gemm.cu)
   segsum             — segment sums under the canonical add schedule
                        (csrc/segsum.cu)
 
 ``ops.resolve_backend`` decides kernel or plain version by backend string
 and tensor device; ``_build`` compiles ``csrc/`` with nvcc on first use.
 """
-from . import ops, segsum, spconv_gather_gemm, zdelta_window
+from . import (ops, segsum, spconv_gather_gemm, ws_scatter_gemm,
+               zdelta_window)
 from .segsum import (SegmentSpec, segment_sum, segment_gather,
                      segment_moments, segments_from_sizes,
                      segment_call_count, reset_segment_calls)
@@ -21,6 +25,8 @@ LAUNCHERS = {
     "zdelta_superwindow_search": zdelta_window.zdelta_superwindow_cuda,
     "spconv_gather_gemm": spconv_gather_gemm.spconv_gather_gemm,
     "segment_sum": segsum.segment_sum_cuda,
+    "ws_scatter_gemm": ws_scatter_gemm.ws_scatter_gemm,
+    "zdelta_window_search": zdelta_window.zdelta_window_cuda,
 }
 
 

@@ -1,4 +1,5 @@
-"""Backend dispatch for the hand-written kernels, and the OS entry point.
+"""Backend dispatch for the hand-written kernels, and the OS and WS entry
+points.
 
 Every kernel entry point takes ``backend`` ∈ {"auto", "torch", "cuda"}:
 
@@ -17,6 +18,8 @@ import torch
 
 from .spconv_gather_gemm import (TILE, spconv_gather_gemm,
                                  spconv_gather_gemm_torch)
+from .ws_scatter_gemm import (CHUNK, TILES_N, ws_scatter_gemm,
+                              ws_scatter_gemm_torch)
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -49,3 +52,24 @@ def spconv_os_fused(features: torch.Tensor, m: torch.Tensor,
     if resolve_backend(backend, features):
         return spconv_gather_gemm(features, m, weights)
     return spconv_gather_gemm_torch(features, m, weights)
+
+
+def spconv_ws_fused(features: torch.Tensor, m: torch.Tensor,
+                    weights: torch.Tensor, *, capacity: int,
+                    backend: str = "auto", bm: int = 0,
+                    bn: int = 0) -> torch.Tensor:
+    """WS dataflow as one compact + GEMM + ordered-merge kernel; the result
+    in the features' dtype. ``bm`` is the pair chunk (the CUDA kernel is
+    compiled for 64; 0 = auto) and ``bn`` the Cout tile (16, 32 or 64;
+    0 = the smallest that covers Cout)."""
+    if bm not in (0, CHUNK):
+        raise ValueError(f"bm={bm}: the CUDA WS kernel is compiled for "
+                         f"{CHUNK}-pair chunks (0 = auto)")
+    if bn not in (0, *TILES_N):
+        raise ValueError(f"bn={bn}: the CUDA WS kernel is compiled for Cout "
+                         f"tiles {TILES_N} (0 = auto)")
+    if resolve_backend(backend, features):
+        out = ws_scatter_gemm(features, m, weights, capacity=capacity, bn=bn)
+    else:
+        out = ws_scatter_gemm_torch(features, m, weights, capacity=capacity)
+    return out.to(features.dtype)

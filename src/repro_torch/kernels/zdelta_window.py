@@ -1,26 +1,35 @@
-"""Superwindow z-delta kernel-map search: CUDA kernel + plain version.
+"""Windowed z-delta kernel-map searches: CUDA kernels + plain versions.
 
-Replaces the TPU kernel ``repro/kernels/zdelta_window.py``
-(``zdelta_superwindow_search``, ``_super_kernel``) with
-``csrc/zdelta_superwindow.cu``.
+Two searches, as in ``repro/kernels/zdelta_window.py``:
 
-Phase A (torch, as it is XLA in the reference): one ``searchsorted`` per
-128-row output tile for the tile's smallest query (first row + first
-anchor; anchors ascend) gives the window base, clamped to ``[0, N − SW]``.
+``zdelta_superwindow_search`` (the plan's default engine) replaces the TPU
+kernel ``zdelta_superwindow_search`` (``_super_kernel``) with
+``csrc/zdelta_superwindow.cu``. Phase A (torch, as it is XLA in the
+reference): one ``searchsorted`` per 128-row output tile for the tile's
+smallest query (first row + first anchor; anchors ascend) gives the window
+base, clamped to ``[0, N − SW]``. Phase B (the kernel): one block per tile
+stages ``arr[base : base + SW]`` in shared memory once for all G anchor
+groups, then resolves every (row, group) pair with a branchless binary
+search (pos = window words < q) and a K-step two-pointer probe. It writes
+the map ``[M, G·K]`` (PAD output rows −1) and per-(tile, group) overflow
+counters: queries of real rows above the window's last word, 0 when the
+window reaches the array's end.
 
-Phase B (the kernel): one block per tile stages ``arr[base : base + SW]``
-in shared memory once for all G anchor groups, then resolves every
-(row, group) pair with a branchless binary search (pos = window words < q)
-and a K-step two-pointer probe. It writes the map ``[M, G·K]`` (PAD output
-rows −1) and per-(tile, group) overflow counters: queries of real rows
-above the window's last word, 0 when the window reaches the array's end.
+``zdelta_window_search`` (engine ``"zdelta_cuda_window"``, the per-group
+baseline) replaces the TPU kernel ``zdelta_window_search`` (``_kernel``)
+with ``csrc/zdelta_window.cu``. Phase A: one ``searchsorted`` per (tile,
+group) for the tile's first query of that group. Phase B: one block per
+(tile, group) stages its own W-word window; each (row, member) query's
+match is the first window position equal to it. Counters as above, per
+(tile, group).
+
 The plan repairs overflowed cells with the exact ``core.zdelta`` search.
-
-On the H100 the kernel is bound by bytes (the map it writes); its design
-note is in the source. The CUDA kernel takes int32 packed words; an int64
-CUDA tensor raises (ROADMAP Queue 2). :func:`zdelta_superwindow_torch` is
-the plain version, vectorised over tiles, for both dtypes: it reproduces
-the kernel's map and counters exactly.
+On the H100 both kernels are bound by bytes; their design notes are in
+the sources. The CUDA kernels take int32 packed words; an int64 CUDA
+tensor raises (ROADMAP Queue 2). The plain versions
+(:func:`zdelta_superwindow_torch`, :func:`zdelta_window_torch`) are
+vectorised over tiles, take both dtypes, and reproduce the kernels' maps
+and counters exactly.
 """
 from __future__ import annotations
 
@@ -39,7 +48,19 @@ _SIG = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p]
 _fns: dict = {}
-MAX_GROUPS = 128   # kMaxGroups in the source
+MAX_GROUPS = 128   # kMaxGroups in the superwindow source
+
+
+def _nbits(W: int) -> int:
+    """Binary-search steps over a W-word window."""
+    return max(1, int(np.ceil(np.log2(W))))
+
+
+def _int32_only(arr: torch.Tensor, what: str) -> None:
+    if arr.dtype != torch.int32:
+        raise NotImplementedError(
+            f"the CUDA {what} kernel takes int32 packed words; {arr.dtype} "
+            "layouts (> 31 bits) run only the plain version (ROADMAP Queue 2)")
 
 
 def _window_bases(arr: torch.Tensor, out2d: torch.Tensor,
@@ -96,10 +117,7 @@ def zdelta_superwindow_cuda(arr: torch.Tensor, out2d: torch.Tensor,
     if arr.device.type != "cuda":
         raise ValueError("zdelta_superwindow_cuda launches a CUDA kernel; "
                          f"got a tensor on {arr.device}")
-    if arr.dtype != torch.int32:
-        raise NotImplementedError(
-            f"the CUDA superwindow kernel takes int32 packed words; {arr.dtype}"
-            " layouts (> 31 bits) run only the plain version (ROADMAP Queue 2)")
+    _int32_only(arr, "superwindow")
     n_tiles, bm = out2d.shape
     G = anchors.shape[0]
     if bm != 128:
@@ -147,7 +165,7 @@ def zdelta_superwindow_search(inputs: CoordSet, outputs: CoordSet,
         raise ValueError(f"output capacity {mcap} is not a multiple of {bm}")
     if n < W:
         raise ValueError(f"input capacity {n} must be >= superwindow {W}")
-    nbits = max(1, int(np.ceil(np.log2(W))))
+    nbits = _nbits(W)
     out2d = outputs.packed.reshape(mcap // bm, bm)
     anchors = packed_anchors.to(device=arr.device, dtype=arr.dtype)
     starts = _window_bases(arr, out2d, anchors)
@@ -156,3 +174,103 @@ def zdelta_superwindow_search(inputs: CoordSet, outputs: CoordSet,
                                        K=K, SW=W, nbits=nbits)
     return zdelta_superwindow_torch(arr, out2d, anchors, starts, zstep,
                                     K=K, SW=W, nbits=nbits)
+
+
+# ---------------------------------------------------------------------------
+# per-group windows: one window per (tile, anchor group)
+# ---------------------------------------------------------------------------
+
+def zdelta_window_torch(arr: torch.Tensor, out2d: torch.Tensor,
+                        anchors: torch.Tensor, starts: torch.Tensor,
+                        zstep: int, *, K: int, W: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the per-group window search over all (tile, group)
+    cells at once: returns (map [n_tiles·bm, G·K] int32, PAD rows −1;
+    overflow [n_tiles, G] int32)."""
+    n = arr.shape[0]
+    n_tiles, bm = out2d.shape
+    G = anchors.shape[0]
+    dev = arr.device
+    start = starts.to(torch.int64).clamp(0, n - W)                  # [T, G]
+    win = arr[start[..., None] + torch.arange(W, device=dev)]      # [T, G, W]
+    members = torch.arange(K, dtype=arr.dtype, device=dev) * zstep
+    q = (out2d[:, None, :, None] + anchors[None, :, None, None]
+         + members)                                             # [T, G, bm, K]
+    real = (out2d != pad_value(arr.dtype))[:, None, :, None]
+    pos = torch.searchsorted(win.reshape(n_tiles * G, W),
+                             q.reshape(n_tiles * G, bm * K),
+                             side="left").reshape(q.shape)
+    at = torch.gather(win, 2, pos.clamp(max=W - 1).reshape(n_tiles, G, -1)
+                      ).reshape(q.shape)
+    hit = (pos < W) & (at == q) & real
+    m = torch.where(hit, pos + start[:, :, None, None], -1)
+    ovf = ((q > win[:, :, W - 1, None, None]) & real).sum(
+        dim=(2, 3), dtype=torch.int32)
+    ovf = torch.where(start + W < n, ovf, 0)
+    m = m.permute(0, 2, 1, 3).reshape(n_tiles * bm, G * K)
+    return m.to(torch.int32), ovf.to(torch.int32)
+
+
+def zdelta_window_cuda(arr: torch.Tensor, out2d: torch.Tensor,
+                       anchors: torch.Tensor, starts: torch.Tensor,
+                       zstep: int, *, K: int, W: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA per-group window kernel on CUDA int32 tensors; same
+    contract as :func:`zdelta_window_torch`."""
+    if arr.device.type != "cuda":
+        raise ValueError("zdelta_window_cuda launches a CUDA kernel; got a "
+                         f"tensor on {arr.device}")
+    _int32_only(arr, "window")
+    n_tiles, bm = out2d.shape
+    G = anchors.shape[0]
+    if bm != 128:
+        raise ValueError(f"the CUDA window kernel is compiled for 128-row "
+                         f"tiles, got {bm}")
+    m = torch.empty((n_tiles * bm, G * K), dtype=torch.int32,
+                    device=arr.device)
+    ovf = torch.empty((n_tiles, G), dtype=torch.int32, device=arr.device)
+    fn = _fns.get("window")
+    if fn is None:
+        fn = _fns["window"] = _build.function("spira_zdelta_window_i32", _SIG)
+    arr = arr.contiguous()
+    out2d = out2d.contiguous()
+    anchors = anchors.to(torch.int32).contiguous()
+    starts = starts.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(arr.device).cuda_stream
+    err = fn(arr.data_ptr(), arr.shape[0], out2d.data_ptr(), n_tiles,
+             anchors.data_ptr(), G, int(zstep), K, W, _nbits(W),
+             starts.data_ptr(), m.data_ptr(), ovf.data_ptr(), stream)
+    zdelta_window_cuda.launches += 1
+    _build.check(err, "zdelta_window")
+    return m, ovf
+
+
+zdelta_window_cuda.launches = 0
+
+
+def zdelta_window_search(inputs: CoordSet, outputs: CoordSet,
+                         packed_anchors: torch.Tensor, zstep: int, *,
+                         K: int, W: int = 512, bm: int = 128,
+                         backend: str = "auto"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel map [M, G·K] and overflow counters [M/bm, G] by the
+    per-group window search (``packed_anchors`` [G], K² for a full
+    search). ``outputs.capacity`` must be a multiple of ``bm`` and
+    ``W <= inputs.capacity``."""
+    from ..core.zdelta import _count_search
+    _count_search()
+    arr = inputs.packed
+    n = arr.shape[0]
+    mcap = outputs.packed.shape[0]
+    if mcap % bm:
+        raise ValueError(f"output capacity {mcap} is not a multiple of {bm}")
+    if n < W:
+        raise ValueError(f"input capacity {n} must be >= window {W}")
+    out2d = outputs.packed.reshape(mcap // bm, bm)
+    anchors = packed_anchors.to(device=arr.device, dtype=arr.dtype)
+    starts = torch.searchsorted(arr, out2d[:, :1] + anchors[None, :],
+                                side="left", out_int32=True)     # [T, G]
+    if resolve_backend(backend, arr):
+        return zdelta_window_cuda(arr, out2d, anchors, starts, zstep, K=K,
+                                  W=W)
+    return zdelta_window_torch(arr, out2d, anchors, starts, zstep, K=K, W=W)

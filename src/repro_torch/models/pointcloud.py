@@ -13,9 +13,10 @@ statistic is a reduction over a contiguous row segment, computed by the
 segment engine (``kernels.segsum``) under its canonical add schedule.
 Because that schedule depends only on a row's position relative to its
 segment's start, a scene's statistics are bitwise the same alone or in a
-batch, and under zero extension to a larger bucket. The OS kernel adds
-each output element's terms in a fixed order, and the head runs over
-fixed-shape row chunks, so a batch of B is bitwise equal to B single runs.
+batch, and under zero extension to a larger bucket. The OS and WS kernels
+add each output element's terms in a fixed order, and the head runs over
+fixed-shape row chunks, so a batch of B is bitwise equal to B single runs
+(for WS at lossless capacity: a lossy one drops by position in the batch).
 """
 from __future__ import annotations
 
@@ -123,8 +124,7 @@ def centerpoint_large(in_channels: int = 5, n_classes: int = 10,
                       width: Sequence[int] = (16, 32, 32, 64),
                       dataflow: str = "hybrid", t: int = 3,
                       backend: str = "auto") -> PointCloudNet:
-    """CenterPoint-Large (ResNL): K=5 submanifold layers in all stages. Its
-    default hybrid dataflow needs the WS kernel (ROADMAP Queue 2)."""
+    """CenterPoint-Large (ResNL): K=5 submanifold layers in all stages."""
     specs: List[SpConvSpec] = [
         SpConvSpec("stem", in_channels, width[0], K=5, m_in=0, m_out=0,
                    dataflow=dataflow, t=t, backend=backend)]

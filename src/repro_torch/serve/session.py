@@ -11,7 +11,8 @@ feature pass; the hot path is one call::
 The session runs eagerly: each call pads its input to a power-of-two
 capacity bucket, builds the plan (default engine ``"zdelta_cuda"``, so the
 superwindow search kernel runs on the card) and runs the forward pass
-(the OS kernel per layer, the segment-sum kernel per BN). ``compile_count``
+(per layer the OS and/or WS kernel as its dataflow says, the segment-sum
+kernel per BN). ``compile_count``
 counts the distinct (bucket, escalation) keys run so far, the counterpart
 of the reference's one jitted executable per key; capturing a CUDA graph
 per bucket is later work (ROADMAP Queue 1).
@@ -23,11 +24,13 @@ per-row computation on the path adds in an order that does not depend on
 the row's position or the bucket (``models.pointcloud`` module doc).
 
 Overflow escalation: WS/hybrid layers with a tuned ``ws_capacity`` drop
-pairs beyond it. Each call counts the pairs its plan would drop; when
-nonzero the session replans at the next escalation level (bucket and every
-``ws_capacity`` doubled) up to ``max_overflow_replans`` times. The port's
-layers are OS only for now (WS raises, ROADMAP Queue 2), so the loop runs
-once, but it and :class:`HealthReport` keep the reference's contract.
+pairs beyond it. Each call counts the pairs its plan drops; when nonzero
+the session replans at the next escalation level (bucket and every
+``ws_capacity`` doubled) up to ``max_overflow_replans`` times, instead of
+serving truncated logits. Lossy capacity is not batch-invariant (the first
+``ws_capacity`` rows of a column survive across the whole batch), but once
+escalation has removed every drop the logits on real rows are bitwise those
+of a lossless run: every kernel on the path is zero-extension invariant.
 """
 from __future__ import annotations
 
@@ -271,7 +274,8 @@ def compile_network(
     * ``params`` — a :class:`PointCloudModel` (e.g. from
       ``convert.params_from_jax``); omitted, ``init_pointcloud(net,
       seed=seed)``.
-    * ``engine`` — ``"zdelta_cuda"`` (superwindow search kernel) or
+    * ``engine`` — ``"zdelta_cuda"`` (superwindow search kernel),
+      ``"zdelta_cuda_window"`` (per-group window search kernel) or
       ``"zdelta"`` (the search in torch).
     * ``segment_backend`` — backend of the BN segment sums.
     * ``tuner`` — not ported yet; anything but None raises.

@@ -1,6 +1,8 @@
 """Parity of the port's output-stationary dataflow and sparse-conv layer
-with the JAX package's XLA path (fp32 within 1e-5 relative), plus the
-dispatch rules of ``kernels.ops.resolve_backend``.
+(all three dataflows) with the JAX package's XLA path (fp32 within 1e-5
+relative), plus the dispatch rules of ``kernels.ops.resolve_backend``.
+The weight-stationary and hybrid dataflows have their own file,
+``test_torch_ws.py``.
 """
 import dataclasses
 
@@ -24,7 +26,9 @@ from repro_torch.core.kernel_map import KernelMap as TKM
 from repro_torch.core.kernel_map import l1_norm_max, l1_partition
 from repro_torch.kernels import ops
 from repro_torch.kernels.spconv_gather_gemm import spconv_gather_gemm
-from repro_torch.kernels.zdelta_window import zdelta_superwindow_cuda
+from repro_torch.kernels.ws_scatter_gemm import ws_scatter_gemm
+from repro_torch.kernels.zdelta_window import (zdelta_superwindow_cuda,
+                                               zdelta_window_cuda)
 
 from repro.core.kernel_map import l1_partition as j_l1_partition
 
@@ -156,12 +160,34 @@ def test_init_spconv_is_seeded_and_scaled():
     assert abs(float(a.weight.detach().std()) * np.sqrt(16 * 27) - 1.0) < 0.1
 
 
-@pytest.mark.parametrize("dataflow", ["ws", "hybrid"])
-def test_ws_and_hybrid_are_not_ported(dataflow):
-    f, m, w, cs, *_ = _case(3, "sub", cin=4, cout=8)
-    spec = tsc.SpConvSpec("l", 4, 8, dataflow=dataflow, t=2)
-    layer = tsc.SpConv(spec, T(w), None)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+@pytest.mark.parametrize("dataflow,t,cap", [("ws", 0, None), ("ws", 0, 150),
+                                            ("hybrid", 2, None),
+                                            ("hybrid", 3, 150)])
+def test_apply_spconv_ws_and_hybrid_match(dataflow, t, cap):
+    """The layer with a WS or hybrid spec (bias, PAD-row mask, lossless or
+    lossy ``ws_capacity``) against the JAX layer on its XLA backend."""
+    f, m, w, cs, m_in, m_out = _case(3, "sub", cin=4, cout=8, seed=5)
+    assert cap is None or cap < (m >= 0).sum(0).max()     # lossy: drops
+    spec_kw = dict(name="l", cin=4, cout=8, K=3, dataflow=dataflow, t=t,
+                   ws_capacity=cap)
+    jspec = jsc.SpConvSpec(**spec_kw, backend="xla")
+    tspec = tsc.SpConvSpec(**spec_kw)
+    b = np.random.default_rng(9).normal(size=8).astype(np.float32)
+    cnt = cs[m_out].count
+    ref = np.asarray(jsc.apply_spconv(
+        {"w": jnp.asarray(w), "b": jnp.asarray(b)}, jspec, jnp.asarray(f),
+        JKM(m=jnp.asarray(m), out_count=cnt, in_count=cs[m_in].count)))
+    layer_mod = tsc.SpConv(tspec, T(w), T(b))
+    got = N(layer_mod(T(f), TKM(m=T(m), out_count=torch.tensor(int(cnt)),
+                                in_count=torch.tensor(0))))
+    _close(got, ref, 1e-5)
+    assert np.all(got[int(cnt):] == 0)
+
+
+def test_unknown_dataflow_raises():
+    f, m, w, *_ = _case(3, "sub", cin=4, cout=8)
+    layer = tsc.SpConv(tsc.SpConvSpec("l", 4, 8, dataflow="rs"), T(w), None)
+    with pytest.raises(ValueError, match="dataflow"):
         layer(T(f), TKM(m=T(m), out_count=torch.tensor(1),
                         in_count=torch.tensor(1)))
 
@@ -186,10 +212,17 @@ def test_cuda_backend_on_cpu_raises_everywhere():
         tdf.output_stationary(T(f), T(m), T(w), backend="cuda")
     with pytest.raises(ValueError):
         spconv_gather_gemm(T(f), T(m), T(w))
+    with pytest.raises(ValueError):
+        tdf.weight_stationary(T(f), T(m), T(w), capacity=10, backend="cuda")
+    with pytest.raises(ValueError):
+        ws_scatter_gemm(T(f), T(m), T(w), capacity=10)
     arr = torch.arange(256, dtype=torch.int32)
     with pytest.raises(ValueError):
         zdelta_superwindow_cuda(arr, arr.reshape(2, 128), arr[:9], arr[:2],
                                 1, K=3, SW=128, nbits=7)
+    with pytest.raises(ValueError):
+        zdelta_window_cuda(arr, arr.reshape(2, 128), arr[:9],
+                           arr[:18].reshape(2, 9), 1, K=3, W=128)
 
 
 def test_os_tile_arguments():

@@ -1,8 +1,8 @@
 """Parity of the port's kernel-map construction with the JAX package:
-the superwindow search's plain version against the Pallas kernel in
-interpret mode (maps AND overflow counters), and the network plan of every
-MinkUNet-42 layer on both port engines against the JAX search, all
-integer-exact.
+the superwindow and per-group window searches' plain versions against the
+Pallas kernels in interpret mode (maps AND overflow counters), and the
+network plan of every MinkUNet-42 and CenterPoint-Large layer on the port
+engines against the JAX search, all integer-exact.
 """
 import dataclasses
 
@@ -17,6 +17,7 @@ from repro.core import zdelta as jzd
 from repro.data import scenes as jscenes
 from repro.kernels.zdelta_window import (
     zdelta_superwindow_search as j_superwindow)
+from repro.kernels.zdelta_window import zdelta_window_search as j_window
 
 from repro_torch.core import packing as tpk
 from repro_torch.core import voxel as tvx
@@ -26,6 +27,7 @@ from repro_torch.core.network_plan import (PLAN_BM, build_network_plan,
 from repro_torch.core.spconv import SpConvSpec
 from repro_torch.kernels.zdelta_window import (
     zdelta_superwindow_search as t_superwindow)
+from repro_torch.kernels.zdelta_window import zdelta_window_search as t_window
 from repro_torch.models import pointcloud as tpc
 from repro_torch.serve import bucket_capacity, bucket_packed
 
@@ -119,6 +121,79 @@ def test_superwindow_input_checks():
     short = tvx.CoordSet(packed=tc[0].packed[:100], count=tc[0].count)
     with pytest.raises(ValueError):
         t_superwindow(tc[0], short, tanch, tz, K=3, W=256)     # M % 128
+
+
+@pytest.mark.parametrize("K", [3, 5])
+@pytest.mark.parametrize("layer", list(LAYERS))
+@pytest.mark.parametrize("W", [256, 512])
+def test_window_plain_matches_pallas_interpret(K, layer, W):
+    """Plain per-group window search == the Pallas kernel (interpret
+    mode): maps and per-(tile, group) overflow counters. The fine inputs
+    overflow both windows on downsampling layers."""
+    jl, tl, jc, tc = _levels()
+    m_in, m_out = LAYERS[layer]
+    stride = 1 << min(m_in, m_out)
+    _, janch, jz = jzd.zdelta_offsets(K, stride, jl)
+    _, tanch, tz = tzd.zdelta_offsets(K, stride, tl, device=CPU)
+    jm, jo = j_window(jc[m_in], jc[m_out], janch, jz, K=K, W=W,
+                      interpret=True)
+    tm, to = t_window(tc[m_in], tc[m_out], tanch, tz, K=K, W=W)
+    assert tm.shape == (tc[m_out].capacity, K ** 3) and to.shape == (
+        tc[m_out].capacity // PLAN_BM, K * K)
+    np.testing.assert_array_equal(N(tm), np.asarray(jm))
+    np.testing.assert_array_equal(N(to), np.asarray(jo))
+    if layer == "down":
+        assert int(to.sum()) > 0
+    if int(to.sum()) == 0:
+        full = tzd.zdelta_search(tc[m_in], tc[m_out], tanch, tz, K=K)
+        assert torch.equal(tm, full)
+
+
+def test_window_input_checks():
+    jl, tl, jc, tc = _levels()
+    _, tanch, tz = tzd.zdelta_offsets(3, 1, tl, device=CPU)
+    with pytest.raises(ValueError):
+        t_window(tc[0], tc[0], tanch, tz, K=3, W=16384)          # W > N
+    short = tvx.CoordSet(packed=tc[0].packed[:100], count=tc[0].count)
+    with pytest.raises(ValueError):
+        t_window(tc[0], short, tanch, tz, K=3, W=256)            # M % 128
+
+
+@pytest.mark.parametrize("engine", ["zdelta_cuda", "zdelta_cuda_window"])
+def test_centerpoint_plan_maps_match(engine):
+    """Every CenterPoint-Large layer (K = 5, hybrid) on a kernel engine
+    equals the ``"zdelta"`` plan; the per-group windows overflow on the
+    fine levels and are repaired cell by cell."""
+    p, jl, tl = _batch_packed(extent=(40, 32, 20))
+    net = tpc.centerpoint_large(width=(8, 8, 8, 8))
+    ref = build_network_plan(T(p), specs=net.specs, layout=tl,
+                             engine="zdelta")
+    plan = build_network_plan(T(p), specs=net.specs, layout=tl,
+                              engine=engine)
+    for s in net.specs:
+        assert torch.equal(plan.kmaps[s.name].m, ref.kmaps[s.name].m), s.name
+    repaired = sum(int(v) for v in plan.stats.values())
+    assert (repaired > 0) == (engine == "zdelta_cuda_window")
+
+
+def test_window_engine_never_takes_the_half_search(monkeypatch):
+    """As in JAX, ``symmetry=True`` on the window engine searches every
+    anchor group (the half-search stays with the superwindow engine)."""
+    from repro_torch.core import network_plan
+    p, jl, tl = _batch_packed()
+    specs = (SpConvSpec("a", 4, 8, K=3, symmetry=True),)
+    groups = []
+    real = network_plan._kernel_map_search
+
+    def spy(inputs, outputs, anchors, zstep, **kw):
+        groups.append((kw["superwindow"], anchors.numel()))
+        return real(inputs, outputs, anchors, zstep, **kw)
+    monkeypatch.setattr(network_plan, "_kernel_map_search", spy)
+    a = build_network_plan(T(p), specs=specs, layout=tl, engine="zdelta_cuda")
+    b = build_network_plan(T(p), specs=specs, layout=tl,
+                           engine="zdelta_cuda_window")
+    assert groups == [(True, tzd.symmetry_anchor_count(3)), (False, 9)]
+    assert torch.equal(a.kmaps["a"].m, b.kmaps["a"].m)
 
 
 # ---------------------------------------------------------------------------

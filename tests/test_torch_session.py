@@ -95,12 +95,13 @@ def test_engines_give_identical_logits():
     jl, clouds = _clouds(extent=(28, 24, 16))
     net = tpc.minkunet42(width=(8, 8, 8, 8))
     outs = []
-    for engine in ("zdelta", "zdelta_cuda"):
+    for engine in ("zdelta", "zdelta_cuda", "zdelta_cuda_window"):
         s = compile_network(net, _tl(jl), batch=2, engine=engine, seed=3,
                             min_bucket=128, device=CPU)
         outs.append(s(SparseTensor.from_point_clouds(clouds, s.layout,
                                                      device=CPU)))
     assert torch.equal(outs[0].features, outs[1].features)
+    assert torch.equal(outs[0].features, outs[2].features)
 
 
 def test_compile_count_is_bucket_count():
@@ -140,10 +141,6 @@ def test_session_rejects_what_it_cannot_run():
         compile_network(net, _tl(jl), tuner="measure", device=CPU)
     with pytest.raises(NotImplementedError):
         s.compile_train()
-    ws_net = tpc.minkunet42(width=(8, 8, 8, 8), dataflow="ws")
-    s_ws = compile_network(ws_net, _tl(jl), batch=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="ws_scatter_gemm"):
-        s_ws(SparseTensor.from_point_clouds(clouds, s_ws.layout, device=CPU))
 
 
 def test_net_factories_match_reference():
