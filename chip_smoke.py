@@ -55,6 +55,28 @@ CenterPoint-Large (hybrid dataflow, t = 3, K = 5), same scenes:
 5b. the plain path (engine "zdelta", backends "torch"): maps equal, logits
    within ``1e-3 * max|logits|``, no kernel launched.
 
+MinkUNet-42 training (the same scenes with 20-class labels, batch 2,
+bucket 262,144):
+
+6. the training kernels at one step's shapes: every OS dF launch over the
+   transposed maps and every dW launch (42 layers and the head) against
+   their plain versions within ``1e-4 * max|ref|``, every segment-sum
+   launch of the step bitwise; then ``ops.output_stationary_fused`` (the
+   masked grouped GEMM kernel) on every layer's forward operands within
+   ``1e-5 * max(1, max|ref|)`` of its plain version and of the OS kernel,
+   timed beside one ``torch.einsum`` on the pre-masked gathered tensor;
+6b. the training main path: ``compile_network(...).compile_train()``,
+   5 steps with every kernel's launches and the kernel-map searches
+   checked per step (one inference plan's, none in the backward), the
+   loss falling, one profiled step, then the session serving the trained
+   weights;
+6c. one step's gradients through the kernels against the plain path on
+   the card, gated relative to the kernel path's own sensitivity to a
+   1e-6 weight perturbation (full-depth gradients at random init are
+   ill-conditioned), and bitwise equal at buckets 262,144 and 524,288;
+6d. the WS dataflow's training at full width: 2 steps (WS forward and dF
+   at Cout 32-256) and its gradients against the plain path as in 6c.
+
 The second-to-last lines are the kernel table as JSON and the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -85,7 +107,16 @@ REPLACES = {
                         "src/repro/kernels/ws_scatter_gemm.py:119"),
     "zdelta_window_search": ("src/repro_torch/csrc/zdelta_window.cu",
                              "src/repro/kernels/zdelta_window.py:130"),
+    "masked_group_gemm": ("src/repro_torch/csrc/masked_group_gemm.cu",
+                          "src/repro/kernels/masked_group_gemm.py:64"),
 }
+# port-only: no pl.pallas_call; the JAX package computes this contraction
+# (_dw_per_offset) in XLA
+PORT_ONLY = {
+    "dw_gather_gemm": ("src/repro_torch/csrc/dw_gather_gemm.cu",
+                       "src/repro/core/dataflow.py:282"),
+}
+TRAIN_STEPS = 5
 
 
 def log(*args) -> None:
@@ -151,7 +182,7 @@ class Recorder:
     """Records the arguments of every kernel launch of one forward by
     wrapping the launching functions where the dispatchers look them up."""
 
-    def __init__(self):
+    def __init__(self, names=None):
         from repro_torch.kernels import ops, segsum, zdelta_window
         self.targets = [(zdelta_window, "zdelta_superwindow_cuda",
                          "zdelta_superwindow_search"),
@@ -159,7 +190,10 @@ class Recorder:
                         (segsum, "segment_sum_cuda", "segment_sum"),
                         (ops, "ws_scatter_gemm", "ws_scatter_gemm"),
                         (zdelta_window, "zdelta_window_cuda",
-                         "zdelta_window_search")]
+                         "zdelta_window_search"),
+                        (ops, "dw_gather_gemm", "dw_gather_gemm")]
+        if names is not None:
+            self.targets = [t for t in self.targets if t[2] in names]
         self.calls = {name: [] for _, _, name in self.targets}
 
     def __enter__(self):
@@ -227,8 +261,10 @@ def check_window(calls) -> dict:
                 bound_by="bytes", library_ms=None)
 
 
-def check_os(calls) -> dict:
-    """OS launches: fp32 within ``1e-5 * max(1, max|ref|)``."""
+def check_os(calls, rel: float = 0.0) -> dict:
+    """OS launches: fp32 within ``1e-5 * max(1, max|ref|)``, or within
+    ``rel * max|ref|`` when ``rel`` is given (gradients, whose scale is far
+    below 1)."""
     from repro_torch.kernels.spconv_gather_gemm import (
         spconv_gather_gemm, spconv_gather_gemm_torch)
     err = t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
@@ -237,7 +273,8 @@ def check_os(calls) -> dict:
         got = spconv_gather_gemm(F, m, W)
         ref = spconv_gather_gemm_torch(F, m, W)
         d = float((got - ref).abs().max())
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        tol = (rel * float(ref.abs().max()) if rel
+               else 1e-5 * max(1.0, float(ref.abs().max())))
         if not d <= tol:
             raise RuntimeError(f"OS launch {i} ({F.shape[1]}->{W.shape[2]}): "
                                f"max|diff| {d} > {tol}")
@@ -255,10 +292,13 @@ def check_os(calls) -> dict:
                 gflop=ops_tot / 1e9)
 
 
-def check_segsum(calls, *, library: bool) -> dict:
+def check_segsum(calls, *, library: bool, gradients: bool = False) -> dict:
     """Segment-sum launches: bitwise equal to the plain version, within
     1e-3 relative of an fp64 sum; ``library`` also times (and scores)
-    ``torch.segment_reduce`` on the same rows."""
+    ``torch.segment_reduce`` on the same rows. ``gradients``: the launches
+    of a backward pass, whose sums cancel, so no fp64 comparison, and the
+    plain version (a loop over chunks, slow for the bias gradients' one
+    capacity-long segment) runs once per launch, untimed."""
     import torch
     from repro_torch.kernels import segsum as segsum_mod
     from repro_torch.kernels.segsum import segment_sum_torch
@@ -273,9 +313,16 @@ def check_segsum(calls, *, library: bool) -> dict:
                                f"(max|diff| {float((got - ref).abs().max())})")
         t_k += cuda_ms(lambda: segsum_mod.segment_sum_cuda(x, sid, starts,
                                                            counts, **kw), 3)
+        rows = int(counts.sum())
+        nb = 4 * (rows * x.shape[1] + got.numel())
+        ops = float(rows * x.shape[1])
+        b_tot += bound_ms(nb, ops)[0]
+        ops_tot += ops
+        bytes_tot += nb
+        if gradients:
+            continue
         t_p += cuda_ms(lambda: segment_sum_torch(x, sid, starts, counts,
                                                  **kw), 2)
-        rows = int(counts.sum())
         exact = torch.stack([x[int(s0):int(s0) + int(c)].double().sum(0)
                              for s0, c in zip(starts, counts)])
         floor = 1e-6 * float(exact.abs().max()) + 1e-30
@@ -294,13 +341,8 @@ def check_segsum(calls, *, library: bool) -> dict:
                                          .max()))
             t_l += cuda_ms(lambda: torch.segment_reduce(xs, "sum",
                                                         lengths=lengths), 3)
-        nb = 4 * (rows * x.shape[1] + got.numel())
-        ops = float(rows * x.shape[1])
-        b_tot += bound_ms(nb, ops)[0]
-        ops_tot += ops
-        bytes_tot += nb
-    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
-                bound_by=bound_ms(bytes_tot, ops_tot)[1],
+    return dict(max_abs_err=0.0, ms=t_k, plain_ms=None if gradients else t_p,
+                bound_ms=b_tot, bound_by=bound_ms(bytes_tot, ops_tot)[1],
                 library_ms=t_l if library else None, f64_rel=f64_rel,
                 lib_rel=lib_rel)
 
@@ -342,6 +384,207 @@ def check_ws(calls) -> dict:
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
                 bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None,
                 gflop=ops_tot / 1e9)
+
+
+def check_dw(calls) -> dict:
+    """dW launches: within ``1e-4 * max|ref|`` of the plain version
+    (``chunked_rowdot`` with the same panel; the kernel adds a panel's
+    rows by fmaf in row order, the library matmul in its own blocking, over
+    up to 262,144 rows)."""
+    from repro_torch.kernels.dw_gather_gemm import (dw_gather_gemm,
+                                                    dw_gather_gemm_torch)
+    err = rel_err = t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
+    for i, (a, kw) in enumerate(calls):
+        F, m, g = a
+        got = dw_gather_gemm(F, m, g)
+        ref = dw_gather_gemm_torch(F, m, g)
+        d = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not d <= 1e-4 * scale:
+            raise RuntimeError(f"dW launch {i} ({F.shape[1]}x{g.shape[1]}, "
+                               f"Kd={m.shape[1]}): max|diff| {d} > 1e-4 * "
+                               f"{scale}")
+        err, rel_err = max(err, d), max(rel_err, d / max(scale, 1e-30))
+        t_k += cuda_ms(lambda: dw_gather_gemm(F, m, g), 2)
+        t_p += cuda_ms(lambda: dw_gather_gemm_torch(F, m, g), 1)
+        nnz = int((m >= 0).sum())
+        ops = 2.0 * nnz * F.shape[1] * g.shape[1]
+        nb = 4 * (F.numel() + m.numel() + g.numel() + got.numel())
+        b_tot += bound_ms(nb, ops)[0]
+        ops_tot += ops
+        bytes_tot += nb
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
+                bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None,
+                rel_err=rel_err, gflop=ops_tot / 1e9)
+
+
+def check_mgg(calls, names) -> dict:
+    """The unfused OS entry point (``ops.output_stationary_fused``: a torch
+    gather into ``[M, Kd, Cin]``, then the masked grouped GEMM kernel) on
+    every layer's forward operands, one layer at a time. Its launches are
+    this path's; the kernel is then held against its plain version and the
+    implicit-GEMM kernel within ``1e-5 * max(1, max|ref|)`` and timed
+    beside them and one ``torch.einsum`` over the pre-masked gathered
+    tensor (the library yardstick; it leaves out the mask multiply)."""
+    import torch
+    from repro_torch.kernels import launch_counts, ops
+    from repro_torch.kernels.masked_group_gemm import (
+        masked_group_gemm, masked_group_gemm_torch)
+    err = t_k = t_p = t_l = b_tot = ops_tot = bytes_tot = dense = 0.0
+    launches = 0
+    for name, (a, kw) in zip(names, calls):
+        F, m, W = a
+        before = launch_counts()["masked_group_gemm"]
+        got = ops.output_stationary_fused(F, m, W)
+        launches += launch_counts()["masked_group_gemm"] - before
+        gathered = F[m.clamp(min=0).long()]
+        ref = masked_group_gemm_torch(m, gathered, W)
+        os_out = ops.spconv_os_fused(F, m, W)
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        d = float((got - ref).abs().max())
+        d_os = float((got - os_out).abs().max())
+        if not (d <= tol and d_os <= tol):
+            raise RuntimeError(f"masked_group_gemm {name}: max|diff| {d} "
+                               f"(plain), {d_os} (OS kernel) > {tol}")
+        err = max(err, d)
+        del ref, os_out
+        t_k += cuda_ms(lambda: masked_group_gemm(m, gathered, W), 2)
+        t_p += cuda_ms(lambda: masked_group_gemm_torch(m, gathered, W), 1)
+        pre = gathered * (m >= 0)[..., None].to(gathered.dtype)
+        t_l += cuda_ms(lambda: torch.einsum("mkc,kcd->md", pre, W), 2)
+        del pre, gathered
+        torch.cuda.empty_cache()
+        nnz = int((m >= 0).sum())
+        ops_ = 2.0 * nnz * F.shape[1] * W.shape[2]
+        nb = 4 * (m.numel() * F.shape[1] + W.numel() + m.numel()
+                  + m.shape[0] * W.shape[2])
+        b_tot += bound_ms(nb, ops_)[0]
+        ops_tot += ops_
+        bytes_tot += nb
+        dense += 2.0 * m.numel() * F.shape[1] * W.shape[2]
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
+                bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=t_l,
+                launches=launches, gflop=ops_tot / 1e9,
+                dense_gflop=dense / 1e9)
+
+
+def rel_l2(a: dict, b: dict) -> float:
+    """‖a − b‖₂ / ‖b‖₂ over all tensors of two gradient dictionaries."""
+    num = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in b)
+    den = sum(float((b[k].double() ** 2).sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+def worst_tensor(a: dict, b: dict) -> tuple:
+    """The tensor whose max|a − b| is largest against its own max|b|."""
+    errs = {k: float((a[k] - b[k]).abs().max())
+            / max(float(b[k].abs().max()), 1e-30) for k in b}
+    k = max(errs, key=errs.get)
+    return k, errs[k]
+
+
+def step_grads(net, layout, engine, seg_backend, model, packed, feats,
+               labels) -> dict:
+    """One plan → forward → loss → backward, no update: the parameter
+    gradients by name."""
+    import torch
+    from repro_torch.kernels.segsum import SegmentSpec
+    from repro_torch.train.pointcloud import make_segmentation_loss_fn
+    fn = make_segmentation_loss_fn(net, layout, engine=engine,
+                                   segment=SegmentSpec(backend=seg_backend))
+    named = dict(model.named_parameters())
+    with torch.enable_grad():
+        loss, _ = fn(model, packed, feats, labels)
+        grads = torch.autograd.grad(loss, list(named.values()))
+    return dict(zip(named, grads))
+
+
+def perturbed(model, net, rel: float, seed: int):
+    """A copy of ``model`` with every weight scaled by (1 + rel·N(0, 1))."""
+    import torch
+    from repro_torch.models import pointcloud as pc
+    out = pc.init_pointcloud(net, device=next(model.parameters()).device)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for p, q in zip(out.parameters(), model.parameters()):
+        p.data.copy_(q * (1 + rel * torch.randn(q.shape, generator=g)
+                          .to(q.device)))
+    return out
+
+
+def grads_vs_plain(label, net, net_plain, layout, model, packed, feats,
+                   labels, card) -> dict:
+    """Phase 6c/6d's gradient gate: one step's parameter gradients through
+    the kernels against the plain path (engine "zdelta", every backend
+    "torch") on the card. Deep BN nets at random init have ill-conditioned
+    gradients, so the gate is calibrated: the kernel path must be no
+    farther from the plain path (relative L2 over all parameters) than the
+    kernel path is from itself when the weights move by 1e-6 relative
+    (and 1e-3 at least). The worst tensor's max|diff| / max|grad| is
+    printed beside it."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    gk = step_grads(net, layout, "zdelta_cuda", "auto", model, packed,
+                    feats, labels)
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    gp = step_grads(net_plain, layout, "zdelta", "torch", model, packed,
+                    feats, labels)
+    if any(launch_counts().values()):
+        raise RuntimeError(f"{label}: plain path launched kernels: "
+                           f"{launch_counts()}")
+    torch.cuda.empty_cache()
+    gs = step_grads(net, layout, "zdelta_cuda", "auto",
+                    perturbed(model, net, 1e-6, 0), packed, feats, labels)
+    torch.cuda.empty_cache()
+    d_plain, d_self = rel_l2(gk, gp), rel_l2(gs, gk)
+    k, worst = worst_tensor(gk, gp)
+    ks, worst_s = worst_tensor(gs, gk)
+    if not all(bool(torch.isfinite(g).all()) for g in gk.values()):
+        raise RuntimeError(f"{label}: non-finite gradients")
+    if not d_plain <= max(1e-3, d_self):
+        raise RuntimeError(f"{label}: kernel vs plain gradients {d_plain:.3e}"
+                           f" relative L2 > max(1e-3, self-sensitivity "
+                           f"{d_self:.3e})")
+    log(f"[{label}] gradients kernel vs plain path: relative L2 "
+        f"{d_plain:.3e} <= max(1e-3, {d_self:.3e} = the kernel path vs "
+        f"itself at weights moved 1e-6); worst tensor {k} max|diff|/max|g| "
+        f"{worst:.2e} (self: {ks} {worst_s:.2e}) | {card}")
+    return gk
+
+
+def train_drive(trainer, st, lab, steps: int, expected: dict,
+                label: str) -> tuple:
+    """The training main path: ``steps`` trainer steps with the launch and
+    search counters set to 0 just before and read just after. Checks
+    finite metrics and, per step, every kernel's launches and the plan's
+    searches. Returns per-step ms, metrics and the whole run's launches."""
+    import torch
+    from repro_torch.core.zdelta import reset_search_calls, search_call_count
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    reset_search_calls()
+    times, metrics = [], []
+    for i in range(steps):
+        before = launch_counts()
+        s0 = search_call_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step(st, lab)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        after = launch_counts()
+        grew = {k: after[k] - before[k] for k in after}
+        if grew != expected:
+            raise RuntimeError(f"{label} step {i}: launches {grew}, "
+                               f"expected {expected}")
+        searches = search_call_count() - s0
+        if searches != expected["zdelta_superwindow_search"]:
+            raise RuntimeError(f"{label} step {i}: {searches} kernel-map "
+                               "searches, expected one plan's")
+        if not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"{label} step {i}: non-finite metrics {m}")
+        metrics.append(m)
+    return times, metrics, launch_counts()
 
 
 def per_forward(r: dict) -> dict:
@@ -789,6 +1032,190 @@ def main() -> int:
     plain_path(cps, pc.centerpoint_large(backend="torch"), st2, outb,
                "5b plain path")
 
+    # == MinkUNet-42 training ================================================
+    from repro_torch.core.zdelta import reset_search_calls, search_call_count
+    from repro_torch.train import labeled_batch
+    t0 = time.perf_counter()
+    lbatch = scenes.scene_batch(seed=0, batch=2, kind="outdoor",
+                                extent=(1024, 1024, 40), overlap=0.5,
+                                labels=True, n_classes=20)
+    tnet = pc.minkunet42(in_channels=4, n_classes=20)
+    plain_tnet = pc.minkunet42(in_channels=4, n_classes=20, backend="torch")
+    s6 = compile_network(tnet, lbatch[0].layout, batch=2, seed=0)
+    tst, tlab = labeled_batch(lbatch, s6.layout)
+    bucket = s6._bucket(tst.capacity)
+    stp = tst.pad_to(bucket)
+    labp = torch.cat([tlab, torch.full((bucket - tlab.shape[0],), -1,
+                                       dtype=torch.int32, device=tlab.device)])
+    log(f"[inputs train] the same 2 scenes with 20-class labels "
+        f"({int((tlab >= 0).sum())} labeled rows), coordinate features, "
+        f"bucket {bucket}, made in {time.perf_counter() - t0:.1f} s")
+
+    # -- 6. training kernels at the main path's shapes ------------------------
+    with Recorder(names=("spconv_gather_gemm", "dw_gather_gemm",
+                         "segment_sum")) as rec:
+        step_grads(tnet, s6.layout, "zdelta_cuda", "auto", s6.params,
+                   stp.packed, stp.features, labp)
+    torch.cuda.synchronize()
+    o = rec.calls["spconv_gather_gemm"]
+    n_l = len(tnet.specs)
+    fwd, bwd = o[:n_l], o[n_l:]
+    if len(bwd) != n_l - 1:
+        raise RuntimeError(f"6: {len(bwd)} OS backward launches, expected "
+                           f"{n_l - 1}")
+    r = check_os(bwd, rel=1e-4)
+    gflop = r.pop("gflop")
+    results["os_df"] = r
+    log(f"[6 os dF] {len(bwd)} launches over the transposed maps within "
+        f"1e-4*max|ref| of the plain version (max|diff| "
+        f"{r['max_abs_err']:.3e}); per step kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({gflop:.1f} "
+        f"GFLOP useful, {gflop / r['ms']:.2f} TFLOP/s) | {card}")
+    dw_calls = rec.calls["dw_gather_gemm"]
+    r = check_dw(dw_calls)
+    gflop, rel = r.pop("gflop"), r.pop("rel_err")
+    results["dw_gather_gemm"] = r
+    log(f"[6 dW] {len(dw_calls)} launches (42 layers + head) within "
+        f"1e-4*max|ref| of chunked_rowdot (max rel diff {rel:.2e}); per "
+        f"step kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful, "
+        f"{gflop / r['ms']:.2f} TFLOP/s) | {card}")
+    s_calls = rec.calls["segment_sum"]
+    r = check_segsum(s_calls, library=False, gradients=True)
+    r.pop("f64_rel"), r.pop("lib_rel")
+    results["segsum_train"] = r
+    log(f"[6 segsum] {len(s_calls)} launches of one step (BN forward, BN "
+        f"backward, bias gradients, loss) bitwise equal to the plain "
+        f"version; per step kernel {r['ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms (plain version not timed)")
+    del rec, o, bwd, dw_calls, s_calls
+    torch.cuda.empty_cache()
+    with Recorder(names=("spconv_gather_gemm",)) as rec:
+        s6(tst)                      # the inference forward's OS operands
+    fwd = rec.calls["spconv_gather_gemm"]
+    del rec
+    r = check_mgg(fwd, [s.name for s in tnet.specs])
+    if r["launches"] != n_l:
+        raise RuntimeError(f"6: output_stationary_fused launched the masked "
+                           f"grouped GEMM {r['launches']} times for {n_l} "
+                           "layers")
+    gflop, dense = r.pop("gflop"), r.pop("dense_gflop")
+    results["masked_group_gemm"] = r
+    log(f"[6 masked_group_gemm] ops.output_stationary_fused on all {n_l} "
+        f"layers' forward operands: {r['launches']} launches, within "
+        f"1e-5*max(1,|ref|) of the plain version and of the OS kernel "
+        f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch.einsum on "
+        f"the pre-masked tensor {r['library_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful; {dense:.1f} "
+        f"GFLOP computed, {dense / r['ms']:.2f} TFLOP/s) | {card}")
+    del fwd, s6
+    torch.cuda.empty_cache()
+
+    # -- 6b. the training main path ------------------------------------------
+    reset_search_calls()
+    sess = compile_network(tnet, lbatch[0].layout, batch=2, seed=0)
+    sess.plan(tst)
+    plan_searches = search_call_count()
+    trainer = sess.compile_train()
+    expected = {k: 0 for k in launch_counts()}
+    expected.update({"zdelta_superwindow_search": n_l,
+                     "spconv_gather_gemm": 2 * n_l - 1,
+                     "segment_sum": 3 * n_l + 1,
+                     "dw_gather_gemm": n_l + 1})
+    if plan_searches != n_l:
+        raise RuntimeError(f"6b: one inference plan ran {plan_searches} "
+                           "searches")
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, counts = train_drive(trainer, tst, tlab, TRAIN_STEPS,
+                                         expected, "6b train")
+    per_step = {k: v for k, v in expected.items() if v}
+    for i, (t, m) in enumerate(zip(times, metrics)):
+        log(f"[6b train] step {i}: {t:.1f} ms, loss {m['loss']:.4f}, "
+            f"accuracy {m['accuracy']:.4f}, grad norm {m['grad_norm']:.4e},"
+            f" lr {m['lr']:.2e}")
+    steady = float(np.median(times[1:]))
+    log(f"[6b train] {tnet.name} full width, batch 2, bucket {bucket}: "
+        f"{TRAIN_STEPS} steps, steady-state {steady:.1f} ms per step "
+        f"(median of steps 1-{TRAIN_STEPS - 1}; first {times[0]:.1f}); "
+        f"launches per step {per_step}, {n_l} kernel-map searches per step "
+        f"= one inference plan's ({plan_searches}), none in the backward; "
+        f"run total {counts} | peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        raise RuntimeError(f"6b: loss did not fall over {TRAIN_STEPS} steps")
+    for k in ("zdelta_superwindow_search", "spconv_gather_gemm",
+              "segment_sum"):
+        paths[k]["minkunet42 train step"] = dict(launches=per_step[k])
+    paths["spconv_gather_gemm"]["minkunet42 train step"].update(
+        dF=per_forward(results.pop("os_df")))
+    paths["segment_sum"]["minkunet42 train step"].update(
+        per_forward(results.pop("segsum_train")))
+    results["dw_gather_gemm"]["launches"] = counts["dw_gather_gemm"]
+    paths["dw_gather_gemm"] = {"minkunet42 train step": dict(
+        launches=per_step["dw_gather_gemm"],
+        **per_forward(results["dw_gather_gemm"]))}
+    paths["masked_group_gemm"] = {"minkunet42 layers (6)": dict(
+        launches=results["masked_group_gemm"]["launches"],
+        **per_forward(results["masked_group_gemm"]))}
+    profile_line("6b", lambda: trainer.step(tst, tlab), steady, card)
+    out = sess(tst)
+    n = int(out.count)
+    if not (tuple(out.features.shape) == (bucket, tnet.n_classes)
+            and bool(torch.isfinite(out.features[:n]).all())):
+        raise RuntimeError("6b: the trained session's logits are not finite "
+                           "or of the wrong shape")
+    acc = float((out.features[:n].argmax(-1) == tlab[:n].long()).float()
+                .mean())
+    log(f"[6b serve] the session serves the trained weights: {n} finite "
+        f"logits, accuracy {acc:.4f}")
+    del trainer, out
+    torch.cuda.empty_cache()
+
+    # -- 6c. gradients on the card -------------------------------------------
+    gk = grads_vs_plain("6c grads", tnet, plain_tnet, sess.layout,
+                        sess.params, stp.packed, stp.features, labp, card)
+    st2 = tst.pad_to(2 * bucket)
+    lab2 = torch.cat([labp, torch.full((bucket,), -1, dtype=torch.int32,
+                                       device=tlab.device)])
+    g2 = step_grads(tnet, sess.layout, "zdelta_cuda", "auto", sess.params,
+                    st2.packed, st2.features, lab2)
+    diff = [k for k in gk if not torch.equal(gk[k], g2[k])]
+    if diff:
+        raise RuntimeError(f"6c: gradients at bucket {2 * bucket} differ "
+                           f"from bucket {bucket} in {diff[:3]}")
+    log(f"[6c zero extension] all {len(gk)} parameter gradients at bucket "
+        f"{2 * bucket} bitwise equal to bucket {bucket}")
+    del gk, g2, st2, lab2, sess
+    torch.cuda.empty_cache()
+
+    # -- 6d. WS backward at full width ---------------------------------------
+    wnet = pc.minkunet42(in_channels=4, n_classes=20, dataflow="ws")
+    wsess = compile_network(wnet, lbatch[0].layout, batch=2, seed=0)
+    wtrainer = wsess.compile_train()
+    expected = {k: 0 for k in launch_counts()}
+    expected.update({"zdelta_superwindow_search": n_l,
+                     "ws_scatter_gemm": 2 * n_l - 1,
+                     "segment_sum": 3 * n_l + 1,
+                     "dw_gather_gemm": n_l + 1})
+    times, metrics, counts = train_drive(wtrainer, tst, tlab, 2, expected,
+                                         "6d ws train")
+    log(f"[6d ws train] {wnet.name} dataflow ws, full width: 2 steps "
+        f"{times[0]:.1f} / {times[1]:.1f} ms, loss {metrics[0]['loss']:.4f}"
+        f" -> {metrics[1]['loss']:.4f}; ws_scatter_gemm launches per step "
+        f"{expected['ws_scatter_gemm']} ({n_l} forward + {n_l - 1} dF over "
+        f"the transposed kept maps, Cout 32-256), run total {counts} | "
+        f"{card}")
+    paths["ws_scatter_gemm"]["minkunet42 ws train step"] = dict(
+        launches=expected["ws_scatter_gemm"], step_ms=times[1])
+    grads_vs_plain("6d ws grads", wnet,
+                   pc.minkunet42(in_channels=4, n_classes=20,
+                                 dataflow="ws", backend="torch"),
+                   wsess.layout, wsess.params, stp.packed, stp.features,
+                   labp, card)
+    del wtrainer, wsess
+    torch.cuda.empty_cache()
+
     # -- result ----------------------------------------------------------------
     table = []
     for name in REPLACES:
@@ -799,6 +1226,13 @@ def main() -> int:
         src, rep = REPLACES[name]
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": launches, **r,
+                      "paths": paths.get(name, {})})
+    for name, (src, rep) in PORT_ONLY.items():
+        r = dict(results[name])
+        launches = r.pop("launches")
+        table.append({"name": name, "route": "cuda", "source": src,
+                      "replaces": rep, "port_only": True,
+                      "launches": launches, **r,
                       "paths": paths.get(name, {})})
     log(json.dumps({"kernels": table}))
     log(card)

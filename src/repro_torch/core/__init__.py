@@ -5,7 +5,8 @@ from .voxel import (CoordSet, build_coord_set, downsample, downsample_all,
 from .zdelta import (zdelta_offsets, zdelta_search, zdelta_search_symmetric,
                      symmetrize_kernel_map, symmetry_anchor_count,
                      expand_half_map, reset_search_calls, search_call_count)
-from .kernel_map import KernelMap, l1_partition, l1_norm_max
+from .kernel_map import (KernelMap, l1_partition, l1_norm_max,
+                         transpose_kernel_map)
 from .dataflow import output_stationary, os_torch
 from .spconv import SpConv, SpConvSpec, init_spconv, apply_spconv
 from .sparse_tensor import SparseTensor, ensure_sparse_tensor

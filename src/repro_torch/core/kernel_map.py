@@ -4,7 +4,8 @@
 ``m[i, k] = j`` means output row i reads input row j through offset δ_k
 (−1: no input); columns are in z-delta group order. The hybrid dataflow's
 dense/sparse offset split is a host-static function of the offset L1 norm
-(Spira §4, property 3).
+(Spira §4, property 3). :func:`transpose_kernel_map` mirrors a map for the
+backward pass (``M[i, k] = j ⇒ Mᵀ[j, mirror(k)] = i``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,38 @@ class KernelMap:
         """Fraction of valid entries per offset column (among valid rows)."""
         return (self.column_counts().to(torch.float32)
                 / self.out_count.to(torch.float32).clamp(min=1.0))
+
+
+def transpose_kernel_map(m: torch.Tensor, *, n_in: int) -> torch.Tensor:
+    """Transposed (mirrored) kernel map: ``mt[j, mirror(k)] = i`` wherever
+    ``m[i, k] = j``, with ``mirror(k) = Kd − 1 − k`` (offset δ → −δ under
+    the z-delta column order); ``n_in`` rows, −1 elsewhere. The backward
+    pass of a sparse convolution runs over it: input j's cotangent reads
+    output i's through −δ_k, so training needs no new kernel-map search.
+
+    One flat int32 scatter over ``M · Kd`` entries. Targets of valid
+    entries never collide (a kernel map is injective per column); invalid
+    entries all land in one extra slot past the end, which is dropped, so
+    no host sync is needed to filter them. For a submanifold map the
+    result equals ``m``.
+
+    Precondition, as in the reference: the columns of ``m`` are a
+    mirror-closed, offset-ordered subset of the K³ grid (the full map or
+    an ``l1_partition`` subset)."""
+    mcap, kd = m.shape
+    # flat targets j * Kd + mirror(k) are int32 in the reference: refuse a
+    # shape whose flat index would wrap instead of corrupting dF silently
+    if (max(n_in, mcap) + 1) * kd >= 2 ** 31:
+        raise ValueError(f"transpose_kernel_map: {n_in}×{kd} flat index "
+                         "overflows int32")
+    dev = m.device
+    mirror = torch.arange(kd - 1, -1, -1, dtype=torch.int64, device=dev)
+    flat = torch.where(m >= 0, m.long() * kd + mirror[None, :], n_in * kd)
+    rows = torch.arange(mcap, dtype=torch.int32, device=dev)
+    mt = torch.full((n_in * kd + 1,), -1, dtype=torch.int32, device=dev)
+    mt.scatter_(0, flat.reshape(-1),
+                rows[:, None].expand(mcap, kd).reshape(-1))
+    return mt[:-1].reshape(n_in, kd)
 
 
 def l1_partition(K: int, stride: int, t: int) -> Tuple[np.ndarray, np.ndarray]:

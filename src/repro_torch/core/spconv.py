@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels.segsum import SegmentSpec, segment_sum
 from .dataflow import (_mask_rows, hybrid, output_stationary,
                        weight_stationary)
 from .kernel_map import KernelMap, l1_norm_max
@@ -85,29 +86,63 @@ def init_spconv(spec: SpConvSpec, *, generator: torch.Generator,
                   None if b is None else b.to(device=device, dtype=dtype))
 
 
+class _BiasAdd(torch.autograd.Function):
+    """``out + bias`` broadcast over the rows: exact in the forward pass.
+    The backward reduces the cotangent over the capacity-sized row axis in
+    a fixed order — a segment sum with one segment covering the buffer
+    (``kernels.segsum``'s canonical schedule) — so ``db`` is bitwise equal
+    across capacity buckets, where autograd's own reduction of a broadcast
+    may regroup with the row count."""
+
+    @staticmethod
+    def forward(ctx, out, bias, backend):
+        ctx.backend = backend
+        ctx.bias_dtype = bias.dtype
+        return out + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        cap, dev = g.shape[0], g.device
+        db = None
+        if ctx.needs_input_grad[1]:
+            i32 = torch.int32
+            db = segment_sum(
+                g, torch.zeros(cap, dtype=i32, device=dev),
+                torch.zeros(1, dtype=i32, device=dev),
+                torch.full((1,), cap, dtype=i32, device=dev),
+                num_segments=1,
+                spec=SegmentSpec(backend=ctx.backend))[0].to(ctx.bias_dtype)
+        return g, db, None
+
+
 def apply_spconv(params: SpConv, spec: SpConvSpec, features: torch.Tensor,
                  kmap: KernelMap) -> torch.Tensor:
     """Feature computation with the spec's dataflow; output rows at and
-    beyond ``kmap.out_count`` are zero."""
+    beyond ``kmap.out_count`` are zero. Differentiable (``core.dataflow``);
+    a submanifold layer's map is its own transpose, so its backward skips
+    the mirror scatter."""
     w = params.weight.to(features.dtype)
     cap = spec.ws_capacity or kmap.m.shape[0]
+    st = spec.submanifold
     if spec.dataflow == "os":
         out = output_stationary(features, kmap.m, w, fuse=spec.fuse_dense,
-                                backend=spec.backend, bm=spec.bm, bn=spec.bn)
+                                backend=spec.backend, bm=spec.bm, bn=spec.bn,
+                                self_transpose=st)
     elif spec.dataflow == "ws":
         out = weight_stationary(features, kmap.m, w, capacity=cap,
-                                backend=spec.backend, bm=spec.bm, bn=spec.bn)
+                                backend=spec.backend, bm=spec.bm, bn=spec.bn,
+                                self_transpose=st)
     elif spec.dataflow == "hybrid":
         out = hybrid(features, kmap, w, K=spec.K, stride=spec.offset_stride,
                      t=spec.t, ws_capacity=cap, fuse_dense=spec.fuse_dense,
-                     backend=spec.backend, bm=spec.bm, bn=spec.bn)
+                     backend=spec.backend, bm=spec.bm, bn=spec.bn,
+                     self_transpose=st)
     else:
         raise ValueError(f"layer {spec.name}: unknown dataflow "
                          f"{spec.dataflow!r}; want os|ws|hybrid")
     if params.bias is not None:
-        # a plain broadcast add: exact in the forward pass (the reference's
-        # rank-1 dot exists for its backward's reduction order)
-        out = out + params.bias.to(features.dtype)
+        out = _BiasAdd.apply(out, params.bias.to(features.dtype),
+                             spec.backend)
         # PAD rows picked up the bias; zero them unless the level is dense
         if not spec.dense:
             out = _mask_rows(out, kmap.out_count)

@@ -10,12 +10,17 @@ plain PyTorch version and a launch counter on its wrapper:
                        (csrc/ws_scatter_gemm.cu)
   segsum             — segment sums under the canonical add schedule
                        (csrc/segsum.cu)
+  masked_group_gemm  — the unfused OS baseline over a gathered
+                       [M, Kd, Cin] tensor (csrc/masked_group_gemm.cu)
+  dw_gather_gemm     — the per-offset weight gradient with the gather
+                       fused in and a fixed row grouping; port-only, no
+                       TPU counterpart (csrc/dw_gather_gemm.cu)
 
 ``ops.resolve_backend`` decides kernel or plain version by backend string
 and tensor device; ``_build`` compiles ``csrc/`` with nvcc on first use.
 """
-from . import (ops, segsum, spconv_gather_gemm, ws_scatter_gemm,
-               zdelta_window)
+from . import (dw_gather_gemm, masked_group_gemm, ops, segsum,
+               spconv_gather_gemm, ws_scatter_gemm, zdelta_window)
 from .segsum import (SegmentSpec, segment_sum, segment_gather,
                      segment_moments, segments_from_sizes,
                      segment_call_count, reset_segment_calls)
@@ -27,6 +32,8 @@ LAUNCHERS = {
     "segment_sum": segsum.segment_sum_cuda,
     "ws_scatter_gemm": ws_scatter_gemm.ws_scatter_gemm,
     "zdelta_window_search": zdelta_window.zdelta_window_cuda,
+    "masked_group_gemm": masked_group_gemm.masked_group_gemm,
+    "dw_gather_gemm": dw_gather_gemm.dw_gather_gemm,
 }
 
 

@@ -10,12 +10,17 @@ Every kernel entry point takes ``backend`` ∈ {"auto", "torch", "cuda"}:
             ``chip_smoke.py`` ask for it on the card to compare).
 
 :func:`resolve_backend` is the single decision point. Nothing falls back:
-a kernel that does not build or launch raises.
+a kernel that does not build or launch raises. Besides the fused OS and WS
+entry points: :func:`spconv_dw_fused`, the per-offset weight gradient
+(gather fused in), and :func:`output_stationary_fused`, the unfused OS
+baseline over a gathered ``[M, Kd, Cin]`` tensor.
 """
 from __future__ import annotations
 
 import torch
 
+from .dw_gather_gemm import dw_gather_gemm, dw_gather_gemm_torch
+from .masked_group_gemm import masked_group_gemm, masked_group_gemm_torch
 from .spconv_gather_gemm import (TILE, spconv_gather_gemm,
                                  spconv_gather_gemm_torch)
 from .ws_scatter_gemm import (CHUNK, TILES_N, ws_scatter_gemm,
@@ -73,3 +78,28 @@ def spconv_ws_fused(features: torch.Tensor, m: torch.Tensor,
     else:
         out = ws_scatter_gemm_torch(features, m, weights, capacity=capacity)
     return out.to(features.dtype)
+
+
+def spconv_dw_fused(features: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+                    *, backend: str = "auto") -> torch.Tensor:
+    """Per-offset weight gradient ``dW[k] = G_kᵀ g`` (``G_k`` the gathered,
+    masked features of offset k) as fp32 ``[Kd, Cin, Cout]``, with the
+    row contraction in fixed panels (``kernels.dw_gather_gemm``): one
+    kernel for all offsets on the card, the panel loop in torch
+    otherwise."""
+    if resolve_backend(backend, features):
+        return dw_gather_gemm(features, m, g)
+    return dw_gather_gemm_torch(features, m, g)
+
+
+def output_stationary_fused(features: torch.Tensor, m: torch.Tensor,
+                            weights: torch.Tensor, *,
+                            backend: str = "auto") -> torch.Tensor:
+    """Unfused OS baseline: a torch gather into ``[M, Kd, Cin]`` (invalid
+    entries gather row 0), then the masked grouped GEMM kernel on the card
+    or its plain version. It materializes the gathered tensor; the fused
+    path is :func:`spconv_os_fused`."""
+    gathered = features[m.clamp(min=0).long()]
+    if resolve_backend(backend, features):
+        return masked_group_gemm(m, gathered, weights)
+    return masked_group_gemm_torch(m, gathered, weights)

@@ -23,6 +23,11 @@ torch — the chunk table, one gather, a q-step masked add chain, then the
 combine loop. It uses no ``torch.sum``; on the CPU it is bitwise equal to
 the JAX reference.
 
+:func:`segment_sum` and :func:`segment_gather` are each other's
+transposes and carry that as their backward passes (the reference's
+custom-VJP pair), so gradients of every per-scene statistic reduce under
+the same schedule, never through a scatter-add.
+
 Input contract: ``sid`` is nondecreasing with ``counts[b]`` rows of value
 ``b`` starting at ``starts[b]``; rows outside every segment (the PAD tail)
 carry ``sid >= num_segments`` (``models.pointcloud.packed_segments``).
@@ -150,13 +155,9 @@ def segment_sum_cuda(x: torch.Tensor, sid: torch.Tensor,
 segment_sum_cuda.launches = 0
 
 
-def segment_sum(x: torch.Tensor, sid: torch.Tensor, starts: torch.Tensor,
-                counts: torch.Tensor, *, num_segments: int,
-                spec: SegmentSpec | None = None) -> torch.Tensor:
-    """Per-segment column sums [num_segments, C] (fp32) of ``x`` [cap, C]
-    under the canonical schedule; the kernel or the plain version by
-    ``spec.backend`` (``kernels.ops.resolve_backend``)."""
-    sp = spec or SegmentSpec()
+def _segment_sum_impl(x: torch.Tensor, sid: torch.Tensor,
+                      starts: torch.Tensor, counts: torch.Tensor,
+                      num_segments: int, sp: SegmentSpec) -> torch.Tensor:
     SEGMENT_CALLS["count"] += 1
     if resolve_backend(sp.backend, x):
         return segment_sum_cuda(x, sid, starts, counts,
@@ -165,15 +166,70 @@ def segment_sum(x: torch.Tensor, sid: torch.Tensor, starts: torch.Tensor,
                              num_segments=num_segments, q=sp.q)
 
 
+def _gather_rows(v: torch.Tensor, sid: torch.Tensor, S: int) -> torch.Tensor:
+    """Row ``sid[r]`` of ``v`` on every row; 0 where ``sid >= S``."""
+    r = v[sid.clamp(0, S - 1).long()]
+    return torch.where((sid < S)[:, None], r, torch.zeros((), dtype=v.dtype,
+                                                          device=v.device))
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Segment sum whose backward is the elementwise segment gather of the
+    cotangent (exact at any alignment and capacity)."""
+
+    @staticmethod
+    def forward(ctx, x, sid, starts, counts, num_segments, sp):
+        ctx.save_for_backward(sid)
+        ctx.S = num_segments
+        ctx.dtype = x.dtype
+        return _segment_sum_impl(x, sid, starts, counts, num_segments, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        (sid,) = ctx.saved_tensors
+        return (_gather_rows(g, sid, ctx.S).to(ctx.dtype), None, None, None,
+                None, None)
+
+
+class _SegmentGather(torch.autograd.Function):
+    """Segment gather whose backward is this engine's segment sum of the
+    cotangent: the transposed reduction keeps the canonical schedule, where
+    autograd would otherwise add a scatter-add."""
+
+    @staticmethod
+    def forward(ctx, v, sid, starts, counts, num_segments, sp):
+        ctx.save_for_backward(sid, starts, counts)
+        ctx.S = num_segments
+        ctx.sp = sp
+        ctx.dtype = v.dtype
+        return _gather_rows(v, sid, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        sid, starts, counts = ctx.saved_tensors
+        dv = _segment_sum_impl(g, sid, starts, counts, ctx.S, ctx.sp)
+        return dv.to(ctx.dtype), None, None, None, None, None
+
+
+def segment_sum(x: torch.Tensor, sid: torch.Tensor, starts: torch.Tensor,
+                counts: torch.Tensor, *, num_segments: int,
+                spec: SegmentSpec | None = None) -> torch.Tensor:
+    """Per-segment column sums [num_segments, C] (fp32) of ``x`` [cap, C]
+    under the canonical schedule; the kernel or the plain version by
+    ``spec.backend`` (``kernels.ops.resolve_backend``). Differentiable: the
+    backward is :func:`segment_gather`'s elementwise broadcast."""
+    return _SegmentSum.apply(x, sid, starts, counts, num_segments,
+                             spec or SegmentSpec())
+
+
 def segment_gather(v: torch.Tensor, sid: torch.Tensor, starts: torch.Tensor,
                    counts: torch.Tensor, *, num_segments: int,
                    spec: SegmentSpec | None = None) -> torch.Tensor:
     """Broadcast per-segment rows ``v`` [S, C] onto the row buffer (rows
-    outside every segment get 0)."""
-    S = num_segments
-    r = v[sid.clamp(0, S - 1).long()]
-    return torch.where((sid < S)[:, None], r, torch.zeros((), dtype=v.dtype,
-                                                          device=v.device))
+    outside every segment get 0). Differentiable: the backward is
+    :func:`segment_sum` with the same spec, never a scatter-add."""
+    return _SegmentGather.apply(v, sid, starts, counts, num_segments,
+                                spec or SegmentSpec())
 
 
 def segments_from_sizes(sizes, cap: int):

@@ -17,6 +17,12 @@ batch, and under zero extension to a larger bucket. The OS and WS kernels
 add each output element's terms in a fixed order, and the head runs over
 fixed-shape row chunks, so a batch of B is bitwise equal to B single runs
 (for WS at lossless capacity: a lossy one drops by position in the batch).
+
+:func:`pointcloud_forward` is differentiable in the parameters and the
+features: every sparse convolution carries its transposed-map backward
+(``core.dataflow``), BN's segment sums and gathers are each other's
+transposes (``kernels.segsum``), and the head's dW reduces in fixed row
+panels, so parameter gradients are bitwise equal across capacity buckets.
 """
 from __future__ import annotations
 
@@ -26,6 +32,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+# HEAD_ROWS and head_matmul are re-exported: the head lives in core.dataflow
+from ..core.dataflow import (HEAD_ROWS, head_matmul,  # noqa: F401
+                             rowdot_matmul)
 from ..core.network_plan import NetworkPlan
 from ..core.packing import BitLayout
 from ..core.spconv import SpConv, SpConvSpec, apply_spconv, init_spconv
@@ -165,9 +174,6 @@ NETWORKS = {
 # parameters + feature pass
 # ---------------------------------------------------------------------------
 
-HEAD_ROWS = 8192   # fixed row-chunk shape of the classifier head
-
-
 class PointCloudModel(nn.Module):
     """Parameters of a :class:`PointCloudNet`: one :class:`SpConv` per
     layer (``layers[spec.name]``) and the classifier ``head``
@@ -253,21 +259,6 @@ def level_segments(plan: NetworkPlan, layout: BitLayout) -> Dict[int, tuple]:
             for m, cs in plan.coords.items()}
 
 
-def head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` over fixed ``[HEAD_ROWS, C]`` row chunks (the last one
-    zero-padded), so every call multiplies the same shape: a library GEMM
-    may pick another algorithm, and another add order, at another row
-    count, and the batched-equals-single contract must not depend on the
-    capacity bucket."""
-    n, c = x.shape
-    chunks = -(-n // HEAD_ROWS)
-    xp = x.new_zeros((chunks * HEAD_ROWS, c))
-    xp[:n] = x
-    out = torch.cat([torch.matmul(xp[i * HEAD_ROWS:(i + 1) * HEAD_ROWS], w)
-                     for i in range(chunks)])
-    return out[:n]
-
-
 def pointcloud_forward(params: PointCloudModel, net: PointCloudNet,
                        plan: NetworkPlan, features: torch.Tensor, *,
                        layout: Optional[BitLayout] = None,
@@ -302,4 +293,7 @@ def pointcloud_forward(params: PointCloudModel, net: PointCloudNet,
             skips[spec.m_out] = x
         if spec.name.startswith("stem"):
             skips[0] = x
-    return head_matmul(x, params.head.to(x.dtype))
+    # the head's dW reduces over the capacity axis: rowdot_matmul keeps that
+    # contraction's grouping capacity-stable (core.dataflow)
+    return rowdot_matmul(x, params.head.to(x.dtype),
+                         backend=net.specs[-1].backend)

@@ -16,6 +16,8 @@ kernel per BN). ``compile_count``
 counts the distinct (bucket, escalation) keys run so far, the counterpart
 of the reference's one jitted executable per key; capturing a CUDA graph
 per bucket is later work (ROADMAP Queue 1).
+:meth:`SpiraSession.compile_train` returns the trainer that updates the
+session's parameters in place (``train.pointcloud``).
 
 A batch of B scenes is bitwise equal to B single-scene calls: the batch
 field is the packed word's most-significant field, so scenes stay
@@ -222,9 +224,24 @@ class SpiraSession:
                 stp.packed, specs=self.net.conv_specs(), layout=self.layout,
                 engine=self.engine, downsample_method=self.downsample_method)
 
-    def compile_train(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP Queue 1, item 6)")
+    def compile_train(self, tcfg=None, *, opt_state=None, guard=None,
+                      ckpt=None, resume: bool = False):
+        """Training entry point: a
+        :class:`~repro_torch.train.PointCloudTrainer` bound to this
+        session. Each ``trainer.step(st, labels)`` pads the batch to the
+        session's bucket, builds the plan once (no autograd), runs forward,
+        masked cross-entropy, the transposed-map backward and AdamW, and
+        updates ``self.params`` in place, so the session serves the trained
+        weights at once. The backward adds no kernel-map search.
+
+        ``guard`` / ``ckpt`` / ``resume`` (the reference's self-healing
+        trainer and checkpoints) are not ported yet and raise."""
+        if guard is not None or ckpt is not None or resume:
+            raise NotImplementedError(
+                "compile_train(guard=/ckpt=/resume=) is not ported yet "
+                "(ROADMAP Queue 1, item 8: train/guard.py, ckpt/manager.py)")
+        from ..train.pointcloud import PointCloudTrainer
+        return PointCloudTrainer(self, tcfg, opt_state=opt_state)
 
     def _bucket(self, n: int) -> int:
         return bucket_capacity(n, min_bucket=self.min_bucket,

@@ -3,15 +3,23 @@ version on the same CUDA tensors, and the session's batched-equals-single
 contract through the kernels. They skip without a card; run them on one
 with ``pytest -m cuda tests/test_torch_cuda_kernels.py`` (README).
 Imports no JAX, so the card's machine needs only torch, numpy and nvcc.
+Training: the masked grouped GEMM and dW kernels against their plain
+versions, OS and WS dF over transposed maps, WS at MinkUNet widths, and a
+``compile_train`` step through the kernels against the plain path.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import packing, voxel, zdelta
+from repro_torch.core import dataflow, packing, voxel, zdelta
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.data import scenes
-from repro_torch.kernels import launch_counts, reset_launch_counts, segsum
+from repro_torch.kernels import (launch_counts, ops, reset_launch_counts,
+                                 segsum)
+from repro_torch.kernels.dw_gather_gemm import (dw_gather_gemm,
+                                                dw_gather_gemm_torch)
+from repro_torch.kernels.masked_group_gemm import (masked_group_gemm,
+                                                   masked_group_gemm_torch)
 from repro_torch.kernels.spconv_gather_gemm import (spconv_gather_gemm,
                                                     spconv_gather_gemm_torch)
 from repro_torch.kernels.ws_scatter_gemm import (ws_scatter_gemm,
@@ -19,7 +27,7 @@ from repro_torch.kernels.ws_scatter_gemm import (ws_scatter_gemm,
 from repro_torch.kernels.zdelta_window import (zdelta_superwindow_search,
                                                zdelta_window_search)
 from repro_torch.core.dataflow import ws_kept_map
-from repro_torch.core.kernel_map import l1_partition
+from repro_torch.core.kernel_map import l1_partition, transpose_kernel_map
 from repro_torch.models import pointcloud as pc
 from repro_torch.serve import compile_network
 
@@ -139,7 +147,8 @@ def test_session_batch_equals_single_on_card(dev):
     assert launch_counts() == {"zdelta_superwindow_search": 42,
                                "spconv_gather_gemm": 42, "segment_sum": 42,
                                "ws_scatter_gemm": 0,
-                               "zdelta_window_search": 0}
+                               "zdelta_window_search": 0,
+                               "masked_group_gemm": 0, "dw_gather_gemm": 0}
     for i, cloud in enumerate(clouds):
         o1 = s(SparseTensor.from_point_clouds([cloud], s.layout,
                                               device=dev)).unbatch()[0]
@@ -274,7 +283,8 @@ def test_centerpoint_session_on_card(dev):
     counts = launch_counts()
     assert counts == {"zdelta_superwindow_search": 20,
                       "spconv_gather_gemm": 17, "segment_sum": 20,
-                      "ws_scatter_gemm": 20, "zdelta_window_search": 0}
+                      "ws_scatter_gemm": 20, "zdelta_window_search": 0,
+                      "masked_group_gemm": 0, "dw_gather_gemm": 0}
     for i, cloud in enumerate(clouds):
         o1 = s(SparseTensor.from_point_clouds([cloud], s.layout,
                                               device=dev)).unbatch()[0]
@@ -291,3 +301,206 @@ def test_centerpoint_session_on_card(dev):
     scale = float(ref.features[:n].abs().max())
     assert float((out_b.features[:n] - ref.features[:n]).abs().max()) <= (
         1e-3 * scale)
+
+
+# ---------------------------------------------------------------------------
+# training: masked grouped GEMM, dW, dF over transposed maps, a train step
+# ---------------------------------------------------------------------------
+
+def _map_case(dev, m_in, m_out, cin, cout, dtype, seed=0):
+    """A K=3 map of an outdoor sweep (sub, down or up), features, weights
+    and an output cotangent."""
+    layout, cs = _levels(dev)
+    _, anchors, zstep = zdelta.zdelta_offsets(3, 1 << min(m_in, m_out),
+                                              layout, device=dev)
+    m = zdelta.zdelta_search(cs[m_in], cs[m_out], anchors, zstep, K=3)
+    g = torch.Generator(device="cpu").manual_seed(seed + cin + cout)
+    F = torch.randn((cs[m_in].capacity, cin), generator=g).to(dev, dtype)
+    W = (torch.randn((27, cin, cout), generator=g) / (27 * cin) ** 0.5).to(
+        dev, dtype)
+    ct = torch.randn((m.shape[0], cout), generator=g).to(dev, dtype)
+    return F, m, W, ct
+
+
+def _close(got, ref, dtype):
+    scale = float(ref.float().abs().max())
+    tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
+    assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("M,cin,cout", [(1000, 32, 64), (777, 17, 20),
+                                        (4096, 96, 96), (130, 4, 32),
+                                        (640, 256, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_group_gemm_kernel_matches_plain(dev, M, cin, cout, dtype):
+    """Ragged M and Cout, Cin on and off the 16-byte staging path."""
+    g = torch.Generator(device="cpu").manual_seed(M + cin)
+    m = torch.randint(-1, M, (M, 27), generator=g, dtype=torch.int32).to(dev)
+    gathered = torch.randn((M, 27, cin), generator=g).to(dev, dtype)
+    W = (torch.randn((27, cin, cout), generator=g) / (27 * cin) ** 0.5).to(
+        dev, dtype)
+    got = masked_group_gemm(m, gathered, W)
+    ref = masked_group_gemm_torch(m, gathered, W)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, cout)
+    _close(got, ref, dtype)
+
+
+def test_masked_group_gemm_kernel_masks_by_multiply(dev):
+    m = torch.tensor([[0, -1], [1, 1]], dtype=torch.int32, device=dev)
+    gathered = torch.ones((2, 2, 16), device=dev)
+    gathered[0, 1, 3] = float("inf")
+    W = torch.ones((2, 16, 8), device=dev)
+    got = masked_group_gemm(m, gathered, W)
+    assert torch.isnan(got[0]).all()
+    assert torch.equal(got[1], torch.full((8,), 32.0, device=dev))
+
+
+def test_output_stationary_fused_on_card(dev):
+    F, m, W, _ = _map_case(dev, 0, 0, 32, 48, torch.float32)
+    got = ops.output_stationary_fused(F, m, W)
+    _close(got, ops.spconv_os_fused(F, m, W), torch.float32)
+    _close(got, ops.output_stationary_fused(F, m, W, backend="torch"),
+           torch.float32)
+
+
+@pytest.mark.parametrize("m_in,m_out,cin,cout", [(0, 0, 32, 32),
+                                                 (0, 1, 17, 70),
+                                                 (1, 0, 96, 96),
+                                                 (0, 0, 4, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_kernel_matches_plain(dev, m_in, m_out, cin, cout, dtype):
+    F, m, _, ct = _map_case(dev, m_in, m_out, cin, cout, dtype)
+    got = dw_gather_gemm(F, m, ct)
+    ref = dw_gather_gemm_torch(F, m, ct)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (27, cin, cout)
+    _close(got, ref, dtype)
+
+
+def test_dw_kernel_is_zero_extension_invariant(dev):
+    """Rows appended with m = -1 and any cotangent change no bit of dW; the
+    head's identity map likewise with zero rows."""
+    F, m, _, ct = _map_case(dev, 0, 0, 48, 40, torch.float32)
+    a = dw_gather_gemm(F, m, ct)
+    M = m.shape[0]
+    m2 = torch.cat([m, torch.full((3 * M + 77, 27), -1, dtype=torch.int32,
+                                  device=dev)])
+    ct2 = torch.cat([ct, torch.randn((3 * M + 77, 40), device=dev)])
+    assert torch.equal(dw_gather_gemm(F, m2, ct2), a)
+    rows = torch.arange(M, dtype=torch.int32, device=dev)[:, None]
+    x = torch.randn((M, 24), device=dev)
+    h = dw_gather_gemm(x, rows, ct)
+    rows2 = torch.arange(2 * M, dtype=torch.int32, device=dev)[:, None]
+    x2 = torch.cat([x, torch.zeros_like(x)])
+    assert torch.equal(dw_gather_gemm(x2, rows2, torch.cat([ct, ct])), h)
+
+
+def _layer_grads(flow, F, m, W, ct, backend, cap=None):
+    f = F.clone().requires_grad_()
+    w = W.clone().requires_grad_()
+    if flow == "os":
+        out = dataflow.output_stationary(f, m, w, backend=backend)
+    else:
+        out = dataflow.weight_stationary(f, m, w, capacity=cap,
+                                         backend=backend)
+    return torch.autograd.grad((out.float() * ct.float()).sum(), (f, w))
+
+
+@pytest.mark.parametrize("m_in,m_out", [(0, 0), (0, 1), (1, 0)])
+@pytest.mark.parametrize("flow", ["os", "ws"])
+def test_df_over_transposed_map_matches_plain(dev, flow, m_in, m_out):
+    """dF (the forward kernel over the transposed map) and dW through the
+    kernels against the plain path, lossless and lossy WS."""
+    F, m, W, ct = _map_case(dev, m_in, m_out, 32, 48, torch.float32)
+    caps = ([None] if flow == "os"
+            else [m.shape[0], int((m >= 0).sum(0).max()) // 2])
+    for cap in caps:
+        reset_launch_counts()
+        gk = _layer_grads(flow, F, m, W, ct, "cuda", cap)
+        n = launch_counts()
+        kern = "spconv_gather_gemm" if flow == "os" else "ws_scatter_gemm"
+        assert n[kern] == 2 and n["dw_gather_gemm"] == 1
+        gp = _layer_grads(flow, F, m, W, ct, "torch", cap)
+        for a, b in zip(gk, gp):
+            _close(a, b, torch.float32)
+    mt = transpose_kernel_map(m, n_in=F.shape[0])
+    if m_in == m_out:
+        assert torch.equal(mt, m)
+
+
+@pytest.mark.parametrize("cout", [96, 128, 256])
+def test_ws_kernel_at_minkunet_widths(dev, cout):
+    """Cout beyond the 64-wide tile is tiled, not cut."""
+    F, m, W, _ = _map_case(dev, 0, 0, 96, cout, torch.float32)
+    for cap in (m.shape[0], int((m >= 0).sum(0).max()) // 2):
+        got = ws_scatter_gemm(F, m, W, capacity=cap)
+        ref = ws_scatter_gemm_torch(F, m, W, capacity=cap)
+        torch.cuda.synchronize()
+        _close(got, ref, torch.float32)
+
+
+def _rel_l2(a: dict, b: dict) -> float:
+    """‖a − b‖₂ / ‖b‖₂ over all tensors of two gradient dictionaries."""
+    num = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in b)
+    den = sum(float((b[k].double() ** 2).sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+def test_compile_train_step_on_card(dev):
+    """A MinkUNet step through the kernels: every kernel of the path
+    launches, the backward adds no search, and the gradients agree with
+    the plain path (engine "zdelta", backends "torch") on the same card.
+    Deep BN nets at random init have ill-conditioned gradients, so the
+    agreement is calibrated: the kernel path is no farther from the plain
+    path (relative L2 over all parameters) than the kernel path is from
+    itself when the weights move by 1e-6 relative."""
+    from repro_torch.train import labeled_batch
+    from repro_torch.train.pointcloud import make_segmentation_loss_fn
+    batch = scenes.scene_batch(seed=3, batch=2, kind="outdoor",
+                               extent=(160, 160, 32), overlap=0.5,
+                               labels=True, n_classes=8)
+    net = pc.minkunet42(width=(16, 16, 32, 32), n_classes=8)
+    s = compile_network(net, batch[0].layout, batch=2, device=dev)
+    st, lab = labeled_batch(batch, s.layout, device=dev)
+    trainer = s.compile_train()
+    zdelta.reset_search_calls()
+    reset_launch_counts()
+    m = trainer.step(st, lab)
+    counts = launch_counts()
+    assert np.isfinite(m["loss"]) and zdelta.search_call_count() == 42
+    assert counts["zdelta_superwindow_search"] == 42
+    # forward 42 + dF of every layer but the stem's (its input needs none)
+    assert counts["spconv_gather_gemm"] == 42 + 41
+    # 42 conv layers and the head
+    assert counts["dw_gather_gemm"] == 43
+    # BN forward + its gather's backward per layer, bias grads, the loss
+    assert counts["segment_sum"] == 42 + 42 + 42 + 1
+    out = s(st)
+    assert bool(torch.isfinite(out.features[:int(out.count)]).all())
+
+    plain_net = pc.minkunet42(width=(16, 16, 32, 32), n_classes=8,
+                              backend="torch")
+    stp = st.pad_to(s._bucket(st.capacity))
+    labp = torch.cat([lab, torch.full((stp.capacity - lab.shape[0],), -1,
+                                      dtype=torch.int32, device=dev)])
+
+    def grads(net_, engine, seg_backend, model):
+        fn = make_segmentation_loss_fn(
+            net_, s.layout, engine=engine,
+            segment=segsum.SegmentSpec(backend=seg_backend))
+        named = dict(model.named_parameters())
+        loss, _ = fn(model, stp.packed, stp.features, labp)
+        return dict(zip(named, torch.autograd.grad(loss,
+                                                   list(named.values()))))
+
+    gk = grads(net, "zdelta_cuda", "auto", s.params)
+    gp = grads(plain_net, "zdelta", "torch", s.params)
+    pert = pc.init_pointcloud(net, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    with torch.no_grad():
+        for p, q in zip(pert.parameters(), s.params.parameters()):
+            p.copy_(q * (1 + 1e-6 * torch.randn(q.shape, generator=g)
+                         .to(dev)))
+    gs = grads(net, "zdelta_cuda", "auto", pert)
+    assert _rel_l2(gk, gp) <= max(1e-3, _rel_l2(gs, gk))

@@ -139,8 +139,8 @@ def test_session_rejects_what_it_cannot_run():
                                          device=CPU))
     with pytest.raises(NotImplementedError):
         compile_network(net, _tl(jl), tuner="measure", device=CPU)
-    with pytest.raises(NotImplementedError):
-        s.compile_train()
+    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+        s.compile_train(guard=True)
 
 
 def test_net_factories_match_reference():
