@@ -77,6 +77,29 @@ bucket 262,144):
 6d. the WS dataflow's training at full width: 2 steps (WS forward and dF
    at Cout 32-256) and its gradients against the plain path as in 6c.
 
+yi-9b LM serving (48 layers, d_model 4096, 32 heads, GQA kv 4, head dim
+128, bf16; random weights from a seeded generator on the card):
+
+7. the flash attention kernel against its plain version on the card: the
+   JAX kernel sweep's shapes through ``ops.attention`` in fp32 and bf16
+   (fp32 within ``1e-5 * max(1, max|ref|)``, bf16 within ``2e-2``
+   relative), then every prefill launch of the 7b run (recorded while it
+   ran); each shape timed with CUDA events beside its plain version, its
+   bound and ``scaled_dot_product_attention`` (the library yardstick,
+   never called by the port);
+7b. the main path: ``ServeEngine(batch_slots=4, cache_len=4096)`` serving
+   8 requests with prompts drawn as ``launch/serve.py`` draws them and 2
+   long prompts of 1024 and 2000 tokens, 16 greedy tokens each — finite
+   logits, 48 flash attention launches per prefill and none per decode
+   step; ms per prefill by length, ms per decode step, tokens/s; one
+   profiled decode step and one profiled 2000-token prefill;
+7c. the same weights on the plain path (``backend="torch"``): no kernel
+   launched; the 2000-token prompt's prefill logits and 16 decode steps
+   teacher-forced on 7b's tokens no farther (relative L2) from the plain
+   bf16 path than that path is from the same weights run in fp32 (both
+   distances printed, and the kernel path's distance in fp32); greedy
+   agreement printed, not gated (random-init logits have near-ties).
+
 The second-to-last lines are the kernel table as JSON and the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -95,6 +118,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12         # H100 SXM fp32, CUDA cores
+PEAK_BF16_PER_S = 989e12        # H100 SXM bf16 dense, tensor cores
 LOSSY_CAPACITY = 32768          # below s2_b0a's largest WS column (63,255)
 REPLACES = {
     "zdelta_superwindow_search": ("src/repro_torch/csrc/zdelta_superwindow.cu",
@@ -109,6 +133,8 @@ REPLACES = {
                              "src/repro/kernels/zdelta_window.py:130"),
     "masked_group_gemm": ("src/repro_torch/csrc/masked_group_gemm.cu",
                           "src/repro/kernels/masked_group_gemm.py:64"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:79"),
 }
 # port-only: no pl.pallas_call; the JAX package computes this contraction
 # (_dw_per_offset) in XLA
@@ -117,6 +143,10 @@ PORT_ONLY = {
                        "src/repro/core/dataflow.py:282"),
 }
 TRAIN_STEPS = 5
+LM_ARCH = "yi-9b"
+LM_SLOTS, LM_CACHE, LM_MAX_NEW = 4, 4096, 16
+LM_LONG = (1024, 2000)          # long prompts: multi-tile causal work
+DEV = "cuda"
 
 
 def log(*args) -> None:
@@ -184,6 +214,7 @@ class Recorder:
 
     def __init__(self, names=None):
         from repro_torch.kernels import ops, segsum, zdelta_window
+        from repro_torch.models import layers
         self.targets = [(zdelta_window, "zdelta_superwindow_cuda",
                          "zdelta_superwindow_search"),
                         (ops, "spconv_gather_gemm", "spconv_gather_gemm"),
@@ -191,7 +222,8 @@ class Recorder:
                         (ops, "ws_scatter_gemm", "ws_scatter_gemm"),
                         (zdelta_window, "zdelta_window_cuda",
                          "zdelta_window_search"),
-                        (ops, "dw_gather_gemm", "dw_gather_gemm")]
+                        (ops, "dw_gather_gemm", "dw_gather_gemm"),
+                        (layers, "flash_attention", "flash_attention")]
         if names is not None:
             self.targets = [t for t in self.targets if t[2] in names]
         self.calls = {name: [] for _, _, name in self.targets}
@@ -657,14 +689,15 @@ def drive(session, inputs, expected: dict, label: str, kind: str,
     return outb, hb, times, counts
 
 
-def profile_line(label: str, fn, steady: float, card: str) -> None:
+def profile_line(label: str, fn, steady: float, card: str,
+                 what: str = "batch2") -> None:
     """One call under the profiler: the device's busy and idle share of
     the unprofiled ``steady`` ms, and the top device entries by name."""
     wall, dev_ms = profile_call(fn)
     busy = sum(dev_ms.values())
     if busy > 0:
         top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
-        log(f"[{label} profile] batch2 under torch.profiler: wall "
+        log(f"[{label} profile] {what} under torch.profiler: wall "
             f"{wall:.1f} ms, device busy {busy:.1f} ms = {busy / steady:.1%} "
             f"of the unprofiled {steady:.1f} ms call (idle share "
             f"{1 - busy / steady:.1%}) | {card}")
@@ -710,6 +743,350 @@ def plain_path(session, net_plain, st, out_kernel, label: str) -> float:
         f"max|diff| {d:.3e} vs 1e-3 * max|logits| = {1e-3 * scale:.3e} "
         f"({d / scale:.2e} relative); no kernel launched")
     return d / scale
+
+def attention_bound(q, k, causal: bool) -> tuple:
+    """(bound ms, operations, basis) of one attention call: q, k, v read
+    once and the output written once, over the HBM rate; 4 * B * H * Sq *
+    Skv * D operations, halved under causal masking, over the bf16
+    tensor-core peak for bf16 inputs and the fp32 CUDA-core peak for
+    fp32."""
+    import torch
+    B, Sq, H, D = q.shape
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    ops = 4.0 * B * H * Sq * k.shape[1] * D * (0.5 if causal else 1.0)
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (tb, ops, "bytes") if tb >= to else (to, ops, "operations")
+
+
+def sdpa_call(q, k, v, causal: bool, scale: float):
+    """``scaled_dot_product_attention`` on the same function ([B, heads, S,
+    D] views, GQA by ``enable_gqa``, the causal diagonal at the end of the
+    keys): the library yardstick, timed here and never called by the
+    port."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    Sq, Skv = q.shape[1], k.shape[1]
+    mask = None
+    if causal and Sq != Skv:
+        mask = torch.ones((Sq, Skv), dtype=torch.bool,
+                          device=q.device).tril(Skv - Sq)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        scale=scale, enable_gqa=True)
+
+
+def attention_close(got, ref, what: str) -> float:
+    """fp32 within ``1e-5 * max(1, max|ref|)``, bf16 within ``2e-2``
+    relative; returns max|diff|."""
+    import torch
+    d = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    tol = (1e-5 * max(1.0, scale) if got.dtype == torch.float32
+           else 2e-2 * max(scale, 1e-30))
+    if not (bool(torch.isfinite(got.float()).all()) and d <= tol):
+        raise RuntimeError(f"flash attention {what}: max|diff| {d} > {tol}")
+    return d
+
+
+def time_attention(q, k, v, kw: dict) -> dict:
+    """Kernel, plain version and SDPA ms of one call, and its bound."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    b, ops, by = attention_bound(q, k, kw["causal"])
+    return dict(ms=cuda_ms(lambda: flash_attention(q, k, v, **kw), 5),
+                plain_ms=cuda_ms(lambda: flash_attention_torch(q, k, v, **kw),
+                                 2),
+                library_ms=cuda_ms(sdpa_call(q, k, v, kw["causal"],
+                                             kw["scale"]), 5),
+                bound_ms=b, bound_by=by, gflop=ops / 1e9)
+
+
+def check_flash(calls) -> dict:
+    """Every recorded launch against the plain version; each distinct
+    shape (a prefill's 48 layers share one) timed once, its times counted
+    for every launch of that shape. Returns the sums and, by query
+    length, the per-prefill numbers."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    err = 0.0
+    by_len: dict = {}
+    for i, (a, kw) in enumerate(calls):
+        q, k, v = a
+        got = flash_attention(q, k, v, **kw)
+        ref = flash_attention_torch(q, k, v, **kw)
+        err = max(err, attention_close(got, ref, f"launch {i} "
+                                       f"{tuple(q.shape)}"))
+        del got, ref
+        S = q.shape[1]
+        if S not in by_len:
+            by_len[S] = dict(launches=0, **time_attention(q, k, v, kw))
+        by_len[S]["launches"] += 1
+    tot = {key: sum(r[key] * r["launches"] for r in by_len.values())
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "gflop")}
+    by = "operations" if any(r["bound_by"] == "operations"
+                             for r in by_len.values()) else "bytes"
+    return dict(max_abs_err=err, bound_by=by, **tot, by_len=by_len)
+
+
+def lm_serve(eng, reqs) -> tuple:
+    """The LM main path: ``eng.run(reqs)`` with the launch counters set to 0
+    just before and read just after, and ``transformer.prefill`` /
+    ``decode_step`` wrapped to time each call (synchronised), count its
+    flash attention launches and check its logits finite. Returns the
+    wall seconds, the launch counts and the per-call records."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tf
+    calls = {"prefill": [], "decode": []}
+    saved = tf.prefill, tf.decode_step
+
+    def timed(kind, fn):
+        def wrapped(*a, **kw):
+            before = launch_counts()["flash_attention"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, st = fn(*a, **kw)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            if not bool(torch.isfinite(logits).all()):
+                raise RuntimeError(f"7b: non-finite logits from {kind}")
+            n = a[2]["tokens"].shape[1] if kind == "prefill" else 1
+            calls[kind].append(
+                (n, dt, launch_counts()["flash_attention"] - before))
+            return logits, st
+        return wrapped
+
+    tf.prefill = timed("prefill", saved[0])
+    tf.decode_step = timed("decode", saved[1])
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run(list(reqs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        tf.prefill, tf.decode_step = saved
+    return wall, counts, calls
+
+
+def teacher_forced(params, cfg, prompt, forced, backend: str):
+    """The prompt's last-position prefill logits, then the logits of one
+    decode step per token of ``forced`` fed in order: ``[1 + n, vocab]``
+    fp32."""
+    import torch
+    from repro_torch.models import transformer as tf
+    tok = torch.as_tensor(prompt[None], device=DEV)
+    logits, st = tf.prefill(params, cfg, {"tokens": tok},
+                            len(prompt) + len(forced), backend=backend)
+    rows = [logits[0, -1].float()]
+    for i, t in enumerate(forced):
+        logits, st = tf.decode_step(
+            params, cfg, st, {"tokens": torch.tensor([[t]], device=DEV)},
+            len(prompt) + i)
+        rows.append(logits[0, -1].float())
+    return torch.stack(rows)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def rel_max(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def lm_phases(results: dict, paths: dict, card: str) -> None:
+    """yi-9b serving: phases 7 (the kernel against its plain version), 7b
+    (the main path) and 7c (the plain path); fills ``results`` and
+    ``paths`` for the kernel table."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine
+
+    # -- 7 (sweep). the JAX kernel sweep's shapes through ops.attention ------
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    sweep = [((2, 256, 64), (2, 256, 64), True),
+             ((2, 256, 64), (2, 256, 64), False),
+             ((1, 512, 128), (1, 512, 128), True),
+             ((4, 128, 256), (4, 128, 256), True),
+             ((2, 128, 64), (2, 512, 64), True)]
+    sweep_paths = {}
+    for shp_q, shp_k, causal in sweep:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(s_, generator=gen, device=DEV).to(dt)
+                       for s_ in (shp_q, shp_k, shp_k))
+            got = ops.attention(q, k, v, causal=causal)
+            ref = ops.attention(q, k, v, causal=causal, backend="torch")
+            d = attention_close(got, ref, f"sweep {shp_q} {shp_k}")
+            kw = dict(causal=causal, scale=shp_q[-1] ** -0.5)
+            r = time_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                               kw)
+            name = (f"{shp_q[0]}x{shp_q[1]}x{shp_k[1]}x{shp_q[2]} "
+                    f"{'causal' if causal else 'full'} {str(dt)[6:]}")
+            sweep_paths[name] = {key: r[key] for key in
+                                 ("ms", "plain_ms", "library_ms", "bound_ms")}
+            log(f"[7 flash sweep {name}] max|diff| {d:.3e}; kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['gflop'] / r['ms']:.2f} TFLOP/s")
+    del q, k, v, got, ref
+
+    # -- the LM main path's inputs -------------------------------------------
+    t0 = time.perf_counter()
+    cfg = configs.get_config(LM_ARCH)
+    params = tf.init_params(cfg, 0, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (int(rng.integers(4, 48)),))
+               .astype(np.int32) for _ in range(8)]
+    prompts += [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+                for n in LM_LONG]
+    reqs = [Request(prompt=p_, max_new=LM_MAX_NEW) for p_ in prompts]
+    log(f"[inputs lm] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv}, head dim "
+        f"{cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; "
+        f"{n_params / 1e9:.2f} B random parameters from seed 0 on the card "
+        f"in {time.perf_counter() - t0:.1f} s; prompts "
+        f"{[len(p_) for p_ in prompts]} tokens, {LM_MAX_NEW} greedy tokens "
+        f"each, {LM_SLOTS} slots, cache {LM_CACHE}")
+    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS, cache_len=LM_CACHE)
+    for p_ in (prompts[0], prompts[-1]):      # warm-up, outside the counts
+        tf.prefill(params, cfg, {"tokens": torch.as_tensor(p_[None],
+                                                           device=DEV)},
+                   LM_CACHE)
+    torch.cuda.synchronize()
+
+    # -- 7b. main path -------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(names=("flash_attention",)) as rec:
+        wall, counts, calls = lm_serve(eng, reqs)
+    pre, dec = calls["prefill"], calls["decode"]
+    others = {k_: v_ for k_, v_ in counts.items()
+              if v_ and k_ != "flash_attention"}
+    if others or counts["flash_attention"] != cfg.n_layers * len(reqs):
+        raise RuntimeError(f"7b: launches {counts}, expected "
+                           f"{cfg.n_layers * len(reqs)} flash_attention only")
+    bad = [c for c in pre if c[2] != cfg.n_layers] + [c for c in dec if c[2]]
+    if bad or len(pre) != len(reqs):
+        raise RuntimeError(f"7b: per-call flash launches {bad} (want "
+                           f"{cfg.n_layers} per prefill, 0 per decode step)")
+    if not all(len(r.out) == LM_MAX_NEW and r.done
+               and all(0 <= t < cfg.vocab for t in r.out) for r in reqs):
+        raise RuntimeError("7b: a request did not finish with "
+                           f"{LM_MAX_NEW} tokens in the vocabulary")
+    n_tok = sum(len(r.out) for r in reqs)
+    dec_ms = [c[1] for c in dec]
+    pre_ms = {n: ms for n, ms, _ in pre}
+    log(f"[7b main path] {cfg.name} full width, ServeEngine(batch_slots="
+        f"{LM_SLOTS}, cache_len={LM_CACHE}): {len(reqs)} requests, {n_tok} "
+        f"tokens in {wall * 1e3:.1f} ms = {n_tok / wall:.1f} tokens/s; "
+        f"launches {counts} ({cfg.n_layers} flash_attention per prefill, 0 "
+        f"per decode step over {len(dec)} steps); logits finite | {card} | "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"[7b main path] ms per prefill by prompt length: "
+        + ", ".join(f"{n}: {ms:.2f}" for n, ms in sorted(pre_ms.items())))
+    log(f"[7b main path] ms per decode step ({LM_SLOTS} slots): median "
+        f"{float(np.median(dec_ms)):.2f}, first {dec_ms[0]:.2f}, min "
+        f"{min(dec_ms):.2f}, max {max(dec_ms):.2f}")
+    toks = torch.tensor([[r.out[-1]] for r in reqs[:LM_SLOTS]],
+                        device=DEV)
+    profile_line("7b", lambda: tf.decode_step(
+        params, cfg, eng.state, {"tokens": toks},
+        torch.as_tensor(eng.pos.copy())), float(np.median(dec_ms)), card,
+        what="one decode step (4 slots)")
+    long_tok = torch.as_tensor(prompts[-1][None], device=DEV)
+    profile_line("7b", lambda: tf.prefill(params, cfg, {"tokens": long_tok},
+                                          LM_CACHE),
+                 pre_ms[LM_LONG[-1]], card,
+                 what=f"one {LM_LONG[-1]}-token prefill")
+    again = {}                  # each length once more, after the run
+    for p_ in prompts:
+        tok = torch.as_tensor(p_[None], device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tf.prefill(params, cfg, {"tokens": tok}, LM_CACHE)
+        torch.cuda.synchronize()
+        again[len(p_)] = (time.perf_counter() - t0) * 1e3
+    log(f"[7b main path] ms per prefill by prompt length, called again "
+        f"after the run: "
+        + ", ".join(f"{n}: {ms:.2f}" for n, ms in sorted(again.items())))
+
+    # -- 7 (yi-9b). every prefill launch of the main path ---------------------
+    f_calls = rec.calls["flash_attention"]
+    del rec
+    r = check_flash(f_calls)
+    by_len = r.pop("by_len")
+    gflop = r.pop("gflop")
+    results["flash_attention"] = dict(r, launches=counts["flash_attention"])
+    log(f"[7 flash {cfg.name}] {len(f_calls)} prefill launches within 2e-2 "
+        f"relative of the plain version (max|diff| {r['max_abs_err']:.3e}); "
+        f"over the run kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+        f"ms, SDPA {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']}; {gflop:.1f} GFLOP, {gflop / r['ms']:.2f} "
+        f"TFLOP/s) | {card}")
+    for n, rr in sorted(by_len.items()):
+        log(f"[7 flash {cfg.name} S={n}] per prefill ({rr['launches']} "
+            f"launches): kernel {rr['ms'] * rr['launches']:.3f} ms, plain "
+            f"{rr['plain_ms'] * rr['launches']:.3f} ms, SDPA "
+            f"{rr['library_ms'] * rr['launches']:.3f} ms, bound "
+            f"{rr['bound_ms'] * rr['launches']:.4f} ms ({rr['bound_by']}), "
+            f"{rr['gflop'] / rr['ms']:.2f} TFLOP/s")
+    paths["flash_attention"] = {
+        f"{cfg.name} prefill S={n}": {
+            "launches": rr["launches"],
+            **{k_: rr[k_] * rr["launches"]
+               for k_ in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+        for n, rr in sorted(by_len.items())}
+    paths["flash_attention"].update(
+        {f"sweep {k_}": v_ for k_, v_ in sweep_paths.items()})
+    del f_calls
+    torch.cuda.empty_cache()
+
+    # -- 7c. the plain path ----------------------------------------------------
+    long_req = reqs[-1]
+    forced = long_req.out[:LM_MAX_NEW]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lk = teacher_forced(params, cfg, prompts[-1], forced, "auto")
+    lk32 = teacher_forced(params, cfg32, prompts[-1], forced, "auto")
+    reset_launch_counts()
+    lp = teacher_forced(params, cfg, prompts[-1], forced, "torch")
+    lf = teacher_forced(params, cfg32, prompts[-1], forced, "torch")
+    if any(launch_counts().values()):
+        raise RuntimeError(f"7c: the plain path launched kernels: "
+                           f"{launch_counts()}")
+    l2 = lambda a, b: rel_l2({0: a}, {0: b})  # noqa: E731
+    d_kp, d_pf = l2(lk, lp), l2(lp, lf)
+    if not d_kp <= d_pf:
+        raise RuntimeError(f"7c: kernel path vs plain bf16 path {d_kp:.3e} "
+                           f"> plain bf16 vs fp32 {d_pf:.3e} (relative L2)")
+    agree = lambda a, b: int((a.argmax(-1) == b.argmax(-1)).sum())  # noqa
+    served = torch.tensor(long_req.out, device=DEV)
+    log(f"[7c plain path] {LM_LONG[-1]}-token prompt, prefill + "
+        f"{len(forced)} decode steps teacher-forced on 7b's tokens, "
+        f"relative L2 over the {len(lk)} logit rows: kernel path vs plain "
+        f"bf16 path {d_kp:.3e} <= plain bf16 vs the same weights in fp32 "
+        f"{d_pf:.3e} (kernel vs fp32 {l2(lk, lf):.3e}); max|diff| / "
+        f"max|logits| {rel_max(lk, lp):.3e} and {rel_max(lp, lf):.3e}; "
+        f"prefill row alone (relative L2) {l2(lk[:1], lp[:1]):.3e} and "
+        f"{l2(lp[:1], lf[:1]):.3e}; in fp32 (the kernel's fp32 build) "
+        f"kernel path vs plain path {l2(lk32, lf):.3e}, prefill row "
+        f"{l2(lk32[:1], lf[:1]):.3e}; no kernel launched on the plain "
+        f"path; greedy agreement (not gated) kernel/plain "
+        f"{agree(lk, lp)}/{len(lk)}, plain/fp32 {agree(lp, lf)}/{len(lk)}, "
+        f"kernel/served {int((lk[:len(served)].argmax(-1) == served).sum())}"
+        f"/{len(served)} | {card}")
+    del eng, params, lk, lk32, lp, lf
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1215,6 +1592,10 @@ def main() -> int:
                    labp, card)
     del wtrainer, wsess
     torch.cuda.empty_cache()
+
+    del lbatch, tst, tlab, stp, labp, tnet, plain_tnet
+    torch.cuda.empty_cache()
+    lm_phases(results, paths, card)
 
     # -- result ----------------------------------------------------------------
     table = []

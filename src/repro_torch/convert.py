@@ -1,9 +1,11 @@
 """Load the JAX package's parameters and optimizer state into the port's.
 
 The JAX parameter tree of a point-cloud net is ``{layer: {"w", "b"},
-"head"}``; taken to numpy with ``jax.tree.map(np.asarray, params)`` it is
-plain arrays, which is all this module reads (it imports no JAX). With the
-same weights in both packages, their outputs can be held against each
+"head"}``, and that of an LM ``{"embed", "final_norm", "lm_head"?,
+"sb<i>": {"b<j>": {...}, "f<j>": {...}}}`` with per-layer leaves stacked
+on axis 0; taken to numpy with ``jax.tree.map(np.asarray, params)`` they
+are plain arrays, which is all this module reads (it imports no JAX). With
+the same weights in both packages, their outputs can be held against each
 other; with the same AdamW state, one update step can.
 """
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from .core.spconv import SpConv
+from .models.common import ModelConfig
+from .models.transformer import check_supported
 from .models.pointcloud import PointCloudModel, PointCloudNet
 from .train.optimizer import OptState
 
@@ -62,3 +66,43 @@ def opt_state_from_jax(state, net: PointCloudNet, *, device="cuda",
     return OptState(mu=_named_from_jax(state.mu, net, device, dtype),
                     nu=_named_from_jax(state.nu, net, device, dtype),
                     step=int(np.asarray(state.step)))
+
+
+def _lm_shapes(cfg: ModelConfig) -> dict:
+    """The JAX LM tree's leaf shapes for ``cfg``, as a nested dict."""
+    dm, H, KV, D = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    shapes = {"embed": (cfg.vocab, dm), "final_norm": (dm,)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (dm, cfg.vocab)
+    for si, sb in enumerate(cfg.superblocks):
+        R = sb.repeat
+        sbs = {}
+        for bi, (_, ffn) in enumerate(sb.blocks):
+            sbs[f"b{bi}"] = {"norm": (R, dm), "wq": (R, dm, H, D),
+                             "wk": (R, dm, KV, D), "wv": (R, dm, KV, D),
+                             "wo": (R, H, D, dm)}
+            if ffn == "dense":
+                sbs[f"f{bi}"] = {"norm": (R, dm), "wi": (R, dm, 2, cfg.d_ff),
+                                 "wo": (R, cfg.d_ff, dm)}
+        shapes[f"sb{si}"] = sbs
+    return shapes
+
+
+def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda",
+                       dtype=None) -> dict:
+    """The numpy form of a JAX LM parameter tree → the port's parameter
+    dict on ``device`` in ``dtype`` (default ``cfg.dtype``), shapes checked.
+    bf16 leaves go through fp32, which holds them exactly."""
+    check_supported(cfg)
+    dtype = dtype or cfg.param_dtype
+
+    def load(node, shapes, path):
+        if isinstance(shapes, dict):
+            missing = set(shapes) - set(node)
+            if missing:
+                raise ValueError(f"{path or 'tree'}: missing {sorted(missing)}")
+            return {k: load(node[k], s, f"{path}/{k}" if path else k)
+                    for k, s in shapes.items()}
+        return _tensor(node, shapes, path, device, dtype)
+
+    return load(tree, _lm_shapes(cfg), "")

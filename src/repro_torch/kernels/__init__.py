@@ -15,12 +15,15 @@ plain PyTorch version and a launch counter on its wrapper:
   dw_gather_gemm     — the per-offset weight gradient with the gather
                        fused in and a fixed row grouping; port-only, no
                        TPU counterpart (csrc/dw_gather_gemm.cu)
+  flash_attention    — causal or full softmax attention with an online
+                       softmax over KV tiles, GQA by index
+                       (csrc/flash_attention.cu)
 
 ``ops.resolve_backend`` decides kernel or plain version by backend string
 and tensor device; ``_build`` compiles ``csrc/`` with nvcc on first use.
 """
-from . import (dw_gather_gemm, masked_group_gemm, ops, segsum,
-               spconv_gather_gemm, ws_scatter_gemm, zdelta_window)
+from . import (dw_gather_gemm, flash_attention, masked_group_gemm, ops,
+               segsum, spconv_gather_gemm, ws_scatter_gemm, zdelta_window)
 from .segsum import (SegmentSpec, segment_sum, segment_gather,
                      segment_moments, segments_from_sizes,
                      segment_call_count, reset_segment_calls)
@@ -34,6 +37,7 @@ LAUNCHERS = {
     "zdelta_window_search": zdelta_window.zdelta_window_cuda,
     "masked_group_gemm": masked_group_gemm.masked_group_gemm,
     "dw_gather_gemm": dw_gather_gemm.dw_gather_gemm,
+    "flash_attention": flash_attention.flash_attention,
 }
 
 

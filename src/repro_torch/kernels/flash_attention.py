@@ -1,0 +1,150 @@
+"""Flash attention (forward): CUDA kernel + plain version.
+
+Softmax attention of queries ``q [B, Sq, H, D]`` over keys and values
+``k, v [B, Skv, KV, D]``: query head h reads KV head ``h // (H // KV)``
+(the reference's ``jnp.repeat``, never materialised), scores
+``(q · k) * scale`` in fp32, causal masking with the diagonal at the end of
+the keys (``offset = Skv - Sq``) to the finite ``NEG_INF``, an online
+softmax over KV tiles with ``p`` rounded to V's dtype before the ``P · V``
+product, and ``acc / max(l, 1e-30)`` in q's dtype.
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention``, ``_kernel``) with ``csrc/flash_attention.cu``; what
+bounds it on the H100 and what its design does about that is written at
+the top of that source. The TPU kernel takes ``(BH, S, D)`` with KV
+already repeated; ``ops.attention`` keeps that contract on top of this
+module, and ``models.layers.grouped_attention`` calls it in the grouped
+``[B, S, heads, D]`` layout, so neither needs a transpose.
+
+:func:`flash_attention_torch` is the plain version: the chunked online
+softmax of ``repro/models/layers.py`` (``grouped_attention``), which also
+covers what the kernel does not — an explicit ``q_offset`` and a per-batch
+``kv_len`` (the decode step's padded cache).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Union
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128, 256)
+
+_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p]
+_ENTRY = {torch.float32: "spira_flash_attention_f32",
+          torch.bfloat16: "spira_flash_attention_bf16"}
+_fns: dict = {}
+
+
+def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool, scale: float,
+                          q_offset: Union[int, torch.Tensor, None] = None,
+                          kv_len: Optional[torch.Tensor] = None,
+                          kv_chunk: Optional[int] = None) -> torch.Tensor:
+    """Plain version, any device. q ``[B, Sq, H, D]``, k/v ``[B, Skv, KV,
+    D]``; returns ``[B, Sq, H, D]`` in q's dtype. ``q_offset`` is the
+    absolute position of ``q[:, 0]`` (default ``Skv - Sq``, the kernel's
+    end-aligned diagonal); ``kv_len`` ([B] or scalar) masks keys at or past
+    it; ``kv_chunk`` is the reference's chunk (default: all keys in one;
+    a chunk that does not divide Skv also means one)."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    if q_offset is None:
+        q_offset = Skv - Sq
+    chunk = min(kv_chunk or Skv, Skv)
+    if Skv % chunk:
+        chunk = Skv
+    q_pos = torch.as_tensor(q_offset, device=dev) + torch.arange(Sq,
+                                                                 device=dev)
+    qg = q.reshape(B, Sq, KV, G, D).float()
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=torch.float32, device=dev)
+    for c0 in range(0, Skv, chunk):
+        ks = k[:, c0:c0 + chunk].float()
+        vs = v[:, c0:c0 + chunk]
+        s = torch.einsum("bqngd,bknd->bngqk", qg, ks) * scale
+        kpos = c0 + torch.arange(chunk, device=dev)
+        mask = torch.ones((B, Sq, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= (q_pos[:, None] >= kpos[None, :])[None]
+        if kv_len is not None:
+            kl = torch.as_tensor(kv_len, device=dev).expand(B)
+            mask &= kpos[None, None, :] < kl[:, None, None]
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bngqk,bknd->bngqd", p.to(v.dtype).float(), vs.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel's 16-byte row loads can read it in
+    place (D contiguous, every other stride a multiple of 16 bytes, the
+    base 16-byte aligned), else a contiguous copy."""
+    per = 16 // t.element_size()
+    if (t.stride(-1) == 1 and all(s % per == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, scale: float) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors (a CPU tensor raises). q
+    ``[B, Sq, H, D]``, k/v ``[B, Skv, KV, D]``, one dtype (fp32 or bf16),
+    D in ``HEAD_DIMS``, H a multiple of KV; read through their strides.
+    Returns a contiguous ``[B, Sq, H, D]`` in that dtype."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention launches a CUDA kernel; got a "
+                         f"tensor on {q.device}")
+    dt = q.dtype
+    if dt not in _ENTRY or k.dtype != dt or v.dtype != dt:
+        raise TypeError(f"q/k/v must all be fp32 or bf16, got {q.dtype}/"
+                        f"{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"want q [B, Sq, H, D] and k, v [B, Skv, KV, D]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or KV == 0 or H % KV:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "match (batch, head dim, or H a multiple of KV)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel is compiled for "
+                         f"{HEAD_DIMS}")
+    if Skv == 0:
+        raise ValueError("flash_attention needs at least one key")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must share a device")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty((B, Sq, H, D), dtype=dt, device=q.device)
+    strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
+                                   *v.stride()[:3])
+    fn = _fns.get(dt)
+    if fn is None:
+        fn = _fns[dt] = _build.function(_ENTRY[dt], _SIG)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+             Skv, H, KV, D, ctypes.addressof(strides), int(causal),
+             float(scale), stream)
+    flash_attention.launches += 1
+    _build.check(err, "flash_attention")
+    return out
+
+
+flash_attention.launches = 0

@@ -12,14 +12,16 @@ Every kernel entry point takes ``backend`` ∈ {"auto", "torch", "cuda"}:
 :func:`resolve_backend` is the single decision point. Nothing falls back:
 a kernel that does not build or launch raises. Besides the fused OS and WS
 entry points: :func:`spconv_dw_fused`, the per-offset weight gradient
-(gather fused in), and :func:`output_stationary_fused`, the unfused OS
-baseline over a gathered ``[M, Kd, Cin]`` tensor.
+(gather fused in), :func:`output_stationary_fused`, the unfused OS
+baseline over a gathered ``[M, Kd, Cin]`` tensor, and :func:`attention`,
+``(BH, S, D)`` softmax attention.
 """
 from __future__ import annotations
 
 import torch
 
 from .dw_gather_gemm import dw_gather_gemm, dw_gather_gemm_torch
+from .flash_attention import flash_attention, flash_attention_torch
 from .masked_group_gemm import masked_group_gemm, masked_group_gemm_torch
 from .spconv_gather_gemm import (TILE, spconv_gather_gemm,
                                  spconv_gather_gemm_torch)
@@ -103,3 +105,20 @@ def output_stationary_fused(features: torch.Tensor, m: torch.Tensor,
     if resolve_backend(backend, features):
         return masked_group_gemm(m, gathered, weights)
     return masked_group_gemm_torch(m, gathered, weights)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, backend: str = "auto") -> torch.Tensor:
+    """``(BH, S, D)`` softmax attention with the reference's contract
+    (``flash_attention_ref``): scale ``1/√D`` after the QK dot, the causal
+    diagonal at the end of the keys, the result in q's dtype. The flash
+    attention kernel on the card or its plain version; unlike the TPU
+    wrapper there is no ``S % 128`` condition, since the kernel masks
+    ragged tiles itself."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    q4, k4, v4 = q[:, :, None], k[:, :, None], v[:, :, None]
+    if resolve_backend(backend, q):
+        out = flash_attention(q4, k4, v4, causal=causal, scale=scale)
+    else:
+        out = flash_attention_torch(q4, k4, v4, causal=causal, scale=scale)
+    return out[:, :, 0]

@@ -1,2 +1,3 @@
-"""Point-cloud networks on the Spira engine."""
-from . import pointcloud
+"""Point-cloud networks on the Spira engine, and the dense LM substrate
+(``common``, ``layers``, ``transformer``)."""
+from . import common, layers, pointcloud, transformer

@@ -6,6 +6,9 @@ Imports no JAX, so the card's machine needs only torch, numpy and nvcc.
 Training: the masked grouped GEMM and dW kernels against their plain
 versions, OS and WS dF over transposed maps, WS at MinkUNet widths, and a
 ``compile_train`` step through the kernels against the plain path.
+LM serving: the flash attention kernel against its plain version (head
+dims 64/128/256, fp32/bf16, ragged, cross-length, GQA, strided inputs),
+and a small dense LM's prefill, decode and slot engine on the card.
 """
 import numpy as np
 import pytest
@@ -148,7 +151,8 @@ def test_session_batch_equals_single_on_card(dev):
                                "spconv_gather_gemm": 42, "segment_sum": 42,
                                "ws_scatter_gemm": 0,
                                "zdelta_window_search": 0,
-                               "masked_group_gemm": 0, "dw_gather_gemm": 0}
+                               "masked_group_gemm": 0, "dw_gather_gemm": 0,
+                               "flash_attention": 0}
     for i, cloud in enumerate(clouds):
         o1 = s(SparseTensor.from_point_clouds([cloud], s.layout,
                                               device=dev)).unbatch()[0]
@@ -284,7 +288,8 @@ def test_centerpoint_session_on_card(dev):
     assert counts == {"zdelta_superwindow_search": 20,
                       "spconv_gather_gemm": 17, "segment_sum": 20,
                       "ws_scatter_gemm": 20, "zdelta_window_search": 0,
-                      "masked_group_gemm": 0, "dw_gather_gemm": 0}
+                      "masked_group_gemm": 0, "dw_gather_gemm": 0,
+                      "flash_attention": 0}
     for i, cloud in enumerate(clouds):
         o1 = s(SparseTensor.from_point_clouds([cloud], s.layout,
                                               device=dev)).unbatch()[0]
@@ -504,3 +509,138 @@ def test_compile_train_step_on_card(dev):
                          .to(dev)))
     gs = grads(net, "zdelta_cuda", "auto", pert)
     assert _rel_l2(gk, gp) <= max(1e-3, _rel_l2(gs, gk))
+
+
+
+# -- flash attention and the LM serving path ---------------------------------
+
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_torch)
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.models.common import dense_lm  # noqa: E402
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+
+
+def _attn_inputs(dev, shape_q, shape_k, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in (shape_q, shape_k, shape_k)]
+
+
+def _attn_close(got, ref, dtype):
+    """fp32 within 1e-5 * max(1, max|ref|); bf16 within 2e-2 relative."""
+    d = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    tol = (1e-5 * max(1.0, scale) if dtype == torch.float32
+           else 2e-2 * max(scale, 1e-30))
+    assert bool(torch.isfinite(got.float()).all())
+    assert d <= tol, (d, tol)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Skv,H,KV", [(256, 256, 4, 2), (100, 100, 2, 1),
+                                         (37, 300, 4, 4), (130, 61, 2, 2),
+                                         (1, 1, 2, 1)])
+def test_flash_attention_kernel_matches_plain(dev, D, dtype, causal, Sq, Skv,
+                                              H, KV):
+    q, k, v = _attn_inputs(dev, (2, Sq, H, D), (2, Skv, KV, D), dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    ref = flash_attention_torch(q, k, v, causal=causal, scale=D ** -0.5)
+    _attn_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_strided_views(dev, dtype):
+    """q, k and v as head slices of one packed [B, S, H + 2 KV, D] tensor
+    (read in place), and a view whose base is not 16-byte aligned (copied
+    first): the same result as contiguous copies."""
+    B, S, H, KV, D = 2, 150, 8, 2, 128
+    g = torch.Generator(device=dev).manual_seed(1)
+    qkv = torch.randn((B, S, H + 2 * KV, D), generator=g,
+                      device=dev).to(dtype)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    got = flash_attention(q, k, v, causal=True, scale=1.0)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True, scale=1.0)
+    assert torch.equal(got, want)
+    flat = torch.randn(B * S * H * D + 1, generator=g, device=dev).to(dtype)
+    odd = flat[1:].view(B, S, H, D)
+    assert odd.data_ptr() % 16 != 0
+    assert torch.equal(flash_attention(odd, k, v, causal=True, scale=1.0),
+                       flash_attention(odd.clone(), k, v, causal=True,
+                                       scale=1.0))
+
+
+def test_flash_attention_kernel_rejects_what_it_cannot_run(dev):
+    q, k, v = _attn_inputs(dev, (1, 8, 2, 32), (1, 8, 2, 32), torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v, causal=True, scale=1.0)
+    q, k, v = _attn_inputs(dev, (1, 8, 2, 64), (1, 8, 2, 64), torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, v, causal=True, scale=1.0)
+
+
+def test_ops_attention_on_card(dev):
+    q, k, v = _attn_inputs(dev, (4, 200, 64), (4, 333, 64), torch.float32)
+    before = flash_attention.launches
+    got = ops.attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    ref = ops.attention(q, k, v, causal=True, backend="torch")
+    _attn_close(got, ref, torch.float32)
+
+
+def _tiny_lm(dtype):
+    return dense_lm("tiny-card", n_layers=3, d_model=256, n_heads=4, n_kv=2,
+                    d_ff=512, vocab=384, head_dim=64, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_prefill_and_decode_on_card(dev, dtype):
+    """Prefill through the kernel (one launch per layer) against the plain
+    path; the decode step launches nothing and matches the CPU."""
+    cfg = _tiny_lm(dtype)
+    params = lm.init_params(cfg, 0, device=dev)
+    tok = torch.randint(0, cfg.vocab, (1, 77), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    reset_launch_counts()
+    lk, sk = lm.prefill(params, cfg, {"tokens": tok}, 128)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    lp, sp = lm.prefill(params, cfg, {"tokens": tok}, 128, backend="torch")
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    rel = 1e-4 if dtype == "float32" else 5e-2
+    scale = float(lp.float().abs().max())
+    assert float((lk.float() - lp.float()).abs().max()) <= rel * scale
+    nxt = lk[:, -1].argmax(-1, keepdim=True)
+    dk, _ = lm.decode_step(params, cfg, sk, {"tokens": nxt}, 77)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    dp, _ = lm.decode_step(params, cfg, sp, {"tokens": nxt}, 77)
+    assert float((dk.float() - dp.float()).abs().max()) <= rel * float(
+        dp.float().abs().max())
+
+
+def test_lm_serve_engine_on_card(dev):
+    """Greedy tokens through the kernel equal the plain path's (fp32), and
+    the engine launches the kernel once per layer per request."""
+    cfg = _tiny_lm("float32")
+    params = lm.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (7, 70, 12)]
+    outs = {}
+    for backend in ("auto", "torch"):
+        reqs = [Request(prompt=p, max_new=6) for p in prompts]
+        reset_launch_counts()
+        ServeEngine(cfg, params, batch_slots=2, cache_len=96,
+                    backend=backend).run(list(reqs))
+        launched = launch_counts()["flash_attention"]
+        assert launched == (len(prompts) * cfg.n_layers
+                            if backend == "auto" else 0)
+        outs[backend] = [r.out for r in reqs]
+    assert outs["auto"] == outs["torch"]
