@@ -22,8 +22,13 @@ MinkUNet-42 (OS dataflow):
    the kernel and its plain PyTorch version — superwindow maps and
    overflow counters equal, segment sums bitwise, OS within
    ``1e-5 * max(1, max|ref|)`` in fp32 (and ``2e-2`` relative in bf16 at
-   the stem, a 256->256 layer and an up-conv); each timed with CUDA events
-   beside its plain version, its bound and the library yardstick;
+   the stem, a 256->256 layer and an up-conv), and every fp32 OS launch
+   against the same gather-GEMM in float64 (the kernel's max|error|
+   within ``max(4 * the plain version's, 1e-6 * max|ref|)``, one line per
+   launch) with its tile ops (2 * 128 rows * offsets a 128-row tile runs *
+   Cin * Cout) and the ops of the packed 16-row fragments the kernel
+   multiplies beside its useful ops by layer group; each timed with CUDA
+   events beside its plain version, its bound and the library yardstick;
 4. main path: MinkUNet-42 at full width through ``compile_network`` ->
    ``SpiraSession`` on two outdoor LiDAR-sized scenes — scene 0 alone,
    then the batch of 2, each twice — checking finite logits, batched
@@ -60,7 +65,8 @@ bucket 262,144):
 
 6. the training kernels at one step's shapes: every OS dF launch over the
    transposed maps and every dW launch (42 layers and the head) against
-   their plain versions within ``1e-4 * max|ref|``, every segment-sum
+   their plain versions within ``1e-4 * max|ref|`` (the dF launches also
+   against float64 and with their tile ops, as in 3), every segment-sum
    launch of the step bitwise; then ``ops.output_stationary_fused`` (the
    masked grouped GEMM kernel) on every layer's forward operands within
    ``1e-5 * max(1, max|ref|)`` of its plain version and of the OS kernel,
@@ -293,13 +299,54 @@ def check_window(calls) -> dict:
                 bound_by="bytes", library_ms=None)
 
 
-def check_os(calls, rel: float = 0.0) -> dict:
+def os_f64(F, m, W):
+    """The OS gather-GEMM in float64 on the card: the yardstick of the fp32
+    kernel's and plain version's rounding."""
+    import torch
+    acc = torch.zeros((m.shape[0], W.shape[-1]), dtype=torch.float64,
+                      device=F.device)
+    F64 = F.double()
+    for k in range(m.shape[1]):
+        col = m[:, k]
+        g = F64[col.clamp(min=0).long()] * (col >= 0)[:, None]
+        acc += g @ W[k].double()
+    return acc
+
+
+def os_tile_ops(m, cin: int, cout: int) -> tuple:
+    """Operations of the OS kernel's tiles on this map, as (tile, packed):
+    2 * 128 rows * (offsets some row of each 128-row tile uses) * Cin *
+    Cout, and what the kernel multiplies, 2 * 16 * (16-row fragments of
+    the rows that use each offset, packed) * Cin * Cout; summed over the
+    tiles (one fp32 product counts once, not 3xTF32's three)."""
+    import torch
+    from repro_torch.kernels.spconv_gather_gemm import TILE_M
+    M, Kd = m.shape
+    pad = -M % TILE_M
+    used = torch.cat([m >= 0, torch.zeros((pad, Kd), dtype=torch.bool,
+                                          device=m.device)])
+    per_tile = used.view(-1, TILE_M, Kd).sum(1)
+    active = int((per_tile > 0).sum())
+    packed = int(((per_tile + 15) // 16).sum()) * 16
+    return (2.0 * TILE_M * active * cin * cout,
+            2.0 * packed * cin * cout)
+
+
+def check_os(calls, rel: float = 0.0, label: str = "3 os",
+             names=None) -> dict:
     """OS launches: fp32 within ``1e-5 * max(1, max|ref|)``, or within
     ``rel * max|ref|`` when ``rel`` is given (gradients, whose scale is far
-    below 1)."""
+    below 1). Every fp32 launch is also held against the same gather-GEMM
+    in float64: the kernel's max|error| must stay within ``max(4 * the
+    plain version's, 1e-6 * max|ref|)`` (one line per launch). Tile ops and
+    useful ops are summed by layer group (``names``: the layer of each
+    launch; else the launch's shape)."""
+    import torch
     from repro_torch.kernels.spconv_gather_gemm import (
         spconv_gather_gemm, spconv_gather_gemm_torch)
     err = t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
+    f64_worst = 0.0
+    groups: dict = {}
     for i, (a, kw) in enumerate(calls):
         F, m, W = a
         got = spconv_gather_gemm(F, m, W)
@@ -310,6 +357,23 @@ def check_os(calls, rel: float = 0.0) -> dict:
         if not d <= tol:
             raise RuntimeError(f"OS launch {i} ({F.shape[1]}->{W.shape[2]}): "
                                f"max|diff| {d} > {tol}")
+        what = (names[i] if names else
+                f"M={m.shape[0]} {F.shape[1]}->{W.shape[2]}")
+        if F.dtype == torch.float32:
+            ref64 = os_f64(F, m, W)
+            e_k = float((got.double() - ref64).abs().max())
+            e_p = float((ref.double() - ref64).abs().max())
+            scale = float(ref64.abs().max())
+            gate = max(4.0 * e_p, 1e-6 * scale)
+            if not e_k <= gate:
+                raise RuntimeError(f"OS launch {i} ({what}) against float64: "
+                                   f"kernel max|err| {e_k} > max(4 * plain "
+                                   f"{e_p}, 1e-6 * {scale})")
+            f64_worst = max(f64_worst, e_k / gate)
+            log(f"[{label} f64 {i} {what}] vs float64: kernel max|err| "
+                f"{e_k:.3e}, plain {e_p:.3e}, max|ref| {scale:.3e}, gate "
+                f"{gate:.3e}")
+            del ref64
         err = max(err, d)
         t_k += cuda_ms(lambda: spconv_gather_gemm(F, m, W), 3)
         t_p += cuda_ms(lambda: spconv_gather_gemm_torch(F, m, W), 2)
@@ -319,9 +383,35 @@ def check_os(calls, rel: float = 0.0) -> dict:
         b_tot += bound_ms(nb, ops)[0]
         ops_tot += ops
         bytes_tot += nb
+        grp = (what.rstrip("0123456789").split("_")[0] if names
+               else what)
+        g = groups.setdefault(grp, [0, 0.0, 0.0, 0.0])
+        tile, packed = os_tile_ops(m, F.shape[1], W.shape[2])
+        g[0] += 1
+        g[1] += ops
+        g[2] += tile
+        g[3] += packed
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
                 bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None,
-                gflop=ops_tot / 1e9)
+                gflop=ops_tot / 1e9, f64_worst=f64_worst, groups=groups)
+
+
+def log_os_groups(label: str, r: dict, card: str) -> None:
+    """Useful against tile ops (and the packed fragments the kernel
+    multiplies) by layer group: what separates the kernel's speed from the
+    dataflow's waste (offsets a tile runs for few rows)."""
+    tot = [sum(g[i] for g in r["groups"].values()) for i in (1, 2, 3)]
+    for name, (n, useful, tile, packed) in r["groups"].items():
+        log(f"[{label} tile ops {name}] {n} launches: useful "
+            f"{useful / 1e9:.2f} GFLOP, tile {tile / 1e9:.2f} GFLOP "
+            f"({tile / max(useful, 1.0):.2f}x), packed {packed / 1e9:.2f} "
+            f"GFLOP ({packed / max(useful, 1.0):.2f}x)")
+    u, t, p = (x / 1e9 for x in tot)
+    log(f"[{label} tile ops] all: useful {u:.1f} GFLOP, tile {t:.1f} GFLOP "
+        f"({t / max(u, 1e-9):.2f}x), packed {p:.1f} GFLOP "
+        f"({p / max(u, 1e-9):.2f}x); kernel {u / r['ms']:.2f} TFLOP/s "
+        f"useful, {p / r['ms']:.2f} TFLOP/s on the packed fragments; fp64 "
+        f"gate worst {r['f64_worst']:.3f} of its limit | {card}")
 
 
 def check_segsum(calls, *, library: bool, gradients: bool = False) -> dict:
@@ -1176,15 +1266,19 @@ def main() -> int:
 
     # OS implicit GEMM: fp32 within 1e-5 * max(1, max|ref|)
     o = rec.calls["spconv_gather_gemm"]
-    r = check_os(o)
+    names = [s.name for s in net.specs]
+    r = check_os(o, names=names)
     gflop = r.pop("gflop")
+    log_os_groups("3 os", r, card)
+    r.pop("groups"), r.pop("f64_worst")
     results["spconv_gather_gemm"] = r
-    log(f"[3 os] {len(o)} launches within 1e-5*max(1,|ref|) (max|diff| "
+    log(f"[3 os] {len(o)} launches within 1e-5*max(1,|ref|) and the "
+        f"float64 gate (max|diff| "
         f"{r['max_abs_err']:.3e}); per forward kernel {r['ms']:.3f} ms, "
         f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
         f"({gflop:.1f} GFLOP useful, "
-        f"{gflop / r['ms']:.2f} TFLOP/s)")
-    names = [s.name for s in net.specs]
+        f"{gflop / r['ms']:.2f} TFLOP/s; at 3xTF32's 165 TFLOP/s "
+        f"{gflop / 165:.3f} ms) | {card}")
     for name in ("stem0", "enc3_a", "dec0_up"):
         F, m, W = o[names.index(name)][0]
         for dt, tol_rel in ((torch.float32, None), (torch.bfloat16, 2e-2)):
@@ -1309,11 +1403,14 @@ def main() -> int:
             f"kernel {ms:.4f} ms")
     # the slice-1 kernels at CenterPoint's shapes
     for kname, fn in (("zdelta_superwindow_search", check_superwindow),
-                      ("spconv_gather_gemm", check_os),
+                      ("spconv_gather_gemm",
+                       lambda c: check_os(c, label="3 cp os")),
                       ("segment_sum",
                        lambda c: check_segsum(c, library=False))):
         c = rec.calls[kname]
         r = fn(c)
+        if kname == "spconv_gather_gemm":
+            log_os_groups("3 cp os", r, card)
         paths[kname]["centerpoint_large"] = per_forward(r)
         log(f"[3 cp {kname}] {len(c)} launches equal to the plain version "
             f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
@@ -1440,14 +1537,17 @@ def main() -> int:
     if len(bwd) != n_l - 1:
         raise RuntimeError(f"6: {len(bwd)} OS backward launches, expected "
                            f"{n_l - 1}")
-    r = check_os(bwd, rel=1e-4)
+    r = check_os(bwd, rel=1e-4, label="6 os dF")
     gflop = r.pop("gflop")
+    log_os_groups("6 os dF", r, card)
+    r.pop("groups"), r.pop("f64_worst")
     results["os_df"] = r
     log(f"[6 os dF] {len(bwd)} launches over the transposed maps within "
         f"1e-4*max|ref| of the plain version (max|diff| "
         f"{r['max_abs_err']:.3e}); per step kernel {r['ms']:.3f} ms, plain "
         f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({gflop:.1f} "
-        f"GFLOP useful, {gflop / r['ms']:.2f} TFLOP/s) | {card}")
+        f"GFLOP useful, {gflop / r['ms']:.2f} TFLOP/s; at 3xTF32's 165 "
+        f"TFLOP/s {gflop / 165:.3f} ms) | {card}")
     dw_calls = rec.calls["dw_gather_gemm"]
     r = check_dw(dw_calls)
     gflop, rel = r.pop("gflop"), r.pop("rel_err")

@@ -23,16 +23,46 @@
 // version asserted divisibility); keys past Skv get p = 0.
 //
 // Bound on this card: operations for prefill lengths (4 * Sq * Skv * D per
-// head, about half of it under `causal`), bytes for short prompts. This
-// first version runs on the CUDA cores in fp32: 256 threads, each owning a
-// 4 x 4 tile of the 64 x 64 scores and 4 rows x D/16 columns of the
-// output; Q, the K tile (then the V tile, in the same buffer) and P are
-// staged in shared memory as fp32 with 16-byte loads and stores, rows
-// padded so that the 16-byte reads of a quarter warp hit distinct banks.
-// wgmma, TMA and a pipeline of tiles are later work.
+// head, about half of it under `causal`), bytes for short prompts. Two
+// kernels compute that function:
+//
+//  * bf16 (flash_mma_kernel, the LM's path): FlashAttention-2 style on the
+//    tensor cores. The first version staged bf16 tiles as fp32 and ran
+//    fp32 FMAs on the CUDA cores (29 TFLOP/s at a 2,000-token prefill); the
+//    tensor cores' bf16 rate is ~15x the CUDA cores' fp32 rate, so this
+//    one keeps the data in bf16 and multiplies with mma.sync. 4 warps own
+//    16 query rows each; their Q fragments stay in registers (D <= 128;
+//    at D = 256 the 128 fp32 accumulators a lane holds leave no room, and
+//    Q is read from shared memory by ldmatrix at every tile). K and V
+//    tiles of 64 keys are brought in as bf16 by 16-byte cp.async into
+//    [64][D] tiles whose 16-byte chunks are swizzled by the row, so the 8
+//    rows an ldmatrix reads hit 8 bank groups; V of tile t loads while
+//    Q . K of t runs, K of tile t + 1 while P . V of t runs. S = Q . K^T by
+//    mma.m16n8k16 (K by ldmatrix), the mask and the online softmax in
+//    registers with quad shuffles for the row max and sum (exp by
+//    __expf, one ex2.approx: within 2 + 1.2|x| fp32 ulps, far below the
+//    bf16 rounding of p, and ~10x fewer instructions than expf, which
+//    would otherwise take longer than the tile's mma), and P rounded to bf16 in
+//    registers is the A operand of P . V (V by ldmatrix.trans). l sums the
+//    unrounded fp32 p. Each score sums its D
+//    products inside the mma instructions, k16 step by k16 step; each
+//    output element adds the tiles in key order into one accumulator.
+//  * fp32 (flash_attention_kernel, the JAX sweep's shapes and the fp32 LM
+//    tests): the first version, on the CUDA cores: 256 threads, each
+//    owning a 4 x 4 tile of the 64 x 64 scores and 4 rows x D/16 columns
+//    of the output; Q, the K tile (then the V tile, in the same buffer)
+//    and P are staged in shared memory as fp32 with 16-byte loads and
+//    stores, rows padded so that the 16-byte reads of a quarter warp hit
+//    distinct banks.
+//
+// wgmma, TMA and warp specialisation are later work.
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -43,17 +73,11 @@ constexpr int kLdP = kBK + 16;   // P row stride: the two half-warps of a
                                  // store land 16 banks apart
 constexpr float kNegInf = -1e30f;
 
+// the CUDA-core kernel runs only fp32 (bf16 has the tensor-core kernel)
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 // p as the reference's p.astype(v.dtype) leaves it, back in fp32
 template <typename T> __device__ __forceinline__ float round_to(float v) {
@@ -254,12 +278,240 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: FlashAttention-2 style on the tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps, 16 query rows each
+
+// Byte offset of 16-byte chunk c of row r in a [64][D] bf16 tile whose
+// chunks are swizzled by the row (c ^ (r & 7)): the 8 rows an ldmatrix
+// reads at one logical chunk land in 8 different bank groups.
+template <int D> __device__ __forceinline__ int swz(int r, int c) {
+  return r * (D * 2) + ((c ^ (r & 7)) << 4);
+}
+
+template <int D> constexpr size_t mma_smem_bytes() {
+  return 3 * kBQ * D * 2;          // Q, K and V tiles as bf16
+}
+
+// cp.async rows [row0, row0 + 64) of one head (rows `rs` elements apart,
+// D contiguous, 16-byte aligned) into a swizzled [64][D] bf16 tile; rows
+// at or past S as zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(char* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t rs, int row0, int S) {
+  constexpr int kChunks = D / 8;
+  for (int e = threadIdx.x; e < kBK * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks;
+    const int c = e % kChunks;
+    const int row = row0 + r;
+    const bool ok = row < S;
+    spira_tc::cp_async<16>(dst + swz<D>(r, c),
+                           ok ? src + row * rs + c * 8 : src, ok);
+  }
+}
+
+// reductions over the 4 lanes that hold one row of a fragment (lane bits
+// 0-1)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+                 int G, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
+                 int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
+                 int64_t vsh, int causal, float scale) {
+  using namespace spira_tc;
+  constexpr bool kQInRegs = D <= 128;   // D = 256 keeps Q in shared memory
+  constexpr int kDSteps = D / 16;       // k16 steps of Q . K over D
+  constexpr int kOTiles = D / 8;        // n8 tiles of the output
+  extern __shared__ __align__(128) char fsm[];
+  char* q_s = fsm;
+  char* k_s = q_s + kBQ * D * 2;
+  char* v_s = k_s + kBK * D * 2;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kvh = h / G;
+  // the longest causal rows first: they have the most tiles
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int offset = Skv - Sq;
+  const __nv_bfloat16* kb = k + b * ksb + kvh * ksh;
+  const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  load_tile<D>(q_s, q + b * qsb + h * qsh, qss, q0, Sq);
+  load_tile<D>(k_s, kb, kss, 0, Skv);
+  cp_async_commit();
+
+  int n_tiles = (Skv + kBK - 1) / kBK;
+  if (causal && q0 + offset >= 0) {
+    const int q_hi = min(q0 + kBQ - 1, Sq - 1);
+    n_tiles = min(n_tiles, (q_hi + offset) / kBK + 1);
+  }
+
+  uint32_t qf[kQInRegs ? kDSteps : 1][4];
+  float o[kOTiles][4];
+#pragma unroll
+  for (int j = 0; j < kOTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.0f, 0.0f};
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBK;
+    cp_async_wait<0>();
+    __syncthreads();           // K (and Q) landed; V's last readers are done
+    load_tile<D>(v_s, vb, vss, k0, Skv);
+    cp_async_commit();
+    if (kQInRegs && kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < kDSteps; ++ks)
+        ldmatrix_x4(qf[kQInRegs ? ks : 0],
+                    smem_u32(q_s + swz<D>(a_row, ks * 2 + (lane >> 4))));
+    }
+
+    // s = q . k over D
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < kDSteps; ++ks) {
+      uint32_t a[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+      } else {
+        ldmatrix_x4(a, smem_u32(q_s + swz<D>(a_row, ks * 2 + (lane >> 4))));
+      }
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t bk[4];
+        const int key = j * 8 + (lane & 7) + (lane >> 4) * 8;
+        ldmatrix_x4(bk, smem_u32(k_s + swz<D>(key, ks * 2 +
+                                                       ((lane >> 3) & 1))));
+        mma_bf16(s[j], a, bk[0], bk[1]);
+        mma_bf16(s[j + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // mask, online softmax in registers, P as bf16 A fragments
+    const bool edge = k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0 + offset);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        if (edge && (col >= Skv || (causal && rows[e >> 1] + offset < col)))
+          x = kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float m_new[2], alpha[2], ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_new[i] = fmaxf(m_run[i], quad_max(mx[i]));
+      alpha[i] = __expf(m_run[i] - m_new[i]);
+      m_run[i] = m_new[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        const float p =
+            col < Skv ? __expf(s[j][e] - m_new[e >> 1]) : 0.0f;
+        ps[e >> 1] += p;
+        s[j][e] = p;
+      }
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pf[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      l_run[i] = alpha[i] * l_run[i] + quad_sum(ps[i]);
+#pragma unroll
+    for (int j = 0; j < kOTiles; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    cp_async_wait<0>();
+    __syncthreads();           // V landed; every warp's K reads are done
+    if (kt + 1 < n_tiles) load_tile<D>(k_s, kb, kss, k0 + kBK, Skv);
+    cp_async_commit();         // K of tile t + 1 loads during P . V of t
+
+    // acc += P . V, keys in order
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < kOTiles; j += 2) {
+        uint32_t bv[4];
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(bv, smem_u32(v_s + swz<D>(key, j + (lane >> 4))));
+        mma_bf16(o[j], pf[kk], bv[0], bv[1]);
+        mma_bf16(o[j + 1], pf[kk], bv[2], bv[3]);
+      }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= Sq) continue;
+    const float denom = fmaxf(l_run[i], 1e-30f);
+    __nv_bfloat16* op =
+        out + ((static_cast<int64_t>(b) * Sq + rows[i]) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < kOTiles; ++j)
+      *reinterpret_cast<uint32_t*>(op + j * 8 + 2 * t) = pack_bf16(
+          o[j][2 * i] / denom, o[j][2 * i + 1] / denom);
+  }
+}
+
+// fp32 runs the CUDA-core kernel above, bf16 the tensor-core one
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* out, int B,
              int Sq, int Skv, int H, int KV, const int64_t* st, int causal,
              float scale, cudaStream_t s) {
-  auto kernel = flash_attention_kernel<T, D>;
-  constexpr size_t bytes = smem_bytes<D>();
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int,
+                 int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
+                 int64_t, int64_t, int64_t, int, float);
+  if constexpr (kMma)
+    kernel = flash_mma_kernel<D>;
+  else
+    kernel = flash_attention_kernel<T, D>;
+  constexpr size_t bytes = kMma ? mma_smem_bytes<D>() : smem_bytes<D>();
+  constexpr int threads = kMma ? kMmaThreads : kThreads;
   static bool configured = false;    // above 48 KB needs the opt-in
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -269,7 +521,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
     configured = true;
   }
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, bytes, s>>>(
+  kernel<<<grid, threads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, H / KV,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,

@@ -11,10 +11,13 @@ product, and ``acc / max(l, 1e-30)`` in q's dtype.
 Replaces the TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``, ``_kernel``) with ``csrc/flash_attention.cu``; what
 bounds it on the H100 and what its design does about that is written at
-the top of that source. The TPU kernel takes ``(BH, S, D)`` with KV
-already repeated; ``ops.attention`` keeps that contract on top of this
-module, and ``models.layers.grouped_attention`` calls it in the grouped
-``[B, S, heads, D]`` layout, so neither needs a transpose.
+the top of that source: bf16 inputs run a FlashAttention-2 style kernel
+on the tensor cores (``mma.sync`` bf16 with fp32 accumulators, bf16 K/V
+tiles by ``cp.async``), fp32 inputs the first CUDA-core kernel; the entry
+point picks by dtype (``_ENTRY``). The TPU kernel takes ``(BH, S, D)``
+with KV already repeated; ``ops.attention`` keeps that contract on top of
+this module, and ``models.layers.grouped_attention`` calls it in the
+grouped ``[B, S, heads, D]`` layout, so neither needs a transpose.
 
 :func:`flash_attention_torch` is the plain version: the chunked online
 softmax of ``repro/models/layers.py`` (``grouped_attention``), which also

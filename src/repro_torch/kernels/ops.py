@@ -23,7 +23,7 @@ import torch
 from .dw_gather_gemm import dw_gather_gemm, dw_gather_gemm_torch
 from .flash_attention import flash_attention, flash_attention_torch
 from .masked_group_gemm import masked_group_gemm, masked_group_gemm_torch
-from .spconv_gather_gemm import (TILE, spconv_gather_gemm,
+from .spconv_gather_gemm import (TILE_M, _tile_for, spconv_gather_gemm,
                                  spconv_gather_gemm_torch)
 from .ws_scatter_gemm import (CHUNK, TILES_N, ws_scatter_gemm,
                               ws_scatter_gemm_torch)
@@ -50,12 +50,17 @@ def spconv_os_fused(features: torch.Tensor, m: torch.Tensor,
                     bm: int = 0, bn: int = 0) -> torch.Tensor:
     """OS dataflow as one implicit GEMM: the kernel-map gather happens inside
     the kernel, no [M, Kd, Cin] intermediate. ``bm``/``bn`` are the row and
-    channel tiles; the CUDA kernel is compiled for 64 x 64 and masks the
-    ragged edges of M and Cout itself, so 0 (auto) or 64 are accepted."""
-    for name, v in (("bm", bm), ("bn", bn)):
-        if v not in (0, TILE):
-            raise ValueError(f"{name}={v}: the CUDA OS kernel is compiled for "
-                             f"{TILE}-wide tiles (0 = auto)")
+    channel tiles; the CUDA kernel runs 128-row tiles and the Cout tile
+    ``_tile_for`` picks from the layer (the add order must not depend on a
+    caller's choice), and masks the ragged edges of M and Cout itself, so
+    0 (auto) or those tiles are accepted."""
+    if bm not in (0, TILE_M):
+        raise ValueError(f"bm={bm}: the CUDA OS kernel is compiled for "
+                         f"{TILE_M}-row tiles (0 = auto)")
+    tile_n = _tile_for(features.shape[-1], weights.shape[-1], features.dtype)
+    if bn not in (0, tile_n):
+        raise ValueError(f"bn={bn}: the CUDA OS kernel runs Cout tile "
+                         f"{tile_n} for this layer (0 = auto)")
     if resolve_backend(backend, features):
         return spconv_gather_gemm(features, m, weights)
     return spconv_gather_gemm_torch(features, m, weights)

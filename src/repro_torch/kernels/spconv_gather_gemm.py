@@ -7,11 +7,15 @@ gather fused into the kernel (no ``[M, Kd, Cin]`` intermediate).
 Replaces the TPU kernel ``repro/kernels/spconv_gather_gemm.py``
 (``spconv_gather_gemm``, ``_kernel``) with ``csrc/spconv_gather_gemm.cu``.
 What bounds it on the H100 and what its design does about that is written
-at the top of that source: FMA-bound on CUDA cores in fp32 for the wide
-layers (the contract is IEEE fp32, so no TF32 tensor cores), a 64×64 block
-tile with a 4×4 register tile per thread, offsets unused by a whole tile
-skipped. Each output element adds its terms in one fixed order (k outer,
-Cin inner), so a row's result depends on nothing but its own map row.
+at the top of that source: the tensor cores through ``mma.sync`` (bf16
+m16n8k16; fp32 as 3xTF32 on m16n8k8, which keeps fp32-class accuracy, so
+the IEEE-fp32 reference contract holds), a 128-row tile by a Cout tile
+from :func:`_tile_for`, per offset only the tile's rows that use it
+(packed into 16-row fragments), a ``cp.async`` pipeline for those rows
+and ``W[k]``. Each output element adds its terms in one fixed order
+(offsets in order, each offset's sum over the Cin slices in order added
+once to one accumulator), and the tile depends only on ``(Cin, Cout,
+dtype)``, so a row's result depends on nothing but its own map row.
 
 :func:`spconv_gather_gemm_torch` is the plain version — ``os_xla``'s
 per-offset loop (gather, mask, ``torch.matmul`` into an fp32 accumulator)
@@ -25,11 +29,12 @@ import torch
 
 from . import _build
 
-TILE = 64   # the kernel's compiled row and channel tile (kBM = kBN)
+TILE_M = 128              # the kernel's compiled row tile (kBM)
+TILES_N = (32, 64, 96)    # its compiled Cout tiles
 
 _SIG = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
 _ENTRY = {torch.float32: "spira_spconv_gather_gemm_f32",
           torch.bfloat16: "spira_spconv_gather_gemm_bf16"}
 _fns: dict = {}
@@ -48,6 +53,19 @@ def spconv_gather_gemm_torch(features: torch.Tensor, m: torch.Tensor,
             features.dtype)
         acc = acc + torch.matmul(g.float(), weights[k].float())
     return acc.to(features.dtype)
+
+
+def _tile_for(cin: int, cout: int, dtype: torch.dtype) -> int:
+    """The kernel's Cout tile for a layer: the smallest of ``TILES_N`` that
+    covers Cout, and 64 for wider layers. The kernel is bound by the
+    latency of its K-steps, so two blocks on an SM and more tiles per
+    layer matter more than gathering the rows once per tile; a 128-wide
+    block's accumulators would leave room for one. A function of the
+    layer alone, never of M, so a row's add order is the same in every
+    bucket and batch. ``cin`` and ``dtype`` are part of the key, though no
+    choice depends on them yet."""
+    del cin, dtype
+    return next((t for t in TILES_N if cout <= t), 64)
 
 
 def spconv_gather_gemm(features: torch.Tensor, m: torch.Tensor,
@@ -82,7 +100,8 @@ def spconv_gather_gemm(features: torch.Tensor, m: torch.Tensor,
         fn = _fns[dt] = _build.function(_ENTRY[dt], _SIG)
     stream = torch.cuda.current_stream(features.device).cuda_stream
     err = fn(features.data_ptr(), Cin, m.data_ptr(), M, Kd,
-             weights.data_ptr(), Cout, out.data_ptr(), stream)
+             weights.data_ptr(), Cout, out.data_ptr(),
+             _tile_for(Cin, Cout, dt), stream)
     spconv_gather_gemm.launches += 1
     _build.check(err, "spconv_gather_gemm")
     return out

@@ -83,37 +83,74 @@ def test_superwindow_kernel_rejects_int64(dev):
                                   backend="cuda")
 
 
-@pytest.mark.parametrize("cin,cout", [(4, 32), (96, 96), (160, 96),
-                                      (256, 128), (17, 20)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_os_kernel_matches_plain(dev, cin, cout, dtype):
+def _os_map(dev, Kd):
+    """A kernel map with Kd columns at L0 of the outdoor scene: K = 3 (27)
+    or K = 5 (125) searches, or the first 7 columns of the K = 3 map (the
+    hybrid dataflow's OS column subsets)."""
     layout, cs = _levels(dev)
-    _, anchors, zstep = zdelta.zdelta_offsets(3, 1, layout, device=dev)
-    m = zdelta.zdelta_search(cs[0], cs[0], anchors, zstep, K=3)
-    g = torch.Generator(device="cpu").manual_seed(cin + cout)
-    n = cs[0].capacity
+    K = 5 if Kd == 125 else 3
+    _, anchors, zstep = zdelta.zdelta_offsets(K, 1, layout, device=dev)
+    m = zdelta.zdelta_search(cs[0], cs[0], anchors, zstep, K=K)
+    return cs[0].capacity, m[:, :Kd].contiguous()
+
+
+def _os_operands(dev, n, Kd, cin, cout, dtype):
+    g = torch.Generator(device="cpu").manual_seed(cin + cout + Kd)
     F = torch.randn((n, cin), generator=g).to(dev, dtype)
-    W = (torch.randn((27, cin, cout), generator=g) / (27 * cin) ** 0.5).to(
+    W = (torch.randn((Kd, cin, cout), generator=g) / (Kd * cin) ** 0.5).to(
         dev, dtype)
-    got = spconv_gather_gemm(F, m, W)
-    ref = spconv_gather_gemm_torch(F, m, W)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == (m.shape[0], cout)
+    return F, W
+
+
+def _os_close(got, ref, dtype):
+    """fp32 within 1e-5 * max(1, max|ref|), bf16 within 2e-2 relative."""
+    assert got.dtype == dtype and got.shape == ref.shape
     scale = float(ref.float().abs().max())
     tol = 1e-5 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
     assert float((got.float() - ref.float()).abs().max()) <= tol
 
 
-def test_os_kernel_rows_do_not_depend_on_m(dev):
-    """A row's output bits depend only on its own map row."""
-    layout, cs = _levels(dev)
-    _, anchors, zstep = zdelta.zdelta_offsets(3, 1, layout, device=dev)
-    m = zdelta.zdelta_search(cs[0], cs[0], anchors, zstep, K=3)
-    F = torch.randn((cs[0].capacity, 48), device=dev)
-    W = torch.randn((27, 48, 40), device=dev)
+@pytest.mark.parametrize("Kd", [7, 27, 125])
+@pytest.mark.parametrize("cout", [20, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("cin", [4, 5, 17, 96, 160, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_os_kernel_matches_plain(dev, cin, cout, dtype, Kd):
+    n, m = _os_map(dev, Kd)
+    F, W = _os_operands(dev, n, Kd, cin, cout, dtype)
+    got = spconv_gather_gemm(F, m, W)
+    ref = spconv_gather_gemm_torch(F, m, W)
+    torch.cuda.synchronize()
+    _os_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("cin,cout", [(17, 20), (96, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_os_kernel_ragged_rows_and_pad_tiles(dev, cin, cout, dtype):
+    """M not a multiple of 128, and a whole 128-row tile of PAD rows (every
+    offset skipped): the plain version's result, exact zeros on the PAD
+    rows."""
+    n, m = _os_map(dev, 27)
+    m = m[:1165].clone()
+    m[256:384] = -1
+    F, W = _os_operands(dev, n, 27, cin, cout, dtype)
+    got = spconv_gather_gemm(F, m, W)
+    ref = spconv_gather_gemm_torch(F, m, W)
+    torch.cuda.synchronize()
+    _os_close(got, ref, dtype)
+    assert not bool(got[256:384].any())
+
+
+@pytest.mark.parametrize("shift", [37, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_os_kernel_rows_do_not_depend_on_m(dev, shift, dtype):
+    """A row's output bits depend only on its own map row: the rows of a
+    map shifted by ``shift`` (so they sit elsewhere in their 128-row
+    tiles, beside other rows) equal the unshifted run bitwise."""
+    n, m = _os_map(dev, 27)
+    F, W = _os_operands(dev, n, 27, 48, 40, dtype)
     full = spconv_gather_gemm(F, m, W)
-    part = spconv_gather_gemm(F, m[37:1000].contiguous(), W)
-    assert torch.equal(full[37:1000], part)
+    part = spconv_gather_gemm(F, m[shift:shift + 963].contiguous(), W)
+    assert torch.equal(full[shift:shift + 963], part)
 
 
 @pytest.mark.parametrize("sizes", [[300], [1, 0, 130], [70000, 33333],
@@ -543,7 +580,8 @@ def _attn_close(got, ref, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("Sq,Skv,H,KV", [(256, 256, 4, 2), (100, 100, 2, 1),
                                          (37, 300, 4, 4), (130, 61, 2, 2),
-                                         (1, 1, 2, 1)])
+                                         (300, 70, 4, 2), (1, 1, 2, 1),
+                                         (2000, 2000, 32, 4)])
 def test_flash_attention_kernel_matches_plain(dev, D, dtype, causal, Sq, Skv,
                                               H, KV):
     q, k, v = _attn_inputs(dev, (2, Sq, H, D), (2, Skv, KV, D), dtype)

@@ -25,7 +25,9 @@ from repro_torch.core import spconv as tsc
 from repro_torch.core.kernel_map import KernelMap as TKM
 from repro_torch.core.kernel_map import l1_norm_max, l1_partition
 from repro_torch.kernels import ops
-from repro_torch.kernels.spconv_gather_gemm import spconv_gather_gemm
+from repro_torch.kernels.spconv_gather_gemm import (TILES_N, _tile_for,
+                                                    spconv_gather_gemm)
+from repro_torch.models import pointcloud as tpc
 from repro_torch.kernels.ws_scatter_gemm import ws_scatter_gemm
 from repro_torch.kernels.zdelta_window import (zdelta_superwindow_cuda,
                                                zdelta_window_cuda)
@@ -225,10 +227,34 @@ def test_cuda_backend_on_cpu_raises_everywhere():
                            arr[:18].reshape(2, 9), 1, K=3, W=128)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("net", sorted(tpc.NETWORKS))
+def test_os_tile_choice_covers_every_layer(net, dtype):
+    """The OS kernel's Cout tile is a pure function of (Cin, Cout, dtype):
+    for every layer of the four point-cloud nets, forward and dF (Cin and
+    Cout swapped), a compiled tile that covers Cout or is the widest; M is
+    not among its inputs, so a row's add order is the same in every
+    bucket."""
+    import inspect
+    assert list(inspect.signature(_tile_for).parameters) == ["cin", "cout",
+                                                             "dtype"]
+    specs = tpc.NETWORKS[net]().specs
+    shapes = {(s.cin, s.cout) for s in specs}
+    shapes |= {(co, ci) for ci, co in shapes}
+    for cin, cout in sorted(shapes):
+        bn = _tile_for(cin, cout, dtype)
+        assert bn in TILES_N
+        assert bn == (min(t for t in TILES_N if t >= cout)
+                      if cout <= max(TILES_N) else 64)
+        assert _tile_for(cin, cout, dtype) == bn
+
+
 def test_os_tile_arguments():
     f, m, w, *_ = _case(3, "sub", cin=4, cout=8)
-    a = ops.spconv_os_fused(T(f), T(m), T(w), bm=64, bn=64)
+    a = ops.spconv_os_fused(T(f), T(m), T(w), bm=128, bn=32)
     b = ops.spconv_os_fused(T(f), T(m), T(w))
     assert torch.equal(a, b)
-    with pytest.raises(ValueError, match="64"):
-        ops.spconv_os_fused(T(f), T(m), T(w), bm=128)
+    with pytest.raises(ValueError, match="128"):
+        ops.spconv_os_fused(T(f), T(m), T(w), bm=64)
+    with pytest.raises(ValueError, match="32"):
+        ops.spconv_os_fused(T(f), T(m), T(w), bn=64)
