@@ -28,7 +28,10 @@ MinkUNet-42 (OS dataflow):
    launch) with its tile ops (2 * 128 rows * offsets a 128-row tile runs *
    Cin * Cout) and the ops of the packed 16-row fragments the kernel
    multiplies beside its useful ops by layer group; each timed with CUDA
-   events beside its plain version, its bound and the library yardstick;
+   events beside its plain version, its bound and the library yardstick
+   (for the segment sum ``torch.segment_reduce``, here, at CenterPoint's
+   and at the training step's launches, with the device time of each of
+   its three passes);
 4. main path: MinkUNet-42 at full width through ``compile_network`` ->
    ``SpiraSession`` on two outdoor LiDAR-sized scenes — scene 0 alone,
    then the batch of 2, each twice — checking finite logits, batched
@@ -65,9 +68,14 @@ bucket 262,144):
 
 6. the training kernels at one step's shapes: every OS dF launch over the
    transposed maps and every dW launch (42 layers and the head) against
-   their plain versions within ``1e-4 * max|ref|`` (the dF launches also
-   against float64 and with their tile ops, as in 3), every segment-sum
-   launch of the step bitwise; then ``ops.output_stationary_fused`` (the
+   their plain versions within ``1e-4 * max|ref|``, and both against the
+   same contraction in float64 (the kernel's max|error| within
+   ``max(4 * the plain version's, 1e-6 * max|ref|)``; the dF launches with
+   their tile ops as in 3, the dW launches with the packed rows they
+   multiply and timed beside one fp32 ``torch.matmul`` of the
+   pre-gathered, masked ``[Kd, Cin, M]`` tensor with g), every
+   segment-sum launch of the step bitwise; then
+   ``ops.output_stationary_fused`` (the
    masked grouped GEMM kernel) on every layer's forward operands within
    ``1e-5 * max(1, max|ref|)`` of its plain version and of the OS kernel,
    timed beside one ``torch.einsum`` on the pre-masked gathered tensor;
@@ -414,13 +422,15 @@ def log_os_groups(label: str, r: dict, card: str) -> None:
         f"gate worst {r['f64_worst']:.3f} of its limit | {card}")
 
 
-def check_segsum(calls, *, library: bool, gradients: bool = False) -> dict:
+def check_segsum(calls, *, gradients: bool = False) -> dict:
     """Segment-sum launches: bitwise equal to the plain version, within
-    1e-3 relative of an fp64 sum; ``library`` also times (and scores)
-    ``torch.segment_reduce`` on the same rows. ``gradients``: the launches
-    of a backward pass, whose sums cancel, so no fp64 comparison, and the
-    plain version (a loop over chunks, slow for the bias gradients' one
-    capacity-long segment) runs once per launch, untimed."""
+    1e-3 relative of an fp64 sum; ``torch.segment_reduce`` on the same rows
+    timed (and scored) beside them; the device time of each of the
+    kernel's three passes over one launch of every call (``passes``).
+    ``gradients``: the launches of a backward pass, whose sums cancel, so
+    no fp64 comparison, and the plain version (a loop over chunks, slow for
+    the bias gradients' one capacity-long segment) runs once per launch,
+    untimed."""
     import torch
     from repro_torch.kernels import segsum as segsum_mod
     from repro_torch.kernels.segsum import segment_sum_torch
@@ -436,11 +446,16 @@ def check_segsum(calls, *, library: bool, gradients: bool = False) -> dict:
         t_k += cuda_ms(lambda: segsum_mod.segment_sum_cuda(x, sid, starts,
                                                            counts, **kw), 3)
         rows = int(counts.sum())
-        nb = 4 * (rows * x.shape[1] + got.numel())
+        nb = rows * x.shape[1] * x.element_size() + 4 * got.numel()
         ops = float(rows * x.shape[1])
         b_tot += bound_ms(nb, ops)[0]
         ops_tot += ops
         bytes_tot += nb
+        # segments are contiguous from row 0 (the input contract)
+        xs = x[:rows]
+        lengths = counts.long()
+        t_l += cuda_ms(lambda: torch.segment_reduce(xs, "sum",
+                                                    lengths=lengths), 3)
         if gradients:
             continue
         t_p += cuda_ms(lambda: segment_sum_torch(x, sid, starts, counts,
@@ -454,19 +469,32 @@ def check_segsum(calls, *, library: bool, gradients: bool = False) -> dict:
             raise RuntimeError(f"segment_sum launch {i}: {rel:.2e} relative "
                                "from the fp64 sum")
         f64_rel = max(f64_rel, rel)
-        if library:
-            xs = x[:rows]
-            lengths = counts.long()
-            lib_out = torch.segment_reduce(xs, "sum", lengths=lengths)
-            lib_rel = max(lib_rel, float(((lib_out.double() - exact).abs()
-                                          / exact.abs().clamp(min=floor))
-                                         .max()))
-            t_l += cuda_ms(lambda: torch.segment_reduce(xs, "sum",
-                                                        lengths=lengths), 3)
+        lib_out = torch.segment_reduce(xs, "sum", lengths=lengths)
+        lib_rel = max(lib_rel, float(((lib_out.double() - exact).abs()
+                                      / exact.abs().clamp(min=floor)).max()))
+
+    def every_call():
+        for a, kw in calls:
+            segsum_mod.segment_sum_cuda(*a, **kw)
+    every_call()
+    _, by_name = profile_call(every_call)
+    passes = {p: sum(v for k, v in by_name.items() if k.startswith(p))
+              for p in ("chunk_offsets", "chunk_partials",
+                        "combine_partials")}
     return dict(max_abs_err=0.0, ms=t_k, plain_ms=None if gradients else t_p,
                 bound_ms=b_tot, bound_by=bound_ms(bytes_tot, ops_tot)[1],
-                library_ms=t_l if library else None, f64_rel=f64_rel,
-                lib_rel=lib_rel)
+                library_ms=t_l, f64_rel=f64_rel, lib_rel=lib_rel,
+                passes=passes)
+
+
+def log_segsum_passes(label: str, r: dict, card: str) -> None:
+    """Device ms of the segment sum's passes over one launch of every
+    recorded call (``torch.profiler``)."""
+    p = r.pop("passes")
+    log(f"[{label} passes] device ms over one launch of each call: chunk "
+        f"offsets {p['chunk_offsets']:.3f}, chunk partials "
+        f"{p['chunk_partials']:.3f}, combine {p['combine_partials']:.3f} "
+        f"| {card}")
 
 
 def ws_bound(F, m, W, capacity) -> tuple:
@@ -508,36 +536,118 @@ def check_ws(calls) -> dict:
                 gflop=ops_tot / 1e9)
 
 
+def dw_f64(F, m, g):
+    """The per-offset weight gradient in float64 on the card, over each
+    offset's valid rows: the yardstick of the fp32 kernel's and plain
+    version's rounding."""
+    import torch
+    out = torch.empty((m.shape[1], F.shape[1], g.shape[1]),
+                      dtype=torch.float64, device=F.device)
+    for k in range(m.shape[1]):
+        rows = torch.nonzero(m[:, k] >= 0)[:, 0]
+        out[k] = (F[m[rows, k].long()].double().t()
+                  @ g[rows].double())
+    return out
+
+
+def dw_library_ms(F, m, g) -> float:
+    """The library yardstick of one dW launch: one fp32 ``torch.matmul``
+    (TF32 off) of the pre-gathered, masked ``[Kd, Cin, M]`` tensor with g,
+    timed; its result is dropped."""
+    import torch
+    M, Kd = m.shape
+    G = torch.empty((Kd, F.shape[1], M), dtype=F.dtype, device=F.device)
+    for k in range(Kd):
+        col = m[:, k]
+        G[k] = (F[col.clamp(min=0).long()]
+                * (col >= 0)[:, None].to(F.dtype)).t()
+    ms = cuda_ms(lambda: torch.matmul(G, g), 2)
+    del G
+    torch.cuda.empty_cache()
+    return ms
+
+
+def dw_packed_ops(m, cin: int, cout: int, dtype) -> float:
+    """Operations the dW kernel multiplies: per (offset, panel) its packed
+    valid rows rounded up to the mma depth (8 fp32, 16 bf16), times the
+    Cin x Cout tiles the layer is cut into (one fp32 product counts once,
+    not 3xTF32's three)."""
+    import torch
+    from repro_torch.kernels.dw_gather_gemm import _tile_for, panel_counts
+    depth = 8 if dtype == torch.float32 else 16
+    rows = int(((panel_counts(m) + depth - 1) // depth).sum()) * depth
+    mi, ni = _tile_for(cin, cout, dtype)
+    pad_i = -(-cin // (32 * mi)) * 32 * mi
+    pad_j = -(-cout // (32 * ni)) * 32 * ni
+    return 2.0 * rows * pad_i * pad_j
+
+
 def check_dw(calls) -> dict:
     """dW launches: within ``1e-4 * max|ref|`` of the plain version
-    (``chunked_rowdot`` with the same panel; the kernel adds a panel's
-    rows by fmaf in row order, the library matmul in its own blocking, over
-    up to 262,144 rows)."""
+    (``chunked_rowdot`` with the same panel: the library matmul in its own
+    blocking over up to 262,144 rows), and every fp32 launch against the
+    same contraction in float64: the kernel's max|error| (3xTF32) within
+    ``max(4 * the plain version's, 1e-6 * max|ref|)``, one line per launch.
+    Each timed beside its plain version and the library yardstick; the
+    device time of each of the kernel's three passes over one launch of
+    every call (``passes``)."""
+    import torch
     from repro_torch.kernels.dw_gather_gemm import (dw_gather_gemm,
                                                     dw_gather_gemm_torch)
-    err = rel_err = t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
+    err = rel_err = t_k = t_p = t_l = b_tot = ops_tot = bytes_tot = 0.0
+    packed_tot = f64_worst = 0.0
     for i, (a, kw) in enumerate(calls):
         F, m, g = a
         got = dw_gather_gemm(F, m, g)
         ref = dw_gather_gemm_torch(F, m, g)
         d = float((got - ref).abs().max())
         scale = float(ref.abs().max())
+        what = f"{F.shape[1]}x{g.shape[1]} Kd={m.shape[1]}"
         if not d <= 1e-4 * scale:
-            raise RuntimeError(f"dW launch {i} ({F.shape[1]}x{g.shape[1]}, "
-                               f"Kd={m.shape[1]}): max|diff| {d} > 1e-4 * "
-                               f"{scale}")
+            raise RuntimeError(f"dW launch {i} ({what}): max|diff| {d} > "
+                               f"1e-4 * {scale}")
+        ms = cuda_ms(lambda: dw_gather_gemm(F, m, g), 5)
+        t_k += ms
+        if F.dtype == torch.float32:
+            ref64 = dw_f64(F, m, g)
+            e_k = float((got.double() - ref64).abs().max())
+            e_p = float((ref.double() - ref64).abs().max())
+            s64 = float(ref64.abs().max())
+            gate = max(4.0 * e_p, 1e-6 * s64)
+            if not e_k <= gate:
+                raise RuntimeError(f"dW launch {i} ({what}) against float64: "
+                                   f"kernel max|err| {e_k} > max(4 * plain "
+                                   f"{e_p}, 1e-6 * {s64})")
+            f64_worst = max(f64_worst, e_k / gate)
+            log(f"[6 dW f64 {i} {what}] vs float64: kernel max|err| "
+                f"{e_k:.3e}, plain {e_p:.3e}, max|ref| {s64:.3e}, gate "
+                f"{gate:.3e}; kernel {ms:.4f} ms")
+            del ref64
         err, rel_err = max(err, d), max(rel_err, d / max(scale, 1e-30))
-        t_k += cuda_ms(lambda: dw_gather_gemm(F, m, g), 2)
         t_p += cuda_ms(lambda: dw_gather_gemm_torch(F, m, g), 1)
+        t_l += dw_library_ms(F, m, g)
         nnz = int((m >= 0).sum())
         ops = 2.0 * nnz * F.shape[1] * g.shape[1]
-        nb = 4 * (F.numel() + m.numel() + g.numel() + got.numel())
+        nb = (F.numel() * F.element_size() + 4 * m.numel()
+              + g.numel() * g.element_size() + 4 * got.numel())
         b_tot += bound_ms(nb, ops)[0]
         ops_tot += ops
         bytes_tot += nb
+        packed_tot += dw_packed_ops(m, F.shape[1], g.shape[1], F.dtype)
+
+    def every_call():
+        for a, _ in calls:
+            dw_gather_gemm(*a)
+    every_call()
+    _, by_name = profile_call(every_call)
+    passes = {p: sum(v for k, v in by_name.items() if k.startswith(p))
+              for p in ("dw_pack_kernel", "dw_mma_kernel",
+                        "dw_combine_kernel")}
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
-                bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None,
-                rel_err=rel_err, gflop=ops_tot / 1e9)
+                bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=t_l,
+                rel_err=rel_err, gflop=ops_tot / 1e9,
+                packed_gflop=packed_tot / 1e9, f64_worst=f64_worst,
+                passes=passes)
 
 
 def check_mgg(calls, names) -> dict:
@@ -711,7 +821,8 @@ def train_drive(trainer, st, lab, steps: int, expected: dict,
 
 def per_forward(r: dict) -> dict:
     """The per-forward times of a check's result."""
-    return {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
+    return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+            if k in r}
 
 
 def drive(session, inputs, expected: dict, label: str, kind: str,
@@ -1300,14 +1411,15 @@ def main() -> int:
 
     # segment sums: bitwise
     s_calls = rec.calls["segment_sum"]
-    r = check_segsum(s_calls, library=True)
+    r = check_segsum(s_calls)
     f64_rel, lib_rel = r.pop("f64_rel"), r.pop("lib_rel")
+    log_segsum_passes("3 segsum", r, card)
     results["segment_sum"] = r
     log(f"[3 segsum] {len(s_calls)} launches bitwise equal (max rel diff "
         f"to an fp64 sum {f64_rel:.2e}); per forward "
         f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
         f"torch.segment_reduce {r['library_ms']:.3f} ms (max rel diff to "
-        f"fp64 {lib_rel:.2e}), bound {r['bound_ms']:.4f} ms")
+        f"fp64 {lib_rel:.2e}), bound {r['bound_ms']:.4f} ms | {card}")
     del rec, z, o, s_calls
     torch.cuda.empty_cache()
 
@@ -1405,16 +1517,20 @@ def main() -> int:
     for kname, fn in (("zdelta_superwindow_search", check_superwindow),
                       ("spconv_gather_gemm",
                        lambda c: check_os(c, label="3 cp os")),
-                      ("segment_sum",
-                       lambda c: check_segsum(c, library=False))):
+                      ("segment_sum", check_segsum)):
         c = rec.calls[kname]
         r = fn(c)
         if kname == "spconv_gather_gemm":
             log_os_groups("3 cp os", r, card)
+        lib = ""
+        if kname == "segment_sum":
+            log_segsum_passes("3 cp segment_sum", r, card)
+            lib = (f", torch.segment_reduce {r['library_ms']:.3f} ms (max "
+                   f"rel diff to fp64 {r['lib_rel']:.2e})")
         paths[kname]["centerpoint_large"] = per_forward(r)
         log(f"[3 cp {kname}] {len(c)} launches equal to the plain version "
             f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, bound "
             f"{r['bound_ms']:.4f} ms")
     del rec, w_calls, F, m, W
     torch.cuda.empty_cache()
@@ -1551,20 +1667,32 @@ def main() -> int:
     dw_calls = rec.calls["dw_gather_gemm"]
     r = check_dw(dw_calls)
     gflop, rel = r.pop("gflop"), r.pop("rel_err")
+    packed, worst = r.pop("packed_gflop"), r.pop("f64_worst")
+    passes = r.pop("passes")
+    log(f"[6 dW passes] device ms over one launch of each call: pack "
+        f"{passes['dw_pack_kernel']:.3f}, mma {passes['dw_mma_kernel']:.3f}, "
+        f"combine {passes['dw_combine_kernel']:.3f} | {card}")
     results["dw_gather_gemm"] = r
     log(f"[6 dW] {len(dw_calls)} launches (42 layers + head) within "
-        f"1e-4*max|ref| of chunked_rowdot (max rel diff {rel:.2e}); per "
-        f"step kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful, "
-        f"{gflop / r['ms']:.2f} TFLOP/s) | {card}")
+        f"1e-4*max|ref| of chunked_rowdot (max rel diff {rel:.2e}) and the "
+        f"float64 gate (worst {worst:.3f} of its limit); per step kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch.matmul on "
+        f"the pre-gathered [Kd, Cin, M] tensor {r['library_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful, "
+        f"{gflop / r['ms']:.2f} TFLOP/s; at 3xTF32's 165 TFLOP/s "
+        f"{gflop / 165:.3f} ms); packed rows x tiles {packed:.1f} GFLOP "
+        f"({packed / max(gflop, 1e-9):.2f}x useful, "
+        f"{packed / r['ms']:.2f} TFLOP/s) | {card}")
     s_calls = rec.calls["segment_sum"]
-    r = check_segsum(s_calls, library=False, gradients=True)
+    r = check_segsum(s_calls, gradients=True)
     r.pop("f64_rel"), r.pop("lib_rel")
+    log_segsum_passes("6 segsum", r, card)
     results["segsum_train"] = r
     log(f"[6 segsum] {len(s_calls)} launches of one step (BN forward, BN "
         f"backward, bias gradients, loss) bitwise equal to the plain "
-        f"version; per step kernel {r['ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.4f} ms (plain version not timed)")
+        f"version; per step kernel {r['ms']:.3f} ms, torch.segment_reduce "
+        f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms (plain "
+        f"version not timed) | {card}")
     del rec, o, bwd, dw_calls, s_calls
     torch.cuda.empty_cache()
     with Recorder(names=("spconv_gather_gemm",)) as rec:

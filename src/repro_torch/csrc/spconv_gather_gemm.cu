@@ -116,33 +116,6 @@ template <typename T, int BN> struct Tile {
   static constexpr int kSmem = kListOffset + 3 * kKC * 4;
 };
 
-// One chunk of `vec` bytes (16, 8, 4, or 2 by plain loads) into shared
-// memory, zeros when `valid` is false.
-__device__ __forceinline__ void copy_chunk(char* dst, const char* src,
-                                           bool valid, int vec) {
-  switch (vec) {
-    case 16: cp_async<16>(dst, src, valid); break;
-    case 8: cp_async<8>(dst, src, valid); break;
-    case 4: cp_async<4>(dst, src, valid); break;
-    default:
-      *reinterpret_cast<uint16_t*>(dst) =
-          valid ? *reinterpret_cast<const uint16_t*>(src) : uint16_t{0};
-  }
-}
-
-// A thread's walk over the chunks of a W[k] slice, rows of `chunks` copies:
-// its first (row, chunk) and the step between its copies, so the loop needs
-// no division.
-struct Walk {
-  int r0, c0, dr, dc, chunks;
-};
-
-__device__ __forceinline__ Walk make_walk(int chunks) {
-  return Walk{static_cast<int>(threadIdx.x) / chunks,
-              static_cast<int>(threadIdx.x) % chunks, kThreads / chunks,
-              kThreads % chunks, chunks};
-}
-
 // A K-step: active offset a, pass rp over its packed rows (64 at a time),
 // Cin slice cs; `next` walks them in order without division.
 struct Step {
@@ -312,7 +285,8 @@ os_mma_kernel(const T* __restrict__ F, int Cin,
   const int row0 = (blockIdx.x / n_col_tiles) * kBM;
   const int n0 = (blockIdx.x % n_col_tiles) * BN;
   const int n_slices = (Cin + kBK - 1) / kBK;
-  const Walk wb = make_walk(BN * static_cast<int>(sizeof(T)) / vecB);
+  const Walk wb =
+      make_walk<kThreads>(BN * static_cast<int>(sizeof(T)) / vecB);
 
   for (int e = threadIdx.x; e < kBM * L::kLdAcc; e += kThreads)
     acc_s[e] = 0.0f;
@@ -440,15 +414,6 @@ os_mma_kernel(const T* __restrict__ F, int Cin,
       store(out + static_cast<int64_t>(row0 + r) * Cout + n0 + c,
             acc_s[r * L::kLdAcc + c]);
   }
-}
-
-// The widest copy (16, 8, 4 or 2 bytes) that divides a row of `row_bytes`
-// and the base address, at least one element.
-int copy_bytes(const void* p, int64_t row_bytes, int elem) {
-  const auto addr = reinterpret_cast<uintptr_t>(p);
-  for (int v = 16; v > elem; v /= 2)
-    if (row_bytes % v == 0 && addr % v == 0) return v;
-  return elem;
 }
 
 template <typename T, int BN>

@@ -1,12 +1,17 @@
 // Warp-level tensor-core and async-copy building blocks shared by the
-// mma.sync kernels (spconv_gather_gemm.cu, flash_attention.cu): cp.async
+// mma.sync kernels (spconv_gather_gemm.cu, dw_gather_gemm.cu,
+// flash_attention.cu) and the segment sum's cp.async ring: cp.async
 // with zero fill, ldmatrix (plain and transposed), mma.sync m16n8k16 bf16
 // and m16n8k8 tf32 with fp32 accumulators, and the round-to-nearest tf32
-// split that 3xTF32 needs. sm_80 instructions, all valid on sm_90a.
+// split that 3xTF32 needs. sm_80 instructions, all valid on sm_90a. Also
+// the row-gather helpers of the two gather-GEMMs (the copy of one chunk,
+// a thread's walk over a tile's copies, the widest copy a row allows) and
+// the card's SM count.
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace spira_tc {
 
@@ -98,6 +103,56 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One chunk of `vec` bytes (16, 8, 4, or 2 by plain loads) into shared
+// memory, zeros when `valid` is false.
+__device__ __forceinline__ void copy_chunk(char* dst, const char* src,
+                                           bool valid, int vec) {
+  switch (vec) {
+    case 16: cp_async<16>(dst, src, valid); break;
+    case 8: cp_async<8>(dst, src, valid); break;
+    case 4: cp_async<4>(dst, src, valid); break;
+    default:
+      *reinterpret_cast<uint16_t*>(dst) =
+          valid ? *reinterpret_cast<const uint16_t*>(src) : uint16_t{0};
+  }
+}
+
+// A thread's walk over a tile's copies, rows of `chunks` copies, in a block
+// of `Threads`: its first (row, chunk) and the step between its copies, so
+// the copy loops need no division.
+struct Walk {
+  int r0, c0, dr, dc, chunks;
+};
+
+template <int Threads>
+__device__ __forceinline__ Walk make_walk(int chunks) {
+  return Walk{static_cast<int>(threadIdx.x) / chunks,
+              static_cast<int>(threadIdx.x) % chunks, Threads / chunks,
+              Threads % chunks, chunks};
+}
+
+// The widest copy (16, 8, 4 or 2 bytes) that divides a row of `row_bytes`
+// and the base address, at least one element.
+inline int copy_bytes(const void* p, int64_t row_bytes, int elem) {
+  const auto addr = reinterpret_cast<uintptr_t>(p);
+  for (int v = 16; v > elem; v /= 2)
+    if (row_bytes % v == 0 && addr % v == 0) return v;
+  return elem;
+}
+
+// SMs of the current device (132 on an H100 SXM if the query fails).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
 }
 
 }  // namespace spira_tc

@@ -4,17 +4,21 @@ CUDA kernel + plain version.
 ``dW[k] = Σ_r G_kᵀ[r] g[r]`` with ``G_k[r] = F[m[r,k]]`` (zero where
 ``m[r,k] < 0``), as fp32 ``[Kd, Cin, Cout]``. The contraction runs over
 the capacity-sized row axis under one fixed grouping: panels of
-:data:`PANEL` rows from row 0, each adding its rows in row order from +0.0,
-then the panel partials in panel order from +0.0 (the reference's
-``chunked_rowdot`` idea). Appending zero rows only appends exact zeros, so
-the weight gradients are bitwise equal across capacity buckets.
+:data:`PANEL` rows from row 0, each panel's sum a function of its own
+valid rows alone, then the panel partials in panel order from +0.0 (the
+reference's ``chunked_rowdot`` idea). PAD rows appended by a larger
+capacity bucket carry ``m = -1`` and change no panel's rows, so the weight
+gradients are bitwise equal across buckets.
 
 A port-only kernel (``csrc/dw_gather_gemm.cu``): the JAX reference
 computes ``_dw_per_offset`` (``repro/core/dataflow.py``) in XLA, outside
-any Pallas kernel. Built from ``torch.matmul`` panels the same grouping
-costs one launch per panel, per offset, per layer; the kernel does all
-offsets and panels of a layer in two launches. What bounds it and what its
-design does about that is written at the top of the source.
+any Pallas kernel. On the card one call packs each (offset, panel)'s valid
+rows, multiplies them on the tensor cores (bf16 ``mma.sync``; fp32 as
+3xTF32, each 16 rows summed apart and added in round-to-nearest fp32)
+through a ``cp.async`` ring, and combines the panels; the source's header
+says what bounds it and how. :func:`_tile_for` picks the Cin × Cout tile
+from the layer, never from M. :func:`panel_counts` is the pack pass's
+per-panel row count in torch, for the work the kernel multiplies.
 
 :func:`dw_gather_gemm_torch` is the plain version: per offset, gather and
 mask, then ``chunked_rowdot`` with the same panel; it runs on CPU tensors
@@ -28,17 +32,47 @@ import torch
 
 from . import _build
 
-# Rows per panel (a multiple of the kernel's 16-row step): the partials
-# ([Kd · ⌈M/PANEL⌉, Cin, Cout] fp32) stay under 1 GB at M = 524,288,
-# Kd = 27, 256 × 256 (906 MB).
+# Rows per panel (the kernel's compiled kPanel; a panel's rows are indexed
+# by 16 bits): the partials ([Kd · ⌈M/PANEL⌉, Cin, Cout] fp32) stay under
+# 1 GB at M = 524,288, Kd = 27, 256 × 256 (906 MB).
 PANEL = 4096
+TILE_UNITS = (1, 2, 3)     # compiled tile widths, in units of 32 channels
 
 _SIG = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
 _ENTRY = {torch.float32: "spira_dw_gather_gemm_f32",
           torch.bfloat16: "spira_dw_gather_gemm_bf16"}
 _fns: dict = {}
+
+
+def _units(c: int) -> int:
+    """Tile width (in 32-channel units) for ``c`` channels: the one of
+    :data:`TILE_UNITS` whose tiles pad ``c`` least, the wider on a tie."""
+    return min(TILE_UNITS, key=lambda n: (-(-c // (32 * n)) * 32 * n, -n))
+
+
+def _tile_for(cin: int, cout: int, dtype: torch.dtype) -> tuple:
+    """The kernel's Cin × Cout tile for a layer, as (MI, NI) units of 32:
+    one tile up to 96 channels (the stem's 4 input channels run a 32-row
+    tile, a 96 × 96 layer one tile that reads each gathered row once), 64
+    for 128 and 256. A function of the layer alone, never of M, so a
+    panel's add order is the same in every bucket. ``dtype`` is part of
+    the key, though no choice depends on it yet."""
+    del dtype
+    return _units(cin), _units(cout)
+
+
+def panel_counts(m: torch.Tensor, q: int = PANEL) -> torch.Tensor:
+    """Valid map entries per (offset, panel), int64 ``[Kd, ⌈M/q⌉]``: the
+    rows the pack pass lists for each unit of the kernel's work. Appended
+    ``m = -1`` rows add empty panels and change no count."""
+    M, Kd = m.shape
+    P = -(-M // q)
+    valid = torch.zeros((P * q, Kd), dtype=torch.int64, device=m.device)
+    valid[:M] = m >= 0
+    return valid.view(P, q, Kd).sum(1).t()
 
 
 def chunked_rowdot(x: torch.Tensor, g: torch.Tensor, q: int = PANEL
@@ -100,6 +134,12 @@ def dw_gather_gemm(features: torch.Tensor, m: torch.Tensor,
     m = m.contiguous()
     g = g.contiguous()
     P = -(-M // PANEL)
+    mi, ni = _tile_for(Cin, Cout, dt)
+    # counters; per (k, panel) its count, work item and up to PANEL / 32
+    # sub-panel counts; the packed lists (int32 map entries, 16-bit rows)
+    kp = Kd * P
+    words = 2 + kp * (2 + PANEL // 32 + PANEL) + -(-kp * PANEL // 2)
+    ws = torch.empty(words, dtype=torch.int32, device=dev)
     partial = torch.empty((Kd * P, Cin, Cout), dtype=torch.float32,
                           device=dev)
     out = torch.empty((Kd, Cin, Cout), dtype=torch.float32, device=dev)
@@ -108,7 +148,8 @@ def dw_gather_gemm(features: torch.Tensor, m: torch.Tensor,
         fn = _fns[dt] = _build.function(_ENTRY[dt], _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(features.data_ptr(), Cin, m.data_ptr(), M, Kd, g.data_ptr(),
-             Cout, PANEL, partial.data_ptr(), out.data_ptr(), stream)
+             Cout, PANEL, mi, ni, ws.data_ptr(), partial.data_ptr(),
+             out.data_ptr(), stream)
     dw_gather_gemm.launches += 1
     _build.check(err, "dw_gather_gemm")
     return out

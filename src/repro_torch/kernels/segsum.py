@@ -11,12 +11,16 @@ on where its rows sit (alignment invariance: batch of B == B single runs)
 or on PAD rows appended behind it (zero-extension invariance).
 
 Replaces the TPU kernel ``repro/kernels/segsum.py`` (``segment_sum_pallas``,
-``_segsum_kernel``) with ``csrc/segsum.cu``: two passes, one thread per
-(chunk slot, channel) and then one per (segment, channel), each a
-sequential chain. Bound by bytes on the H100 (every valid row is read once,
-one add per element); neighbouring channels sit on neighbouring threads so
-each chain step is a coalesced row read. No atomics, shuffles or trees, and
-no fast math, so the kernel is bitwise equal to :func:`segment_sum_torch`.
+``_segsum_kernel``) with ``csrc/segsum.cu``: three kernels on the stream —
+the chunk offsets (a scan of ``ceil(counts / q)`` on the card), the chunk
+partials (one thread per used slot and channel, its row loads issued ahead
+of its adds) and the combine (one warp per segment and 32 channels,
+streaming the partials through shared memory). Bound by bytes on the H100
+(every valid row is read once, one add per element). The fp32 sums use no
+atomics, shuffles or trees, and no fast math, so the kernel is bitwise
+equal to :func:`segment_sum_torch`. The wrapper builds no chunk table,
+reads bf16 rows natively (the kernel widens them exactly) and never waits
+on the card, as CUDA-graph capture needs.
 
 :func:`segment_sum_torch` is the plain version: ``segment_sum_xla`` in
 torch — the chunk table, one gather, a q-step masked add chain, then the
@@ -65,20 +69,30 @@ class SegmentSpec:
     q: int = 64
 
 
+def chunk_offsets(counts: torch.Tensor, q: int):
+    """Per segment its chunk count ``nch = ceil(counts / q)`` and first
+    chunk slot ``choff`` [S + 1] (``choff[S]`` is the number of used
+    slots): what the card's ``chunk_offsets`` kernel computes."""
+    i32 = torch.int32
+    nch = torch.div(counts.to(i32) + (q - 1), q, rounding_mode="floor")
+    choff = torch.cat([torch.zeros(1, dtype=i32, device=counts.device),
+                       torch.cumsum(nch, 0).to(i32)])
+    return nch, choff
+
+
 def _chunk_table(starts: torch.Tensor, counts: torch.Tensor, cap: int,
                  q: int):
     """The canonical chunk enumeration, scatter-free (as
     ``segment_sum_xla``): per segment its chunk count ``nch`` and first
     chunk slot ``choff`` [S + 1]; per slot of ``n2 = cap // q + S`` its
-    start row and length (0 for unused slots)."""
+    start row and length (0 for unused slots). The card derives the same
+    slots from ``choff`` in its kernels."""
     i32 = torch.int32
     S = starts.shape[0]
     dev = starts.device
     starts = starts.to(i32)
     counts = counts.to(i32)
-    nch = torch.div(counts + (q - 1), q, rounding_mode="floor")
-    choff = torch.cat([torch.zeros(1, dtype=i32, device=dev),
-                       torch.cumsum(nch, 0).to(i32)])
+    nch, choff = chunk_offsets(counts, q)
     n2 = cap // q + S
     c = torch.arange(n2, dtype=i32, device=dev)
     # owning segment per slot: empty segments (duplicate offsets) resolve to
@@ -116,18 +130,19 @@ def segment_sum_torch(x: torch.Tensor, sid: torch.Tensor,
     return acc
 
 
-_SIG = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_SIG = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _fns: dict = {}
 
 
 def segment_sum_cuda(x: torch.Tensor, sid: torch.Tensor,
                      starts: torch.Tensor, counts: torch.Tensor, *,
                      num_segments: int, q: int = 64) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA ``x``; same contract and bits as
-    :func:`segment_sum_torch`. The kernel adds fp32 rows: narrower floats
-    are widened first, exactly, as the plain version does."""
+    """Launch the CUDA kernels on CUDA ``x``; same contract and bits as
+    :func:`segment_sum_torch`. fp32 and bf16 rows are read as they are
+    (bf16 widened exactly in the kernel); other floats are widened to fp32
+    first, as the plain version does. No host sync."""
     if x.device.type != "cuda":
         raise ValueError("segment_sum_cuda launches a CUDA kernel; got a "
                          f"tensor on {x.device}")
@@ -135,18 +150,26 @@ def segment_sum_cuda(x: torch.Tensor, sid: torch.Tensor,
         raise TypeError(f"segment_sum_cuda takes float rows, got {x.dtype}")
     cap, C = x.shape
     S = num_segments
-    nch, choff, chunk_start, chunk_len, n2 = _chunk_table(starts, counts,
-                                                          cap, q)
-    x = x.to(torch.float32).contiguous()
-    partial = torch.empty((n2, C), dtype=torch.float32, device=x.device)
-    out = torch.empty((S, C), dtype=torch.float32, device=x.device)
+    if starts.numel() != S or counts.numel() != S:
+        raise ValueError(f"starts/counts hold {starts.numel()}/"
+                         f"{counts.numel()} segments, expected {S}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    dev = x.device
+    starts = starts.to(device=dev, dtype=torch.int32).contiguous()
+    counts = counts.to(device=dev, dtype=torch.int32).contiguous()
+    n2 = cap // q + S
+    choff = torch.empty(S + 1, dtype=torch.int32, device=dev)
+    partial = torch.empty((n2, C), dtype=torch.float32, device=dev)
+    out = torch.empty((S, C), dtype=torch.float32, device=dev)
     fn = _fns.get("fn")
     if fn is None:
-        fn = _fns["fn"] = _build.function("spira_segment_sum_f32", _SIG)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), C, chunk_start.data_ptr(), chunk_len.data_ptr(),
-             n2, choff.data_ptr(), nch.data_ptr(), S, partial.data_ptr(),
-             out.data_ptr(), stream)
+        fn = _fns["fn"] = _build.function("spira_segment_sum", _SIG)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), C, q,
+             starts.data_ptr(), counts.data_ptr(), S, n2, choff.data_ptr(),
+             partial.data_ptr(), out.data_ptr(), stream)
     segment_sum_cuda.launches += 1
     _build.check(err, "segment_sum")
     return out

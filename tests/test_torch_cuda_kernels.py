@@ -4,8 +4,10 @@ contract through the kernels. They skip without a card; run them on one
 with ``pytest -m cuda tests/test_torch_cuda_kernels.py`` (README).
 Imports no JAX, so the card's machine needs only torch, numpy and nvcc.
 Training: the masked grouped GEMM and dW kernels against their plain
-versions, OS and WS dF over transposed maps, WS at MinkUNet widths, and a
-``compile_train`` step through the kernels against the plain path.
+versions (fp32 dW also against float64, across panel boundaries), the
+segment sum over a capacity-long segment and over empty segments, neither
+wrapper syncing, OS and WS dF over transposed maps, WS at MinkUNet widths,
+and a ``compile_train`` step through the kernels against the plain path.
 LM serving: the flash attention kernel against its plain version (head
 dims 64/128/256, fp32/bf16, ragged, cross-length, GQA, strided inputs),
 and a small dense LM's prefill, decode and slot engine on the card.
@@ -436,6 +438,154 @@ def test_dw_kernel_is_zero_extension_invariant(dev):
     rows2 = torch.arange(2 * M, dtype=torch.int32, device=dev)[:, None]
     x2 = torch.cat([x, torch.zeros_like(x)])
     assert torch.equal(dw_gather_gemm(x2, rows2, torch.cat([ct, ct])), h)
+
+
+
+def _dw_f64(F, m, ct):
+    """The per-offset weight gradient in float64: the yardstick of the
+    kernel's and the plain version's fp32 rounding."""
+    out = []
+    for k in range(m.shape[1]):
+        col = m[:, k]
+        gk = F.double()[col.clamp(min=0).long()] * (col >= 0)[:, None]
+        out.append(gk.t() @ ct.double())
+    return torch.stack(out)
+
+
+def _dw_gate(got, ref, ref64):
+    """fp32: the kernel (3xTF32) within max(4x the plain fp32 version's
+    max|error| against float64, 1e-6 max|ref|), and within 1e-4 max|ref|
+    of the plain version."""
+    e_k = float((got.double() - ref64).abs().max())
+    e_p = float((ref.double() - ref64).abs().max())
+    scale = float(ref64.abs().max())
+    assert e_k <= max(4.0 * e_p, 1e-6 * scale)
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("m_in,m_out,cin,cout", [(0, 0, 4, 32),
+                                                 (0, 1, 17, 70),
+                                                 (1, 0, 96, 96),
+                                                 (1, 1, 256, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_kernel_float64_gate(dev, m_in, m_out, cin, cout, dtype):
+    """The stem, a ragged layer, one 96 x 96 tile, 64 x 64 tiles of a
+    256 x 256 layer: fp32 held against float64, bf16 against the plain
+    version."""
+    F, m, _, ct = _map_case(dev, m_in, m_out, cin, cout, dtype)
+    got = dw_gather_gemm(F, m, ct)
+    ref = dw_gather_gemm_torch(F, m, ct)
+    torch.cuda.synchronize()
+    assert got.shape == (27, cin, cout)
+    if dtype == torch.float32:
+        _dw_gate(got, ref, _dw_f64(F, m, ct))
+    else:
+        _close(got, ref, dtype)
+
+
+def _panel_map(dev, seed=0):
+    """A map over 3 panels and 77 rows: offset 0 random, 1 valid only on
+    rows that straddle the first panel boundary, 2 without a valid row in
+    panel 1, 3 never valid, 4 valid on every row."""
+    from repro_torch.kernels.dw_gather_gemm import PANEL
+    M, N = 3 * PANEL + 77, 5000
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    m = torch.randint(0, N, (M, 5), generator=g, dtype=torch.int32)
+    drop = torch.rand((M, 5), generator=g) < 0.7
+    m[:, 0][drop[:, 0]] = -1
+    m[:, 1] = -1
+    m[PANEL - 6:PANEL + 6, 1] = torch.arange(12, dtype=torch.int32)
+    m[:, 2][drop[:, 2]] = -1
+    m[PANEL:2 * PANEL, 2] = -1
+    m[:, 3] = -1
+    return m.to(dev), N, M
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_kernel_panels(dev, dtype):
+    """Valid rows across panel boundaries, a panel without rows for an
+    offset, an offset without rows: equal to the plain version (fp32 under
+    the float64 gate), and exact zeros where no row is valid."""
+    m, N, M = _panel_map(dev)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    F = torch.randn((N, 48), generator=g).to(dev, dtype)
+    ct = torch.randn((M, 40), generator=g).to(dev, dtype)
+    got = dw_gather_gemm(F, m, ct)
+    ref = dw_gather_gemm_torch(F, m, ct)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+    if dtype == torch.float32:
+        _dw_gate(got, ref, _dw_f64(F, m, ct))
+    else:
+        _close(got, ref, dtype)
+
+
+def _long_segment(dev, C, dtype, cap=262144, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed + C)
+    x = torch.randn((cap, C), generator=g)
+    x[::5] *= 1e4
+    x[3] = -0.0
+    i32 = torch.int32
+    return (x.to(dev, dtype), torch.zeros(cap, dtype=i32, device=dev),
+            torch.zeros(1, dtype=i32, device=dev),
+            torch.full((1,), cap, dtype=i32, device=dev))
+
+
+@pytest.mark.parametrize("C", [1, 20, 33, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segsum_kernel_capacity_long_segment(dev, C, dtype):
+    """One segment over the whole 262,144-row capacity (the bias
+    gradient's 4,096-chunk chain), bitwise."""
+    x, sid, starts, counts = _long_segment(dev, C, dtype)
+    got = segsum.segment_sum_cuda(x, sid, starts, counts, num_segments=1)
+    ref = segsum.segment_sum_torch(x, sid, starts, counts, num_segments=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("C", [1, 20, 33, 512])
+@pytest.mark.parametrize("q", [8, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segsum_kernel_sixteen_segments_with_empties(dev, C, q, dtype):
+    sizes = [0, 5, 0, 0, 300, 1, 0, 64, 65, 0, 129, 7, 0, 0, 4096, 3]
+    cap = 8192
+    sid, starts, counts = (torch.from_numpy(a).to(dev)
+                           for a in segsum.segments_from_sizes(sizes, cap))
+    g = torch.Generator(device="cpu").manual_seed(C + q)
+    x = torch.randn((cap, C), generator=g).to(dev)
+    x[::7] *= 1e4
+    x[sid == len(sizes)] = 0
+    x = x.to(dtype)
+    got = segsum.segment_sum_cuda(x, sid, starts, counts,
+                                  num_segments=len(sizes), q=q)
+    ref = segsum.segment_sum_torch(x, sid, starts, counts,
+                                   num_segments=len(sizes), q=q)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    empty = torch.tensor([c == 0 for c in sizes], device=dev)
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+
+def test_dw_and_segsum_wrappers_do_not_sync(dev):
+    """Neither wrapper waits on the card (the path stays capturable in a
+    CUDA graph): both run under the sync debug mode "error"."""
+    F, m, _, ct = _map_case(dev, 0, 0, 32, 48, torch.float32)
+    x, sid, starts, counts = _long_segment(dev, 20, torch.float32,
+                                           cap=16384)
+    dw_gather_gemm(F, m, ct)                  # first use builds the library
+    segsum.segment_sum_cuda(x, sid, starts, counts, num_segments=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = dw_gather_gemm(F, m, ct)
+        b = segsum.segment_sum_cuda(x, sid, starts, counts, num_segments=1)
+        c = segsum.segment_sum_cuda(x.to(torch.bfloat16), sid, starts,
+                                    counts, num_segments=1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all() & torch.isfinite(b).all()
+                & torch.isfinite(c).all())
 
 
 def _layer_grads(flow, F, m, W, ct, backend, cap=None):

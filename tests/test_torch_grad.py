@@ -247,6 +247,45 @@ def test_dw_plain_version_matches_jax_and_needs_a_card_for_the_kernel():
         dw_gather_gemm(T(f), T(m), T(ct))
 
 
+
+def test_panel_counts_match_enumeration_and_zero_extension():
+    """Valid rows per (offset, panel) against a loop over the rows; PAD rows
+    (m = -1) appended by a larger bucket add empty panels and change no
+    count."""
+    from repro_torch.kernels.dw_gather_gemm import panel_counts
+    rng = np.random.default_rng(5)
+    m = rng.integers(-1, 50, size=(1000, 4)).astype(np.int32)
+    m[:, 2] = -1
+    m[300:700, 1] = -1
+    got = N(panel_counts(T(m), q=256))
+    want = np.zeros((4, 4), np.int64)
+    for r in range(1000):
+        for k in range(4):
+            want[k, r // 256] += m[r, k] >= 0
+    np.testing.assert_array_equal(got, want)
+    mz = np.concatenate([m, np.full((1500, 4), -1, np.int32)])
+    gz = N(panel_counts(T(mz), q=256))
+    assert gz.shape == (4, 10)
+    np.testing.assert_array_equal(gz[:, :4], want)
+    assert not gz[:, 4:].any()
+
+
+def test_dw_tile_covers_each_width_with_least_padding():
+    """The kernel's Cin x Cout tile, in 32-channel units, pads each width
+    least among the compiled units (the wider on a tie) and never depends
+    on M."""
+    from repro_torch.kernels.dw_gather_gemm import TILE_UNITS, _tile_for
+    for c in range(1, 300):
+        mi, ni = _tile_for(c, c, torch.float32)
+        assert mi == ni and mi in TILE_UNITS
+        pad = {n: -(-c // (32 * n)) * 32 * n for n in TILE_UNITS}
+        assert pad[mi] == min(pad.values())
+        assert all(n <= mi for n in TILE_UNITS if pad[n] == pad[mi])
+    assert _tile_for(4, 32, torch.float32) == (1, 1)
+    assert _tile_for(96, 96, torch.bfloat16) == (3, 3)
+    assert _tile_for(256, 256, torch.float32) == (2, 2)
+
+
 def test_rowdot_matmul_grads_match_jax():
     rng = np.random.default_rng(4)
     x = rng.normal(size=(1500, 12)).astype(np.float32)

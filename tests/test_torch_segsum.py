@@ -40,7 +40,9 @@ def _data(sizes, cap, C=6, seed=0):
     return x, sid, starts, counts
 
 
-SIZES = [[300], [1, 0, 130], [64, 64, 65], [257, 0, 0, 31], [700, 111]]
+# the last: one segment over the whole capacity (the bias gradient's)
+SIZES = [[300], [1, 0, 130], [64, 64, 65], [257, 0, 0, 31], [700, 111],
+         [1024]]
 
 
 @pytest.mark.parametrize("sizes", SIZES, ids=str)
@@ -87,6 +89,46 @@ def test_segment_sum_alignment_and_zero_extension_invariant():
                         *map(T, jss.segments_from_sizes([101, 333], 2048)),
                         num_segments=2)
     assert torch.equal(a[0], b[1])
+
+
+
+def _brute_chunks(sizes, q):
+    """The canonical chunks by enumeration: per used slot (segment, start
+    row, length), in slot order."""
+    out, pos = [], 0
+    for b, n in enumerate(sizes):
+        for j in range(-(-n // q)):
+            out.append((b, pos + j * q, min(q, n - j * q)))
+        pos += n
+    return out
+
+
+@pytest.mark.parametrize("sizes", [[300], [1, 0, 130], [0, 0, 0], [1024],
+                                   [0, 5, 0, 0, 300, 1, 0, 64, 65, 0, 129],
+                                   [64, 64, 65]], ids=str)
+@pytest.mark.parametrize("q", [8, 64])
+def test_chunk_offsets_and_table_match_enumeration(sizes, q):
+    """The chunk offsets the card scans (and the plain version's table,
+    whose slot -> segment rule the kernel's binary search follows) against
+    a brute-force enumeration: empty segments, one segment of the whole
+    capacity, and the same chunks when the buffer is zero-extended."""
+    want = _brute_chunks(sizes, q)
+    for cap in (1024, 4096):
+        _, starts, counts = tss.segments_from_sizes(sizes, cap)
+        nch, choff = tss.chunk_offsets(T(counts), q)
+        assert N(nch).tolist() == [-(-n // q) for n in sizes]
+        assert N(choff).tolist() == list(np.cumsum([0] + N(nch).tolist()))
+        nch2, choff2, cstart, clen, n2 = tss._chunk_table(T(starts),
+                                                          T(counts), cap, q)
+        assert n2 == cap // q + len(sizes) and int(choff2[-1]) <= n2
+        assert torch.equal(nch2, nch) and torch.equal(choff2, choff)
+        used = int(choff[-1])
+        assert used == len(want)
+        seg = np.searchsorted(N(choff), np.arange(used), side="right") - 1
+        got = list(zip(seg.tolist(), N(cstart)[:used].tolist(),
+                       N(clen)[:used].tolist()))
+        assert got == want
+        assert (N(clen)[used:] == 0).all()
 
 
 def test_segment_helpers_match():
