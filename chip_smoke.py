@@ -46,10 +46,14 @@ MinkUNet-42 (OS dataflow):
 CenterPoint-Large (hybrid dataflow, t = 3, K = 5), same scenes:
 
 3. every kernel launch of one batch-of-2 forward against its plain
-   version as above — WS within ``1e-5 * max(1, max|ref|)`` in fp32, also
-   at ``s2_b0a``'s shapes with a capacity that drops pairs (dropped set
-   equal to the kept map's), and ``2e-2`` relative in bf16 at ``stem``,
-   ``s2_down`` and ``s3_b0a``; then the per-group window search kernel on
+   version as above — WS within ``1e-5 * max(1, max|ref|)`` in fp32 and
+   every fp32 WS launch against the same function in float64 (gated as
+   the OS launches, one line per launch), the device time of the WS
+   kernel's passes (pack, rank, sweep) and its largest launch's peak
+   memory; WS also at ``s2_b0a``'s shapes with a capacity that drops
+   pairs (the pack kernel's kept set equal to the kept map's), and
+   ``2e-2`` relative in bf16 at ``stem``, ``s2_down`` and ``s3_b0a``;
+   then the per-group window search kernel on
    every layer of the plan (phase 4d's launches): maps and counters equal;
 4b. main path at full width: scene 0 alone, then the batch of 2, each
    twice — finite logits, batched scene 0 bitwise equal to the single
@@ -78,7 +82,10 @@ bucket 262,144):
    ``ops.output_stationary_fused`` (the
    masked grouped GEMM kernel) on every layer's forward operands within
    ``1e-5 * max(1, max|ref|)`` of its plain version and of the OS kernel,
-   timed beside one ``torch.einsum`` on the pre-masked gathered tensor;
+   and against float64 as the OS launches (one line per launch), timed
+   beside one ``torch.einsum`` on the pre-masked gathered tensor, with
+   its useful and dense TFLOP/s and GB/s over the bound's bytes; an inf
+   at a masked position still makes its row NaN;
 6b. the training main path: ``compile_network(...).compile_train()``,
    5 steps with every kernel's launches and the kernel-map searches
    checked per step (one inference plan's, none in the backward), the
@@ -508,32 +515,86 @@ def ws_bound(F, m, W, capacity) -> tuple:
     return bound_ms(nb, ops)[0], nb, ops
 
 
-def check_ws(calls) -> dict:
-    """WS launches: fp32 within ``1e-5 * max(1, max|ref|)``."""
+def ws_map(m, cols):
+    """The map columns a WS launch reads: ``m``, or ``m[:, cols]``."""
+    return m if cols is None else m[:, cols.long()]
+
+
+def check_ws(calls, names) -> dict:
+    """WS launches: fp32 within ``1e-5 * max(1, max|ref|)`` of the plain
+    version, and every fp32 launch against the same function in float64
+    (the OS gather-GEMM over the kept map): the kernel's max|error| within
+    ``max(4 * the plain version's, 1e-6 * max|ref|)``, one line per launch.
+    Also the device time of each of the kernel's passes (pack, rank, sweep)
+    over one launch of every call (``passes``), and the largest launch's
+    peak memory beside the pair tables the first port allocated there
+    (``peak``)."""
+    import torch
+    from repro_torch.core.dataflow import ws_kept_map
     from repro_torch.kernels.ws_scatter_gemm import (ws_scatter_gemm,
                                                      ws_scatter_gemm_torch)
-    err = t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
+    err = t_k = t_p = b_tot = ops_tot = bytes_tot = f64_worst = 0.0
     for i, (a, kw) in enumerate(calls):
         F, m, W = a
-        cap = kw["capacity"]
+        cap, cols = kw["capacity"], kw.get("cols")
         got = ws_scatter_gemm(F, m, W, **kw)
-        ref = ws_scatter_gemm_torch(F, m, W, capacity=cap)
+        ref = ws_scatter_gemm_torch(F, m, W, capacity=cap, cols=cols)
         d = float((got - ref).abs().max())
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        msub = ws_map(m, cols)
         if not d <= tol:
             raise RuntimeError(f"WS launch {i} ({F.shape[1]}->{W.shape[2]}, "
-                               f"Ks={m.shape[1]}): max|diff| {d} > {tol}")
+                               f"Ks={msub.shape[1]}): max|diff| {d} > {tol}")
+        if F.dtype == torch.float32:
+            ref64 = os_f64(F, ws_kept_map(msub, cap), W)
+            e_k = float((got.double() - ref64).abs().max())
+            e_p = float((ref.double() - ref64).abs().max())
+            scale = float(ref64.abs().max())
+            gate = max(4.0 * e_p, 1e-6 * scale)
+            if not e_k <= gate:
+                raise RuntimeError(f"WS launch {i} ({names[i]}) against "
+                                   f"float64: kernel max|err| {e_k} > max(4 "
+                                   f"* plain {e_p}, 1e-6 * {scale})")
+            f64_worst = max(f64_worst, e_k / gate)
+            log(f"[3 cp ws f64 {i} {names[i]}] vs float64: kernel max|err| "
+                f"{e_k:.3e}, plain {e_p:.3e}, max|ref| {scale:.3e}, gate "
+                f"{gate:.3e}")
+            del ref64
         err = max(err, d)
         t_k += cuda_ms(lambda: ws_scatter_gemm(F, m, W, **kw), 3)
-        t_p += cuda_ms(lambda: ws_scatter_gemm_torch(F, m, W, capacity=cap),
-                       2)
-        b, nb, ops = ws_bound(F, m, W, cap)
+        t_p += cuda_ms(lambda: ws_scatter_gemm_torch(F, m, W, capacity=cap,
+                                                     cols=cols), 2)
+        b, nb, ops = ws_bound(F, msub, W, cap)
         b_tot += b
         ops_tot += ops
         bytes_tot += nb
+
+    def every_call():
+        for a, kw in calls:
+            ws_scatter_gemm(*a, **kw)
+    every_call()
+    _, by_name = profile_call(every_call)
+    passes = {p: sum(v for k, v in by_name.items() if k.startswith(p))
+              for p in ("ws_pack_kernel", "ws_rank_kernel",
+                        "ws_sweep_kernel")}
+    # peak memory of the largest launch, above what was allocated before it
+    (F, m, W), kw = max(calls, key=lambda c: ws_map(
+        c[0][1], c[1].get("cols")).numel() * c[0][2].shape[-1])
+    msub = ws_map(m, kw.get("cols"))
+    pairs = int(torch.clamp((msub >= 0).sum(0), max=kw["capacity"]).sum())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ws_scatter_gemm(F, m, W, **kw)
+    torch.cuda.synchronize()
+    peak = dict(bytes=torch.cuda.max_memory_allocated() - base,
+                out=out.numel() * 4, M=msub.shape[0], Ks=msub.shape[1],
+                old=4 * msub.numel() + 4 * pairs * W.shape[-1])
+    del out
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
                 bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None,
-                gflop=ops_tot / 1e9)
+                gflop=ops_tot / 1e9, f64_worst=f64_worst, passes=passes,
+                peak=peak)
 
 
 def dw_f64(F, m, g):
@@ -655,16 +716,20 @@ def check_mgg(calls, names) -> dict:
     gather into ``[M, Kd, Cin]``, then the masked grouped GEMM kernel) on
     every layer's forward operands, one layer at a time. Its launches are
     this path's; the kernel is then held against its plain version and the
-    implicit-GEMM kernel within ``1e-5 * max(1, max|ref|)`` and timed
-    beside them and one ``torch.einsum`` over the pre-masked gathered
-    tensor (the library yardstick; it leaves out the mask multiply)."""
+    implicit-GEMM kernel within ``1e-5 * max(1, max|ref|)``, every fp32
+    launch against the same contraction in float64 (the kernel's
+    max|error| within ``max(4 * the plain version's, 1e-6 * max|ref|)``,
+    one line per launch), and timed beside them and one ``torch.einsum``
+    over the pre-masked gathered tensor (the library yardstick; it leaves
+    out the mask multiply)."""
     import torch
     from repro_torch.kernels import launch_counts, ops
     from repro_torch.kernels.masked_group_gemm import (
         masked_group_gemm, masked_group_gemm_torch)
     err = t_k = t_p = t_l = b_tot = ops_tot = bytes_tot = dense = 0.0
+    f64_worst = 0.0
     launches = 0
-    for name, (a, kw) in zip(names, calls):
+    for i, (name, (a, kw)) in enumerate(zip(names, calls)):
         F, m, W = a
         before = launch_counts()["masked_group_gemm"]
         got = ops.output_stationary_fused(F, m, W)
@@ -678,9 +743,22 @@ def check_mgg(calls, names) -> dict:
         if not (d <= tol and d_os <= tol):
             raise RuntimeError(f"masked_group_gemm {name}: max|diff| {d} "
                                f"(plain), {d_os} (OS kernel) > {tol}")
+        if F.dtype == torch.float32:
+            ref64 = os_f64(F, m, W)
+            e_k = float((got.double() - ref64).abs().max())
+            e_p = float((ref.double() - ref64).abs().max())
+            scale = float(ref64.abs().max())
+            gate = max(4.0 * e_p, 1e-6 * scale)
+            if not e_k <= gate:
+                raise RuntimeError(f"masked_group_gemm {name} against "
+                                   f"float64: kernel max|err| {e_k} > max(4 "
+                                   f"* plain {e_p}, 1e-6 * {scale})")
+            f64_worst = max(f64_worst, e_k / gate)
+            del ref64
         err = max(err, d)
         del ref, os_out
-        t_k += cuda_ms(lambda: masked_group_gemm(m, gathered, W), 2)
+        ms = cuda_ms(lambda: masked_group_gemm(m, gathered, W), 2)
+        t_k += ms
         t_p += cuda_ms(lambda: masked_group_gemm_torch(m, gathered, W), 1)
         pre = gathered * (m >= 0)[..., None].to(gathered.dtype)
         t_l += cuda_ms(lambda: torch.einsum("mkc,kcd->md", pre, W), 2)
@@ -694,10 +772,16 @@ def check_mgg(calls, names) -> dict:
         ops_tot += ops_
         bytes_tot += nb
         dense += 2.0 * m.numel() * F.shape[1] * W.shape[2]
+        if F.dtype == torch.float32:
+            log(f"[6 mgg f64 {i} {name}] vs float64: kernel max|err| "
+                f"{e_k:.3e}, plain {e_p:.3e}, max|ref| {scale:.3e}, gate "
+                f"{gate:.3e}; kernel {ms:.4f} ms, {nb / ms / 1e6:.0f} GB/s "
+                f"over the bound's bytes")
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
                 bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=t_l,
                 launches=launches, gflop=ops_tot / 1e9,
-                dense_gflop=dense / 1e9)
+                dense_gflop=dense / 1e9, gbytes=bytes_tot / 1e9,
+                f64_worst=f64_worst)
 
 
 def rel_l2(a: dict, b: dict) -> float:
@@ -1307,8 +1391,9 @@ def main() -> int:
                                      reset_launch_counts)
     from repro_torch.kernels.spconv_gather_gemm import (
         spconv_gather_gemm, spconv_gather_gemm_torch)
+    from repro_torch.kernels.masked_group_gemm import masked_group_gemm
     from repro_torch.kernels.ws_scatter_gemm import (
-        ws_compaction, ws_scatter_gemm, ws_scatter_gemm_torch)
+        ws_pack_cuda, ws_scatter_gemm, ws_scatter_gemm_torch)
     from repro_torch.kernels.zdelta_window import (zdelta_superwindow_cuda,
                                                    zdelta_superwindow_torch)
     from repro_torch.models import pointcloud as pc
@@ -1466,38 +1551,53 @@ def main() -> int:
     if len(w_calls) != len(cp.specs):
         raise RuntimeError(f"cp: {len(w_calls)} WS launches in one forward, "
                            f"expected {len(cp.specs)}")
-    r = check_ws(w_calls)
-    gflop = r.pop("gflop")
+    r = check_ws(w_calls, cp_names)
+    gflop, passes, peak = r.pop("gflop"), r.pop("passes"), r.pop("peak")
+    f64_worst = r.pop("f64_worst")
     results["ws_scatter_gemm"] = r
     log(f"[3 cp ws] {len(w_calls)} launches within 1e-5*max(1,|ref|) "
-        f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
+        f"(max|diff| {r['max_abs_err']:.3e}) and the float64 gate (worst "
+        f"{f64_worst:.3f} of it); per forward kernel "
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful, "
-        f"{gflop / r['ms']:.2f} TFLOP/s)")
+        f"{gflop / r['ms']:.2f} TFLOP/s) | {card}")
+    log(f"[3 cp ws passes] device ms over one launch of each call: pack "
+        f"{passes['ws_pack_kernel']:.3f}, rank "
+        f"{passes['ws_rank_kernel']:.3f}, sweep "
+        f"{passes['ws_sweep_kernel']:.3f} (total "
+        f"{sum(passes.values()):.3f}) | {card}")
+    log(f"[3 cp ws peak] largest launch (M={peak['M']}, Ks={peak['Ks']}): "
+        f"peak {peak['bytes'] / 2**20:.1f} MiB above what was allocated "
+        f"before it, of which the fp32 output {peak['out'] / 2**20:.1f} "
+        f"MiB; the first port's pair-index table and partial rows alone "
+        f"took {peak['old'] / 2**20:.1f} MiB there")
     for name, (a, kw) in zip(cp_names, w_calls):
         F, m, W = a
-        b, _, ops = ws_bound(F, m, W, kw["capacity"])
+        msub = ws_map(m, kw.get("cols"))
+        b, _, ops = ws_bound(F, msub, W, kw["capacity"])
         ms = cuda_ms(lambda: ws_scatter_gemm(F, m, W, **kw), 3)
-        log(f"[3 cp ws {name}] M={m.shape[0]} N={F.shape[0]} Ks={m.shape[1]} "
-            f"{F.shape[1]}->{W.shape[2]} pairs={int((m >= 0).sum())} "
-            f"largest column {int((m >= 0).sum(0).max())}: kernel "
+        log(f"[3 cp ws {name}] M={m.shape[0]} N={F.shape[0]} "
+            f"Ks={msub.shape[1]} {F.shape[1]}->{W.shape[2]} "
+            f"pairs={int((msub >= 0).sum())} largest column "
+            f"{int((msub >= 0).sum(0).max())}: kernel "
             f"{ms:.4f} ms, bound {b:.4f} ms, "
             f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     # a capacity below s2_b0a's largest column: the same pairs drop
-    F, m, W = w_calls[cp_names.index("s2_b0a")][0]
-    cap = LOSSY_CAPACITY
-    kept_k = ws_compaction(m, cap).pidx >= 0
-    kept_p = ws_kept_map(m, cap) >= 0
+    (F, m, W), kw = w_calls[cp_names.index("s2_b0a")]
+    cap, cols = LOSSY_CAPACITY, kw.get("cols")
+    msub = ws_map(m, cols)
+    kept_k = ws_pack_cuda(m, cap, cols=cols).kept_mask(m.shape[0])
+    kept_p = ws_kept_map(msub, cap) >= 0
     if not torch.equal(kept_k, kept_p):
         raise RuntimeError("lossy WS: the kernel's kept pairs differ from "
                            "the kept map's")
-    got = ws_scatter_gemm(F, m, W, capacity=cap)
-    ref = ws_scatter_gemm_torch(F, m, W, capacity=cap)
+    got = ws_scatter_gemm(F, m, W, capacity=cap, cols=cols)
+    ref = ws_scatter_gemm_torch(F, m, W, capacity=cap, cols=cols)
     d = float((got - ref).abs().max())
     tol = 1e-5 * max(1.0, float(ref.abs().max()))
     if not d <= tol:
         raise RuntimeError(f"lossy WS s2_b0a: max|diff| {d} > {tol}")
-    dropped = int((m >= 0).sum()) - int(kept_k.sum())
+    dropped = int((msub >= 0).sum()) - int(kept_k.sum())
     log(f"[3 cp ws s2_b0a lossy] capacity {cap}: {dropped} pairs dropped, "
         f"dropped set equal to the kept map's, max|diff| {d:.3e} "
         f"(tol {tol:.1e})")
@@ -1505,7 +1605,8 @@ def main() -> int:
         (F, m, W), kw = w_calls[cp_names.index(name)]
         Fd, Wd = F.to(torch.bfloat16), W.to(torch.bfloat16)
         got = ws_scatter_gemm(Fd, m, Wd, **kw)
-        ref = ws_scatter_gemm_torch(Fd, m, Wd, capacity=kw["capacity"])
+        ref = ws_scatter_gemm_torch(Fd, m, Wd, capacity=kw["capacity"],
+                                    cols=kw.get("cols"))
         d = float((got - ref).abs().max())
         tol = 2e-2 * max(float(ref.abs().max()), 1e-30)
         if not d <= tol:
@@ -1705,15 +1806,31 @@ def main() -> int:
                            f"grouped GEMM {r['launches']} times for {n_l} "
                            "layers")
     gflop, dense = r.pop("gflop"), r.pop("dense_gflop")
+    gbytes, f64_worst = r.pop("gbytes"), r.pop("f64_worst")
     results["masked_group_gemm"] = r
     log(f"[6 masked_group_gemm] ops.output_stationary_fused on all {n_l} "
         f"layers' forward operands: {r['launches']} launches, within "
         f"1e-5*max(1,|ref|) of the plain version and of the OS kernel "
-        f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
+        f"(max|diff| {r['max_abs_err']:.3e}) and the float64 gate (worst "
+        f"{f64_worst:.3f} of it); per forward kernel "
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch.einsum on "
         f"the pre-masked tensor {r['library_ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful; {dense:.1f} "
-        f"GFLOP computed, {dense / r['ms']:.2f} TFLOP/s) | {card}")
+        f"{r['bound_ms']:.3f} ms (half of it {r['bound_ms'] * 2:.3f} ms); "
+        f"{gflop:.1f} GFLOP useful, {gflop / r['ms']:.2f} TFLOP/s; "
+        f"{dense:.1f} GFLOP dense, {dense / r['ms']:.2f} TFLOP/s; "
+        f"{gbytes:.2f} GB of bound bytes, {gbytes / r['ms'] * 1e3:.0f} GB/s "
+        f"| {card}")
+    probe = torch.zeros((2, 2), dtype=torch.int32, device=DEV)
+    probe[0, 1] = -1
+    g_inf = torch.ones((2, 2, 16), device=DEV)
+    g_inf[0, 1, 3] = float("inf")
+    y = masked_group_gemm(probe, g_inf, torch.ones((2, 16, 8), device=DEV))
+    if not (bool(torch.isnan(y[0]).all()) and bool(torch.isfinite(y[1])
+                                                   .all())):
+        raise RuntimeError("masked_group_gemm: an inf at a masked position "
+                           "did not make its row NaN")
+    log("[6 masked_group_gemm] an inf at a masked position makes its row "
+        "NaN (the mask is a multiply)")
     del fwd, s6
     torch.cuda.empty_cache()
 

@@ -142,20 +142,21 @@ def _os_primal(features, m, weights, fuse, backend, bm, bn):
 
 
 def ws_torch(features: torch.Tensor, m: torch.Tensor, weights: torch.Tensor,
-             *, capacity: int) -> torch.Tensor:
+             *, capacity: int, cols=None) -> torch.Tensor:
     """WS dataflow in plain torch (``ws_xla``): per-column compaction to
     ``capacity``, gather, fp32 GEMM and a merge into the output rows in
-    column order; the result in the features' dtype."""
+    column order; the result in the features' dtype. ``cols``: the map
+    columns the offsets read (None: all)."""
     from ..kernels.ws_scatter_gemm import ws_scatter_gemm_torch
-    return ws_scatter_gemm_torch(features, m, weights,
-                                 capacity=capacity).to(features.dtype)
+    return ws_scatter_gemm_torch(features, m, weights, capacity=capacity,
+                                 cols=cols).to(features.dtype)
 
 
-def _ws_primal(features, m, weights, capacity, backend, bm, bn):
+def _ws_primal(features, m, weights, capacity, backend, bm, bn, cols=None):
     if kops.resolve_backend(backend, features):
         return kops.spconv_ws_fused(features, m, weights, capacity=capacity,
-                                    backend="cuda", bm=bm, bn=bn)
-    return ws_torch(features, m, weights, capacity=capacity)
+                                    backend="cuda", bm=bm, bn=bn, cols=cols)
+    return ws_torch(features, m, weights, capacity=capacity, cols=cols)
 
 
 def ws_kept_map(m: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -232,15 +233,18 @@ def output_stationary(features: torch.Tensor, m: torch.Tensor,
 class _WeightStationary(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, m, weights, capacity, backend, bm, bn,
-                self_t):
+                self_t, cols):
         ctx.save_for_backward(features, m, weights)
-        ctx.cfg = (capacity, backend, self_t)
-        return _ws_primal(features, m, weights, capacity, backend, bm, bn)
+        ctx.cfg = (capacity, backend, self_t, cols)
+        return _ws_primal(features, m, weights, capacity, backend, bm, bn,
+                          cols)
 
     @staticmethod
     def backward(ctx, g):
         features, m, weights = ctx.saved_tensors
-        capacity, backend, self_t = ctx.cfg
+        capacity, backend, self_t, cols = ctx.cfg
+        if cols is not None:
+            m = m[:, cols.long()]
         g = g.to(features.dtype)
         # differentiate the function WS computed: drop the overflow pairs
         # first, then transpose
@@ -262,21 +266,25 @@ class _WeightStationary(torch.autograd.Function):
                             0, 0)
         if ctx.needs_input_grad[2]:
             dw = _dw_per_offset(features, mk, g, weights.dtype, backend)
-        return df, None, dw, None, None, None, None, None
+        return df, None, dw, None, None, None, None, None, None
 
 
 def weight_stationary(features: torch.Tensor, m: torch.Tensor,
                       weights: torch.Tensor, *, capacity: int,
                       backend: str = "auto", bm: int = 0, bn: int = 0,
-                      self_transpose: bool = False) -> torch.Tensor:
+                      self_transpose: bool = False,
+                      cols: torch.Tensor | None = None) -> torch.Tensor:
     """WS dataflow: ``features`` [N, Cin], ``m`` int32 [M, Ks], ``weights``
     [Ks, Cin, Cout] → [M, Cout] in the features' dtype. Valid pairs beyond
     ``capacity`` per column are dropped; ``capacity = M`` is lossless.
-    Differentiable in ``features`` and ``weights``; the gradients are
-    those of the dropped function (module doc). ``self_transpose`` as in
-    :func:`output_stationary`, effective only at a lossless capacity."""
+    ``cols`` (an int tensor of Ks column indices): offset k reads column
+    ``cols[k]`` of a wider ``m`` in place (the kernel path copies no column
+    subset; the backward takes the subset). Differentiable in ``features``
+    and ``weights``; the gradients are those of the dropped function
+    (module doc). ``self_transpose`` as in :func:`output_stationary`,
+    effective only at a lossless capacity."""
     return _WeightStationary.apply(features, m, weights, capacity, backend,
-                                   bm, bn, self_transpose)
+                                   bm, bn, self_transpose, cols)
 
 
 def ws_overflow(kmap: KernelMap, cols: np.ndarray,
@@ -315,8 +323,13 @@ def hybrid(features: torch.Tensor, kmap: KernelMap, weights: torch.Tensor,
             _take(weights, dense_idx, 0), fuse=fuse_dense, backend=backend,
             bm=bm, bn=bn, self_transpose=self_transpose)
     if sparse_idx.size:
+        # the WS half reads its columns of the map in place
+        every = (sparse_idx.size == kmap.m.shape[1]
+                 and (sparse_idx == np.arange(sparse_idx.size)).all())
+        cols = None if every else torch.as_tensor(
+            sparse_idx, dtype=torch.int32, device=kmap.m.device)
         out = out + weight_stationary(
-            features, _take(kmap.m, sparse_idx, 1),
-            _take(weights, sparse_idx, 0), capacity=ws_capacity,
-            backend=backend, bm=bm, bn=bn, self_transpose=self_transpose)
+            features, kmap.m, _take(weights, sparse_idx, 0),
+            capacity=ws_capacity, backend=backend, bm=bm, bn=bn,
+            self_transpose=self_transpose, cols=cols)
     return out

@@ -5,195 +5,611 @@
 // masked_group_gemm (_kernel): the unfused output-stationary baseline,
 // whose caller has already gathered g[i, k, :] = F[max(m[i,k], 0)] into an
 // [M, Kd, Cin] tensor in device memory. The TPU kernel walks Kd on a
-// sequential grid axis with the output tile resident in VMEM; here one
-// block owns a 64-row x 64-column output tile and loops over k itself.
+// sequential grid axis with the output tile resident in VMEM.
 //
-// Per k the block loads the tile's 64 map entries as a 0/1 mask in shared
-// memory; per 16-channel slice of Cin it stages the 64 rows of g[:, k, :]
-// (contiguous in memory, so with 16-byte loads when Cin allows) and W[k]'s
-// slice, both as fp32. The mask is applied in registers by a multiply, as
-// the TPU kernel does: an offset is never skipped, so a non-finite value
-// the caller left in g at a masked position reaches the output exactly as
-// it does there. Each of the 256 threads keeps a 4 x 4 fp32 register tile
-// and adds its terms by fmaf in one fixed order, k outer and Cin inner, so
-// a row's result does not depend on M. Ragged edges of M, Cin and Cout are
-// masked here (the TPU version asserted divisibility). bf16 inputs convert
-// with __bfloat162float; the output is written in g's type.
+// What bounds it on this card: the first version ran a 4 x 4 fp32 fmaf
+// tile on the CUDA cores over every dense product (2 * M * Kd * Cin * Cout:
+// 130 GFLOP for a full-resolution 96 -> 96 layer, ~1.9 ms at fp32's 67
+// TFLOP/s against 0.81 ms for its 2.7 GB of g), so it was bound by
+// operations and lost to one torch.einsum. This one is a streaming GEMM on
+// the tensor cores. Its bound is g's bytes; on MinkUNet-42's layers it
+// runs at about 2.4x that, held by its fragment loop (ldmatrix, the mask
+// lookups and vote, the 3xTF32 splits per mma), not by the bytes:
 //
-// Bound on this card: operations at the MinkUNet widths (2 * M * Kd * Cin *
-// Cout fp32 FMAs, all of them computed; the useful share is the valid
-// entries'), bytes for the stem (Cin = 4: the gathered tensor dominates).
-// This first version stages through shared memory without cp.async, TMA or
-// wgmma.
+//  * The product is one GEMM: A = g as [M, Kd * Cin] (row-major and
+//    contiguous) times B = W as [Kd * Cin, Cout]; a flat column c of A is
+//    channel c % Cin of offset c / Cin. A block of 8 warps (4 along rows x
+//    2 along Cout) owns 128 rows by a Cout tile BN of 32, 64, 96 or 128
+//    (the wrapper's _tile_for, from Cout alone), so each byte of g is read
+//    once (twice for Cout 256, whose two tiles run side by side and share
+//    it through L2). Its fp32 sums stay in registers.
+//  * The block's map tile [128, Kd] is loaded once, as a uint8 mask.
+//  * A and W stream in slices of 128 bytes of flat columns (32 fp32 or
+//    64 bf16) through a ring of stages: A's 128 rows by the slice, W's slice
+//    rows by BN, and the slice's column -> offset table. Where g's and W's
+//    row pitches are multiples of 16 bytes (every MinkUNet layer), one
+//    thread loads a slice by TMA: a 2-D tensor map over g as
+//    [M, Kd * Cin] and one over W as [Kd * Cin, Cout] (encoded per launch
+//    through cudaGetDriverEntryPoint, so nothing new is linked), boxes of
+//    128 bytes by 128 (A) or kBK (W) rows in the 128-byte swizzle, an
+//    mbarrier per stage; rows past M and columns past Kd * Cin or Cout
+//    land as zeros. Issuing the same slice as per-thread 16-byte cp.async
+//    cost as many cycles as its mma on the 96 -> 96 layers (clock64
+//    counters on the card). Other pitches take a cp.async ring: 16, 8 or 4
+//    byte copies as the pitch and base allow (2-byte loads for an odd
+//    bf16 pitch), zero-filled past the edges.
+//  * Fragments: A by ldmatrix.x4 (swizzled rows, or rows padded by 16
+//    bytes), then each element multiplied in registers by its row's mask
+//    for its column's offset: a multiply, never a select, so an inf or NaN
+//    at a masked position still makes the row NaN, as in the TPU kernel.
+//    bf16 B by ldmatrix.x4.trans; fp32 B by 32-bit shared loads.
+//  * A 16-row fragment whose rows all have mask 0 over a k8 (k16) step,
+//    and whose values there are all finite, adds nothing but zeros
+//    (0 * x = +-0 for finite x): its mma are skipped, by one vote; any
+//    non-finite value runs the multiply. PAD rows and offsets no row of a
+//    fragment uses cost their bytes, not their products (W is taken to be
+//    finite: the skipped products are then zeros). Finer or coarser skips
+//    measured slower on the card: one vote per 32 rows by 16 columns with
+//    every mma of a group unbranched (more wasted products), and no W load
+//    for slices no row of the tile uses (the branches cost more than the
+//    L2 traffic they saved).
+//  * bf16: mma.m16n8k16 into the fp32 sums; the products are exact.
+//  * fp32: 3xTF32 on mma.m16n8k8 as in the OS kernel: hi = rna_tf32(x),
+//    lo = rna_tf32(x - hi); a fragment takes a_lo.b_hi, a_hi.b_lo, a_hi.b_hi
+//    per k8 step; each 16 flat columns sum into a zeroed fragment that is
+//    added to the running sum by one fp32 add (round to nearest), since
+//    the tensor cores' accumulate truncates. Both operands split in
+//    registers (A after the mask multiply). Splitting W once per launch
+//    instead, a stage holding its hi and lo, was no faster: the doubled
+//    slab cost a stage or a block an SM.
+//
+// Add order: flat columns in order (k outer, Cin inner), 16 at a time, each
+// group's sum (a fixed sequence of mma) added once; the same for every row
+// of every tile, so a row's bits depend on neither M nor its tile-mates (a
+// skipped fragment would have added zeros). The output is written in g's
+// type.
+#include <cuda.h>              // CUtensorMap (types only; nothing is linked)
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kThreads = 256;
-constexpr int kTM = 4;
-constexpr int kTN = 4;
+using namespace spira_tc;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int kThreads = 256;     // 8 warps: 4 along rows x 2 along Cout
+constexpr int kBM = 128;          // rows per block
+constexpr int kSliceBytes = 128;  // bytes of a row per stage
+constexpr int kLdMask = kBM + 4;  // mask row per offset: conflict-free
+
+constexpr int kStages = 3;
+
+template <typename T> struct Mma;
+template <> struct Mma<float> {
+  static constexpr int kBK = 32;     // flat columns per stage
+  static constexpr int kDepth = 8;   // m16n8k8 tf32
+  static constexpr int kPadB = 32;
+};
+template <> struct Mma<__nv_bfloat16> {
+  static constexpr int kBK = 64;
+  static constexpr int kDepth = 16;  // m16n8k16 bf16
+  static constexpr int kPadB = 16;
+};
+
+// NT: 8-column mma tiles of a warp; the block's Cout tile is BN = 16 NT.
+// A stage holds A's 128 rows of the slice, W's slice rows and the slice's
+// column -> offset table. kTma: A as 128-byte rows and W as boxes of 128
+// bytes by kBK rows, both in the 128-byte swizzle the TMA writes (the
+// 16-byte chunk c of row r at chunk c ^ (r % 8)), stages 1 KB aligned;
+// else rows padded by 16 bytes (A) and 8 words or 16 bytes (W). Then the
+// stages' mbarriers and the mask.
+template <typename T, int NT, bool kTma> struct Tile {
+  static constexpr int kSize = sizeof(T);
+  static constexpr int kBN = 16 * NT;
+  static constexpr int kBK = Mma<T>::kBK;
+  static constexpr int kLdA = kTma ? kSliceBytes : kSliceBytes + 16;
+  static constexpr int kLdB = kBN * kSize + Mma<T>::kPadB;   // cp.async
+  static constexpr int kBoxN = 128 / kSize;                 // TMA box width
+  static constexpr int kBoxes = (kBN + kBoxN - 1) / kBoxN;
+  static constexpr int kBoxBytes = kBK * 128;
+  static constexpr int kABytes = kBM * kLdA;
+  static constexpr int kBBytes = kTma ? kBoxes * kBoxBytes : kBK * kLdB;
+  static constexpr int kAlign = kTma ? 1024 : 16;
+  static constexpr int kStageBytes =
+      (kABytes + kBBytes + kBK * 4 + kAlign - 1) / kAlign * kAlign;
+  static constexpr int kBarOffset = kStages * kStageBytes;
+  static constexpr int kMaskOffset = kBarOffset + 8 * kStages;
+  static int smem(int Kd) {
+    return kMaskOffset + Kd * kLdMask + (kTma ? kAlign : 0);
+  }
+  // byte offset of A's row r, 16-byte chunk c
+  __device__ static int a_off(int r, int c) {
+    return kTma ? r * 128 + ((c ^ (r & 7)) << 4) : r * kLdA + (c << 4);
+  }
+  // byte offset of W's slice row k, column n (n % 8 == 0 for bf16)
+  __device__ static int b_off(int k, int n) {
+    if (!kTma) return k * kLdB + n * kSize;
+    const int nn = n % kBoxN;
+    const int c = nn * kSize >> 4;
+    return (n / kBoxN) * kBoxBytes + k * 128 + ((c ^ (k & 7)) << 4) +
+           (nn * kSize & 15);
+  }
+};
+
+__device__ __forceinline__ bool finite_f32(uint32_t v) {
+  return (v & 0x7f800000u) != 0x7f800000u;
 }
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ bool finite_bf16x2(uint32_t v) {
+  return (v & 0x7f80u) != 0x7f80u && (v & 0x7f800000u) != 0x7f800000u;
 }
 
-// Stage rows [row0, row0 + 64) of g[:, k, c0:c0+16] into a_s[c][r] as
-// fp32, times the row's mask. kVec: the 16-channel slice of every row is
-// 16-byte aligned and whole (Cin % 16 == 0), so it moves in uint4 loads.
-template <typename T, bool kVec>
-__device__ __forceinline__ void stage_g(const T* __restrict__ g, int M,
-                                        int Kd, int Cin, int k, int row0,
-                                        int c0, const float* mask_s,
-                                        float (*a_s)[kBM + 1]) {
-  if constexpr (kVec) {
-    constexpr int kPer = 16 / sizeof(T);          // elements per uint4
-    constexpr int kVecs = kBK / kPer;             // uint4 per row slice
-    for (int e = threadIdx.x; e < kBM * kVecs; e += kThreads) {
-      const int r = e / kVecs;
-      const int v = e % kVecs;
-      const int row = row0 + r;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (row < M)
-        raw = *reinterpret_cast<const uint4*>(
-            g + (static_cast<size_t>(row) * Kd + k) * Cin + c0 + v * kPer);
-      const T* vals = reinterpret_cast<const T*>(&raw);
-      const float mk = mask_s[r];
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// A 2-D box at element coordinates (x innermost, y) into shared memory;
+// completion counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int x, int y, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// The TMA maps of a launch: g as [M, Kd * Cin], W as [Kd * Cin, Cout].
+struct Maps {
+  CUtensorMap a, b;
+};
+
+// Load flat slice c0 into a stage: A rows [row0, row0 + 128) by flat
+// columns [c0, c0 + kBK), W rows [c0, c0 + kBK) by columns [n0, n0 + BN),
+// and (by the first kBK threads) the slice's column -> offset table.
+// TMA: thread 0 issues the boxes on the stage's mbarrier (out-of-range
+// elements land as zeros); cp.async: every thread issues its copies (16,
+// 8 or 4 bytes as the pitch and base allow; 2-byte loads for an odd bf16
+// pitch), zero-filling past M and Kd * Cin.
+template <typename T, int NT, bool kTma>
+__device__ __forceinline__ void load_slice(
+    char* stage, uint32_t bar, const Maps& maps, const T* g, int M,
+    int Ktot, int Cin, const T* W, int Cout, int row0, int n0, int c0,
+    int vecA, const Walk& wa, const Walk& wb) {
+  using L = Tile<T, NT, kTma>;
+  constexpr int kSize = sizeof(T);
+  char* bs = stage + L::kABytes;
+  if constexpr (kTma) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, L::kABytes + L::kBBytes);
+      tma_load(smem_u32(stage), &maps.a, c0, row0, bar);
 #pragma unroll
-      for (int t = 0; t < kPer; ++t)
-        a_s[v * kPer + t][r] = to_float(vals[t]) * mk;
+      for (int b = 0; b < L::kBoxes; ++b)
+        tma_load(smem_u32(bs + b * L::kBoxBytes), &maps.b, n0 + b * L::kBoxN,
+                 c0, bar);
     }
   } else {
-    for (int e = threadIdx.x; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK;
-      const int c = e % kBK;
-      const int row = row0 + r;
-      float v = 0.0f;
-      if (row < M && c0 + c < Cin)
-        v = to_float(g[(static_cast<size_t>(row) * Kd + k) * Cin + c0 + c]) *
-            mask_s[r];
-      a_s[c][r] = v;
+    const int per_a = vecA / kSize;
+    for (int r = wa.r0, q = wa.c0; r < kBM;) {
+      const int c = q * per_a;
+      const bool ok = row0 + r < M && c0 + c < Ktot;
+      const T* src =
+          ok ? g + static_cast<int64_t>(row0 + r) * Ktot + c0 + c : g;
+      copy_chunk(stage + r * L::kLdA + c * kSize,
+                 reinterpret_cast<const char*>(src), ok, vecA);
+      r += wa.dr;
+      q += wa.dc;
+      if (q >= wa.chunks) {
+        q -= wa.chunks;
+        ++r;
+      }
+    }
+    const int per_b = L::kBN / wb.chunks;
+    for (int r = wb.r0, q = wb.c0; r < L::kBK;) {
+      const int c = q * per_b;
+      const bool ok = c0 + r < Ktot && n0 + c < Cout;
+      const T* src =
+          ok ? W + static_cast<int64_t>(c0 + r) * Cout + n0 + c : W;
+      copy_chunk(bs + r * L::kLdB + c * kSize,
+                 reinterpret_cast<const char*>(src), ok, per_b * kSize);
+      r += wb.dr;
+      q += wb.dc;
+      if (q >= wb.chunks) {
+        q -= wb.chunks;
+        ++r;
+      }
+    }
+  }
+  int* kcol = reinterpret_cast<int*>(bs + L::kBBytes);
+  if (threadIdx.x < L::kBK) {
+    const int c = c0 + static_cast<int>(threadIdx.x);
+    kcol[threadIdx.x] = c < Ktot ? c / Cin : 0;
+  }
+}
+
+// One fp32 slice: nks k8 steps (16 flat columns per group) into acc. A
+// (16 rows, k8 step) fragment whose mask is 0 everywhere and whose values
+// are finite costs its ldmatrix and the vote only.
+template <int NT, bool kTma>
+__device__ __forceinline__ void mma_slice(const char* stage,
+                                          const uint8_t* mask_s, int nks,
+                                          int wr, int wc, int lane,
+                                          float (&acc)[2][NT][4], float) {
+  using L = Tile<float, NT, kTma>;
+  const char* bs = stage + L::kABytes;
+  const int* kcol = reinterpret_cast<const int*>(bs + L::kBBytes);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  for (int ks0 = 0; ks0 < nks; ks0 += 2) {
+    uint32_t ah[2][2][4], al[2][2][4];
+    bool live[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ks = ks0 + h;
+        live[mt][h] = false;
+        if (ks >= nks) continue;
+        const int rb = wr * 32 + mt * 16;
+        uint32_t raw[4];
+        ldmatrix_x4(raw, smem_u32(stage + L::a_off(rb + (lane & 7) +
+                                                       ((lane >> 3) & 1) * 8,
+                                                   ks * 2 + (lane >> 4))));
+        // a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+        const uint8_t* m0 = mask_s + kcol[ks * 8 + t] * kLdMask + rb + g;
+        const uint8_t* m1 = mask_s + kcol[ks * 8 + t + 4] * kLdMask + rb + g;
+        const uint32_t mk[4] = {m0[0], m0[8], m1[0], m1[8]};
+        bool any = false;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) any |= mk[i] != 0u || !finite_f32(raw[i]);
+        live[mt][h] = __any_sync(0xffffffffu, any);
+        if (!live[mt][h]) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)   // times 1.0f or 0.0f
+          tf32_split(__uint_as_float(raw[i]) *
+                         __uint_as_float(mk[i] * 0x3f800000u),
+                     ah[mt][h][i], al[mt][h][i]);
+      }
+    if (!(live[0][0] || live[0][1] || live[1][0] || live[1][1])) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = wc * 8 * NT + j * 8 + g;
+      uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          tf32_split(*reinterpret_cast<const float*>(
+                         bs + L::b_off((ks0 + h) * 8 + t + 4 * i, col)),
+                     bh[h][i], bl[h][i]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (!(live[mt][0] || live[mt][1])) continue;
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!live[mt][h]) continue;
+          // a_lo.b_hi, then a_hi.b_lo, then a_hi.b_hi
+          mma_tf32(part, al[mt][h], bh[h][0], bh[h][1]);
+          mma_tf32(part, ah[mt][h], bl[h][0], bl[h][1]);
+          mma_tf32(part, ah[mt][h], bh[h][0], bh[h][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][j][i] += part[i];
+      }
     }
   }
 }
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-masked_group_gemm_kernel(const int32_t* __restrict__ m,
+// One bf16 slice: nks k16 steps into acc, skips as in fp32.
+template <int NT, bool kTma>
+__device__ __forceinline__ void mma_slice(const char* stage,
+                                          const uint8_t* mask_s, int nks,
+                                          int wr, int wc, int lane,
+                                          float (&acc)[2][NT][4],
+                                          __nv_bfloat16) {
+  using L = Tile<__nv_bfloat16, NT, kTma>;
+  const char* bs = stage + L::kABytes;
+  const int* kcol = reinterpret_cast<const int*>(bs + L::kBBytes);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  for (int ks = 0; ks < nks; ++ks) {
+    uint32_t a[2][4];
+    bool live[2];
+    // a0 (row g, cols 2t, 2t + 1), a1 (g + 8, same), a2 (g, 2t + 8, 2t + 9),
+    // a3 (g + 8, same)
+    const int c = ks * 16 + 2 * t;
+    const int kc[4] = {kcol[c], kcol[c + 1], kcol[c + 8], kcol[c + 9]};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int rb = wr * 32 + mt * 16;
+      ldmatrix_x4(a[mt], smem_u32(stage + L::a_off(rb + krow,
+                                                   ks * 2 + (lane >> 4))));
+      uint32_t mk[4];
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = rb + g + (i & 1) * 8;
+        const uint32_t lo = mask_s[kc[(i >> 1) * 2] * kLdMask + row];
+        const uint32_t hi = mask_s[kc[(i >> 1) * 2 + 1] * kLdMask + row];
+        mk[i] = lo * 0x3f80u | hi * 0x3f800000u;   // bf16 pair of 1s / 0s
+        any |= mk[i] != 0u || !finite_bf16x2(a[mt][i]);
+      }
+      live[mt] = __any_sync(0xffffffffu, any);
+      if (!live[mt]) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&a[mt][i]);
+        v = __hmul2(v, *reinterpret_cast<const __nv_bfloat162*>(&mk[i]));
+        a[mt][i] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+    }
+    if (!(live[0] || live[1])) continue;
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, smem_u32(bs + L::b_off(ks * 16 + krow,
+                                                   wc * 8 * NT + j * 8 +
+                                                       (lane >> 4) * 8)));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (!live[mt]) continue;
+        mma_bf16(acc[mt][j], a[mt], b[0], b[1]);
+        mma_bf16(acc[mt][j + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename T, int NT, bool kTma>
+__global__ void __launch_bounds__(kThreads, 2)
+masked_group_gemm_kernel(const __grid_constant__ Maps maps,
+                         const int32_t* __restrict__ m,
                          const T* __restrict__ g, int M, int Kd, int Cin,
                          const T* __restrict__ W, int Cout,
-                         T* __restrict__ out) {
-  __shared__ float mask_s[kBM];
-  __shared__ float a_s[kBK][kBM + 1];   // masked rows, channel-major
-  __shared__ float b_s[kBK][kBN];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+                         T* __restrict__ out, int n_col_tiles, int vecA,
+                         int vecB) {
+  using L = Tile<T, NT, kTma>;
+  constexpr int kBK = Mma<T>::kBK;
+  constexpr int kDepth = Mma<T>::kDepth;
+  extern __shared__ __align__(16) char smem_raw[];
+  // TMA's swizzled boxes want 1 KB aligned stages
+  char* smem = smem_raw + ((L::kAlign - smem_u32(smem_raw) % L::kAlign) %
+                           L::kAlign);
+  const uint32_t bars = smem_u32(smem + L::kBarOffset);
+  uint8_t* mask_s = reinterpret_cast<uint8_t*>(smem + L::kMaskOffset);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp >> 1;          // 32-row slab of the tile
+  const int wc = warp & 1;           // half of the Cout tile
+  const int row0 = (blockIdx.x / n_col_tiles) * kBM;
+  const int n0 = (blockIdx.x % n_col_tiles) * L::kBN;
+  const int Ktot = Kd * Cin;
+  const int n_slices = (Ktot + kBK - 1) / kBK;
+  const Walk wa = make_walk<kThreads>(kSliceBytes / vecA);
+  const Walk wb =
+      make_walk<kThreads>(L::kBN * static_cast<int>(sizeof(T)) / vecB);
 
-  for (int k = 0; k < Kd; ++k) {
-    if (threadIdx.x < kBM) {
-      const int r = row0 + threadIdx.x;
-      mask_s[threadIdx.x] =
-          (r < M && m[static_cast<size_t>(r) * Kd + k] >= 0) ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-    const T* wk = W + static_cast<size_t>(k) * Cin * Cout;
-    for (int c0 = 0; c0 < Cin; c0 += kBK) {
-      stage_g<T, kVec>(g, M, Kd, Cin, k, row0, c0, mask_s, a_s);
-      for (int e = threadIdx.x; e < kBK * kBN; e += kThreads) {
-        const int c = e / kBN;
-        const int n = e % kBN;
-        float v = 0.0f;
-        if (c0 + c < Cin && col0 + n < Cout)
-          v = to_float(wk[static_cast<size_t>(c0 + c) * Cout + col0 + n]);
-        b_s[c][n] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < kBK; ++c) {
-        float a[kTM], b[kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) a[i] = a_s[c][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) b[j] = b_s[c][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  if (kTma && threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the map tile as a mask [Kd][128]: rows past M are masked
+  {
+    const int32_t* mt = m + static_cast<int64_t>(row0) * Kd;
+    const int n = min(kBM, M - row0) * Kd;
+    for (int e = threadIdx.x; e < kBM * Kd; e += kThreads) {
+      const int r = e / Kd;
+      const int k = e - r * Kd;
+      mask_s[k * kLdMask + r] = e < n && mt[e] >= 0 ? 1 : 0;
     }
   }
+  __syncthreads();             // barriers initialised, mask written
+  float acc[2][NT][4];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= M) continue;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int n = col0 + tx + 16 * j;
-      if (n < Cout)
-        out[static_cast<size_t>(r) * Cout + n] = from_float<T>(acc[i][j]);
-    }
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.0f;
+
+  auto load = [&](int sl) {
+    const int st = sl % kStages;
+    load_slice<T, NT, kTma>(smem + st * L::kStageBytes, bars + 8 * st, maps,
+                            g, M, Ktot, Cin, W, Cout, row0, n0, sl * kBK,
+                            vecA, wa, wb);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_slices) load(s);
+    if (!kTma) cp_async_commit();
   }
+  for (int s = 0; s < n_slices; ++s) {
+    const int st = s % kStages;
+    if constexpr (kTma)
+      mbar_wait(bars + 8 * st, (s / kStages) & 1);
+    else
+      cp_async_wait<kStages - 2>();
+    __syncthreads();           // slice s landed; slice s - 1's reads are done
+    if (s + kStages - 1 < n_slices) load(s + kStages - 1);
+    if (!kTma) cp_async_commit();
+    const int nks = (min(kBK, Ktot - s * kBK) + kDepth - 1) / kDepth;
+    mma_slice<NT, kTma>(smem + st * L::kStageBytes, mask_s, nks, wr, wc,
+                        lane, acc, T());
+  }
+  if (!kTma) cp_async_wait<0>();
+
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wr * 32 + mt * 16 + gq + 8 * h;
+      if (r >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wc * 8 * NT + j * 8 + 2 * t + e;
+          if (n < Cout)
+            store(out + static_cast<int64_t>(r) * Cout + n,
+                  acc[mt][j][2 * h + e]);
+        }
+    }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime (so
+// the library links nothing new), or null.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static bool looked = false;
+  if (!looked) {
+    looked = true;
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major [rows, cols] tensor as 2-D boxes of 128 bytes by box_rows
+// rows, 128-byte swizzle, zeros out of range.
+template <typename T>
+bool make_map(CUtensorMap* map, EncodeTiled enc, const void* base,
+              int64_t rows, int64_t cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(T)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / sizeof(T)),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapDataType dt = sizeof(T) == 4
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return enc(map, dt, 2, const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int NT, bool kTma>
+cudaError_t launch_kernel(const Maps& maps, const void* m, const void* g,
+                          int M, int Kd, int Cin, const void* W, int Cout,
+                          void* out, int n_col, int vecA, int vecB,
+                          cudaStream_t s) {
+  using L = Tile<T, NT, kTma>;
+  auto kernel = masked_group_gemm_kernel<T, NT, kTma>;
+  const int bytes = L::smem(Kd);
+  static int configured = 0;         // above 48 KB needs the opt-in
+  if (bytes > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    configured = bytes;
+  }
+  const int64_t blocks = static_cast<int64_t>((M + kBM - 1) / kBM) * n_col;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(
+      maps, static_cast<const int32_t*>(m), static_cast<const T*>(g), M, Kd,
+      Cin, static_cast<const T*>(W), Cout, static_cast<T*>(out), n_col, vecA,
+      vecB);
+  return cudaGetLastError();
+}
+
+// TMA where g's and W's row pitches and bases are 16-byte aligned (and
+// libcuda offers the encoder), else the cp.async ring.
+template <typename T, int NT>
+int launch_nt(const void* m, const void* g, int M, int Kd, int Cin,
+              const void* W, int Cout, void* out, cudaStream_t s) {
+  constexpr int kSize = sizeof(T);
+  const int64_t Ktot = static_cast<int64_t>(Kd) * Cin;
+  const int n_col = (Cout + 16 * NT - 1) / (16 * NT);
+  Maps maps{};
+  EncodeTiled enc = encode_tiled();
+  const bool tma = enc && Ktot * kSize % 16 == 0 &&
+                   int64_t{Cout} * kSize % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(W) % 16 == 0 &&
+                   make_map<T>(&maps.a, enc, g, M, Ktot, kBM) &&
+                   make_map<T>(&maps.b, enc, W, Ktot, Cout, Mma<T>::kBK);
+  if (tma)
+    return launch_kernel<T, NT, true>(maps, m, g, M, Kd, Cin, W, Cout, out,
+                                      n_col, 16, 16, s);
+  const int vecA = copy_bytes(g, Ktot * kSize, kSize);
+  const int vecB = copy_bytes(W, int64_t{Cout} * kSize, kSize);
+  return launch_kernel<T, NT, false>(maps, m, g, M, Kd, Cin, W, Cout, out,
+                                     n_col, vecA, vecB, s);
 }
 
 template <typename T>
 int launch(const void* m, const void* g, int M, int Kd, int Cin,
-           const void* W, int Cout, void* out, void* stream) {
+           const void* W, int Cout, void* out, int bn, void* stream) {
   if (M <= 0 || Cout <= 0) return cudaSuccess;
-  const dim3 grid((M + kBM - 1) / kBM, (Cout + kBN - 1) / kBN);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* mp = static_cast<const int32_t*>(m);
-  const auto* gp = static_cast<const T*>(g);
-  const auto* wp = static_cast<const T*>(W);
-  auto* op = static_cast<T*>(out);
-  // 16-byte loads need every row slice aligned: Cin a multiple of 16 and
-  // g itself 16-byte aligned (the wrapper passes a fresh contiguous copy
-  // otherwise)
-  const bool vec = Cin % kBK == 0 &&
-                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  if (vec)
-    masked_group_gemm_kernel<T, true><<<grid, kThreads, 0, s>>>(
-        mp, gp, M, Kd, Cin, wp, Cout, op);
-  else
-    masked_group_gemm_kernel<T, false><<<grid, kThreads, 0, s>>>(
-        mp, gp, M, Kd, Cin, wp, Cout, op);
-  return cudaGetLastError();
+  switch (bn) {
+    case 32: return launch_nt<T, 2>(m, g, M, Kd, Cin, W, Cout, out, s);
+    case 64: return launch_nt<T, 4>(m, g, M, Kd, Cin, W, Cout, out, s);
+    case 96: return launch_nt<T, 6>(m, g, M, Kd, Cin, W, Cout, out, s);
+    case 128: return launch_nt<T, 8>(m, g, M, Kd, Cin, W, Cout, out, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // m: int32 [M, Kd]; g: [M, Kd, Cin]; W: [Kd, Cin, Cout]; out: [M, Cout];
-// all contiguous, g / W / out of one type (fp32 or bf16).
+// all contiguous, g / W / out of one type (fp32 or bf16); bn the Cout tile
+// (32, 64, 96 or 128, from the wrapper's _tile_for).
 extern "C" int spira_masked_group_gemm_f32(const void* m, const void* g,
                                            int M, int Kd, int Cin,
                                            const void* W, int Cout,
-                                           void* out, void* stream) {
-  return launch<float>(m, g, M, Kd, Cin, W, Cout, out, stream);
+                                           void* out, int bn, void* stream) {
+  return launch<float>(m, g, M, Kd, Cin, W, Cout, out, bn, stream);
 }
 
 extern "C" int spira_masked_group_gemm_bf16(const void* m, const void* g,
                                             int M, int Kd, int Cin,
                                             const void* W, int Cout,
-                                            void* out, void* stream) {
-  return launch<__nv_bfloat16>(m, g, M, Kd, Cin, W, Cout, out, stream);
+                                            void* out, int bn, void* stream) {
+  return launch<__nv_bfloat16>(m, g, M, Kd, Cin, W, Cout, out, bn, stream);
 }

@@ -1,238 +1,357 @@
-// Weight-stationary sparse convolution for Hopper: a GEMM over the kept
-// (input, offset) pairs, then an ordered merge into the output rows:
+// Weight-stationary sparse convolution for Hopper: an output panel resident
+// in shared memory, swept over the offsets in order:
 //   out[i] = sum over k in column order, where pair (i, k) was kept,
 //            of F[m[i,k]] @ W[k]
+// with, for each offset column k, the first `capacity` valid rows (in row
+// order) kept.
 //
 // Replaces the TPU kernel repro/kernels/ws_scatter_gemm.py::ws_scatter_gemm
-// (_kernel). That kernel keeps the whole [M, bn] output block in VMEM and
-// sweeps (offset, chunk) on the TPU's sequential grid, which is what orders
-// its merge. Hopper has neither a sequential grid nor megabytes of fast
-// memory, so the sweep is split at the only point where order matters:
+// (_kernel), and follows its structure: that kernel keeps the [M, bn]
+// output block in VMEM and sweeps the offsets on the TPU's sequential
+// grid, which is what orders its merge. Here a block keeps a panel of 128
+// rows by a Cout tile in shared memory and sweeps the offsets itself. The
+// first port split the sweep into a pair GEMM writing one fp32 row per
+// kept pair and a merge reading them back through an [M, Ks] pair-index
+// table, behind ~10 torch ops and two host syncs per call; its merge and
+// compaction moved ~10x the bound's bytes. Three kernels now, on one
+// stream, with no host sync and no table sized by pairs:
 //
-//   compaction (in torch, int32, before the launch): per offset k the first
-//   `capacity` valid rows survive; their input rows are laid out as one flat
-//   pair table pin[p] ordered by (offset, position in the column), with
-//   cnt[k] pairs of offset k starting at choff[k], and pidx[i, k] the pair
-//   index of (row i, offset k) or -1 where the pair is absent or dropped.
-//   The tables are sized by the kept pairs, never by Ks * capacity.
+//  * ws_pack_kernel: one block per panel stages the panel's map rows in
+//    shared memory by coalesced cp.async (reading column cols[k] of a
+//    row of `ld` entries, so the hybrid dataflow's WS columns are read in
+//    place, not copied), then a warp per offset writes the panel rows with
+//    m >= 0, in row order, as uint8 rows-in-panel into list[p][k][0..) and
+//    their count into cnt[k][p]. Order comes from ballots and popc, not
+//    atomics.
+//  * ws_rank_kernel (lossy capacity only; capacity >= M keeps every pair
+//    and the host skips it): one block per offset scans cnt[k][.] over the
+//    panels; an entry's column rank is the panel's exclusive prefix plus its
+//    place in the list, so the kept entries of (p, k) are the list's first
+//    kept[k][p] = min(cnt, max(0, capacity - prefix)).
+//  * ws_sweep_kernel: one block per (panel, Cout tile of 16, 32, 64 or 96).
+//    It reads the panel's kept counts for every offset once; then, for
+//    each chunk of 16 offsets, one thread per kept entry reads its row from
+//    the pack's list and its input row m[row, cols[k]] (two dependent
+//    loads per chunk, not per offset) into the packed lists of
+//    gather_mma.cuh's run_chunk (2 stages, as the OS kernel: rings of 4, 6
+//    or 8 stages took more shared memory, fewer blocks an SM, and were
+//    slower on CenterPoint's launches), which gathers them
+//    into 16-row mma fragments by cp.async (zero-filling ragged Cin such
+//    as the stem's 5), streams W[k]'s slice beside them, multiplies on the
+//    tensor cores (bf16 m16n8k16; fp32 3xTF32 on m16n8k8, each 16 channels
+//    summed into a zeroed fragment, then added in round-to-nearest fp32)
+//    and adds each row's sum for the offset to that row's accumulator.
+//    Empty (panel, offset) lists issue nothing. The output is written
+//    once, fp32; rows without kept pairs (PAD rows included) are +0.0.
 //
-//   pass A (ws_gemm_kernel): a grouped gather-GEMM over the pair table. The
-//   grid is a flat list of 64-pair chunks (chunk_off[k] = first chunk of
-//   offset k) times Cout tiles of 16 * TN channels, so no block idles on a
-//   short column. A block gathers its chunk's 64 input rows and W[k]'s slice
-//   into shared memory as fp32 (bf16 converts with __bfloat162float) and
-//   each of 256 threads keeps a 4 x TN register tile; it writes
-//   partial[p, :] in fp32, the terms of each element added Cin-inner in one
-//   fixed order by fmaf, as the OS kernel does.
+// Add order: each output element starts at +0.0 and receives one add per
+// kept offset, in offset order (a row appears at most once per offset, and
+// the chunk's offsets are swept in order by the whole block). The add is
+// of that offset's product summed in a fixed sequence of mma over the Cin
+// slices, which depends on the row's input row and W alone. So a row's
+// bits depend only on its own map row, plus the column ranks above it
+// when capacity is lossy: a batch of B is bitwise equal to B single runs,
+// and zero-extension to a larger bucket changes nothing. No atomics on
+// sums.
 //
-//   pass B (ws_merge_kernel): one thread per (output row, channel),
-//   neighbouring channels on neighbouring threads. From +0.0 it walks the
-//   columns k in order and adds partial[pidx[i, k], c] where the pair was
-//   kept. That is the reference's order (acc.at[out_idx].add(part), offset
-//   after offset) with no atomics: a row's bits depend only on its own map
-//   row, so a batch of B is bitwise equal to B single runs. Rows without
-//   pairs (PAD rows included) come out +0.0.
-//
-// Bound on this card: operations for the 32- and 64-channel layers
-// (2 * kept_pairs * Cin * Cout fp32 FMAs on CUDA cores; the contract is
-// IEEE fp32, so no TF32), bytes for the stem (Cin = 5) and for the merge,
-// which reads the [M, Ks] pair-index table. This first version stages
-// through shared memory without cp.async, TMA or wgmma; one launch per
-// layer covers every offset, so the host pays two kernel launches per
-// layer rather than one per offset.
+// Bound on this card: bytes for CenterPoint's layers (F, the map and W read
+// once, the fp32 output written once; the pack reads the map once more,
+// and the sweep reads the kept entries of it again through L2), operations
+// for MinkUNet's wide WS layers (2 * kept_pairs * Cin * Cout). The fp32
+// products keep the accuracy of an fp32 sum (chip_smoke holds every fp32
+// launch against a float64 reference).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gather_mma.cuh"
+
 namespace {
 
-constexpr int kBP = 64;         // pairs per chunk (rows of a block tile)
-constexpr int kBK = 16;         // Cin slice staged per step
-constexpr int kThreads = 256;   // 16 x 16 threads
-constexpr int kTM = 4;          // pair rows per thread
-constexpr int kMergeThreads = 256;
+using namespace spira_gm;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kPanel = kBM;           // rows per panel (the wrapper's PANEL)
+constexpr int kPackThreads = 512;
+constexpr int kPackSmem = 96 * 1024;  // a pack block's staged map rows, max
+constexpr int kRankThreads = 1024;
 
-// The offset whose chunks hold block b: the largest k < Ks with
-// chunk_off[k] <= b (offsets without pairs own no chunk).
-__device__ __forceinline__ int chunk_offset(const int32_t* chunk_off, int Ks,
-                                            int b) {
-  int lo = 0, hi = Ks - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (chunk_off[mid] <= b) lo = mid; else hi = mid - 1;
+// Pack: per (panel p, offset k) the panel rows with m[row, cols[k]] >= 0,
+// in row order, as rows in the panel; their count in cnt[k][p]. The map's
+// rows are staged `sub_rows` at a time with an odd pitch (conflict-free
+// column reads).
+__global__ void __launch_bounds__(kPackThreads)
+ws_pack_kernel(const int32_t* __restrict__ m, int ld,
+               const int32_t* __restrict__ cols, int M, int Ks,
+               int n_panels, int sub_rows, uint8_t* __restrict__ list,
+               int32_t* __restrict__ cnt) {
+  extern __shared__ __align__(16) int32_t rows_s[];   // [sub_rows][ldp]
+  const int ldp = ld | 1;
+  int* tot_s = rows_s + sub_rows * ldp;               // [Ks]
+  const int p = blockIdx.x;
+  const int row0 = p * kPanel;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  for (int k = threadIdx.x; k < Ks; k += kPackThreads) tot_s[k] = 0;
+  const Walk w = make_walk<kPackThreads>(ld);
+  for (int s0 = 0; s0 < kPanel; s0 += sub_rows) {
+    // this pass's rows: within the panel and below M
+    const int n = max(0, min(min(sub_rows, kPanel - s0), M - row0 - s0));
+    __syncthreads();           // the last pass's rows are done with
+    const int32_t* src = m + static_cast<int64_t>(row0 + s0) * ld;
+    for (int r = w.r0, c = w.c0; r < n;) {
+      cp_async<4>(rows_s + r * ldp + c, src + static_cast<int64_t>(r) * ld + c,
+                  true);
+      r += w.dr;
+      c += w.dc;
+      if (c >= w.chunks) {
+        c -= w.chunks;
+        ++r;
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int k = threadIdx.x >> 5; k < Ks; k += kPackThreads / 32) {
+      const int col = cols ? cols[k] : k;
+      uint8_t* lr = list + (static_cast<int64_t>(p) * Ks + k) * kPanel;
+      int total = tot_s[k];
+      for (int b = 0; b < n; b += 32) {
+        const int r = b + lane;
+        const int v = r < n ? rows_s[r * ldp + col] : -1;
+        const unsigned ball = __ballot_sync(0xffffffffu, v >= 0);
+        if (v >= 0)
+          lr[total + __popc(ball & below)] = static_cast<uint8_t>(s0 + r);
+        total += __popc(ball);
+      }
+      if (lane == 0) tot_s[k] = total;
+    }
   }
-  return lo;
+  __syncthreads();
+  for (int k = threadIdx.x; k < Ks; k += kPackThreads)
+    cnt[static_cast<int64_t>(k) * n_panels + p] = tot_s[k];
 }
 
-template <typename T, int TN>
+// Rank (lossy capacity): per offset k, kept[k][p] = min(cnt[k][p],
+// max(0, capacity - sum of cnt[k][q] over q < p)).
+__global__ void __launch_bounds__(kRankThreads)
+ws_rank_kernel(const int32_t* __restrict__ cnt, int n_panels, int capacity,
+               int32_t* __restrict__ kept) {
+  __shared__ int warp_s[kRankThreads / 32];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * n_panels;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int p0 = 0; p0 < n_panels; p0 += kRankThreads) {
+    const int p = p0 + threadIdx.x;
+    const int v = p < n_panels ? cnt[base + p] : 0;
+    int x = v;                 // inclusive scan within the warp
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) warp_s[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int wsum = warp_s[lane];
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const int y = __shfl_up_sync(0xffffffffu, wsum, d);
+        if (lane >= d) wsum += y;
+      }
+      warp_s[lane] = wsum;
+    }
+    __syncthreads();
+    const int excl = carry + x - v + (warp ? warp_s[warp - 1] : 0);
+    if (p < n_panels) kept[base + p] = min(v, max(0, capacity - excl));
+    carry += warp_s[kRankThreads / 32 - 1];
+    __syncthreads();           // warp_s is rewritten by the next tile
+  }
+}
+
+// Sweep: one block per (panel, Cout tile), offsets in order, the panel's
+// fp32 sums resident in shared memory.
+template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
-ws_gemm_kernel(const T* __restrict__ F, int Cin,
-               const int32_t* __restrict__ pin,
-               const int32_t* __restrict__ cnt,
-               const int32_t* __restrict__ choff,
-               const int32_t* __restrict__ chunk_off, int Ks,
-               const T* __restrict__ W, int Cout,
-               float* __restrict__ partial) {
-  constexpr int kBN = 16 * TN;
-  __shared__ int k_s;
-  __shared__ int idx_s[kBP];
-  __shared__ float a_s[kBK][kBP + 1];   // gathered rows, channel-major
-  __shared__ float b_s[kBK][kBN];
-  if (threadIdx.x == 0) k_s = chunk_offset(chunk_off, Ks, blockIdx.x);
-  __syncthreads();
-  const int k = k_s;
-  const int chunk = static_cast<int>(blockIdx.x) - chunk_off[k];
-  const int p0 = choff[k] + chunk * kBP;
-  const int p_end = choff[k] + cnt[k];
-  const int rows = min(kBP, p_end - p0);
-  const int t = static_cast<int>(threadIdx.x);
-  if (t < kBP) idx_s[t] = t < rows ? pin[p0 + t] : -1;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int col0 = blockIdx.y * kBN;
-  const T* wk = W + static_cast<size_t>(k) * Cin * Cout;
-  float acc[kTM][TN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-  __syncthreads();
+ws_sweep_kernel(const T* __restrict__ F, int Cin,
+                const int32_t* __restrict__ m, int ld,
+                const int32_t* __restrict__ cols, int M, int Ks,
+                const uint8_t* __restrict__ list,
+                const int32_t* __restrict__ kept, int n_panels,
+                const T* __restrict__ W, int Cout, float* __restrict__ out,
+                int n_col_tiles, int vecA, int vecB) {
+  using L = Tile<T, BN>;
+  static_assert(kKC <= 32, "a warp scans a chunk's counts");
+  extern __shared__ __align__(16) char smem[];
+  int* idx_s = reinterpret_cast<int*>(smem + L::kMapOffset);  // [kKC][kLdIdx]
+  uint8_t* rows_s = reinterpret_cast<uint8_t*>(smem + L::kRowsOffset);
+  int* cnt_s = reinterpret_cast<int*>(smem + L::kListOffset);  // [kKC]
+  int* kept_s = reinterpret_cast<int*>(smem + L::kSmem);       // [Ks]
+  int* col_s = kept_s + Ks;                                    // [Ks]
+  int* pre_s = col_s + Ks;                                     // [kKC + 1]
 
-  for (int c0 = 0; c0 < Cin; c0 += kBK) {
-    for (int e = threadIdx.x; e < kBP * kBK; e += kThreads) {
-      const int r = e / kBK;
-      const int c = e % kBK;
-      const int j = idx_s[r];
-      float v = 0.0f;
-      if (j >= 0 && c0 + c < Cin)
-        v = to_float(F[static_cast<size_t>(j) * Cin + c0 + c]);
-      a_s[c][r] = v;
-    }
-    for (int e = threadIdx.x; e < kBK * kBN; e += kThreads) {
-      const int c = e / kBN;
-      const int n = e % kBN;
-      float v = 0.0f;
-      if (c0 + c < Cin && col0 + n < Cout)
-        v = to_float(wk[static_cast<size_t>(c0 + c) * Cout + col0 + n]);
-      b_s[c][n] = v;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p = blockIdx.x / n_col_tiles;
+  const int row0 = p * kPanel;
+  const int n0 = (blockIdx.x % n_col_tiles) * BN;
+  const Walk wb =
+      make_walk<kThreads>(BN * static_cast<int>(sizeof(T)) / vecB);
+
+  clear_acc<T, BN>(smem);
+  // the panel's kept counts and map columns, all offsets at once
+  for (int k = threadIdx.x; k < Ks; k += kThreads) {
+    kept_s[k] = kept[static_cast<int64_t>(k) * n_panels + p];
+    col_s[k] = cols ? cols[k] : k;
+  }
+  for (int kc0 = 0; kc0 < Ks; kc0 += kKC) {
+    const int kcn = min(kKC, Ks - kc0);
+    __syncthreads();           // the last chunk's lists are done with
+    if (warp == 0) {           // the chunk's counts and their prefix
+      const int c = lane < kcn ? kept_s[kc0 + lane] : 0;
+      int x = c;
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const int y = __shfl_up_sync(0xffffffffu, x, d);
+        if (lane >= d) x += y;
+      }
+      if (lane < kcn) {
+        pre_s[lane] = x - c;
+        cnt_s[lane] = c;
+      }
+      if (lane == 31) pre_s[kKC] = x;
     }
     __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kBK; ++c) {
-      float a[kTM], b[TN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = a_s[c][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = b_s[c][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    // every kept entry of the chunk, one thread each: its row in the panel
+    // from the pack's list, its input row from the map
+    const int total = pre_s[kKC];
+    for (int e = threadIdx.x; e < total; e += kThreads) {
+      int kk = 0;
+      while (kk + 1 < kcn && pre_s[kk + 1] <= e) ++kk;
+      const int i = e - pre_s[kk];
+      const int k = kc0 + kk;
+      const int r = list[(static_cast<int64_t>(p) * Ks + k) * kPanel + i];
+      idx_s[kk * L::kLdIdx + i] =
+          m[static_cast<int64_t>(row0 + r) * ld + col_s[k]];
+      rows_s[kk * kPanel + i] = static_cast<uint8_t>(r);
     }
-    __syncthreads();
+    run_chunk<T, BN>(smem, F, Cin,
+                     W + static_cast<int64_t>(kc0) * Cin * Cout, Cout, kcn,
+                     n0, vecA, wb);
   }
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= rows) continue;
-    float* dst = partial + static_cast<size_t>(p0 + r) * Cout;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = col0 + tx + 16 * j;
-      if (n < Cout) dst[n] = acc[i][j];
-    }
-  }
+  store_tile<T, BN>(smem, out, row0, M, n0, Cout);
 }
 
-__global__ void __launch_bounds__(kMergeThreads)
-ws_merge_kernel(const float* __restrict__ partial,
-                const int32_t* __restrict__ pidx, int M, int Ks, int Cout,
-                float* __restrict__ out) {
-  const size_t e = static_cast<size_t>(blockIdx.x) * kMergeThreads +
-                   threadIdx.x;
-  if (e >= static_cast<size_t>(M) * Cout) return;
-  const size_t row = e / Cout;
-  const int c = static_cast<int>(e - row * Cout);
-  const int32_t* prow = pidx + row * Ks;
-  float acc = 0.0f;
-  for (int k = 0; k < Ks; ++k) {
-    const int32_t p = prow[k];
-    if (p >= 0) acc = acc + partial[static_cast<size_t>(p) * Cout + c];
+template <typename T, int BN>
+cudaError_t launch_sweep(const void* F, int Cin, const void* m, int ld,
+                         const void* cols, int M, int Ks, const void* list,
+                         const void* kept, int n_panels, const void* W,
+                         int Cout, void* out, cudaStream_t s) {
+  auto kernel = ws_sweep_kernel<T, BN>;
+  const int bytes = Tile<T, BN>::kSmem + (2 * Ks + kKC + 1) * 4;
+  static int configured = 0;         // above 48 KB needs the opt-in
+  if (bytes > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    configured = bytes;
   }
-  out[e] = acc;
+  const int n_col = (Cout + BN - 1) / BN;
+  const int64_t blocks = static_cast<int64_t>(n_panels) * n_col;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  constexpr int kSize = sizeof(T);
+  const int vecA = copy_bytes(F, static_cast<int64_t>(Cin) * kSize, kSize);
+  const int vecB = copy_bytes(W, static_cast<int64_t>(Cout) * kSize, kSize);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(
+      static_cast<const T*>(F), Cin, static_cast<const int32_t*>(m), ld,
+      static_cast<const int32_t*>(cols), M, Ks,
+      static_cast<const uint8_t*>(list), static_cast<const int32_t*>(kept),
+      n_panels, static_cast<const T*>(W), Cout, static_cast<float*>(out),
+      n_col, vecA, vecB);
+  return cudaGetLastError();
 }
 
-template <typename T, int TN>
-cudaError_t launch_gemm(const void* F, int Cin, const void* pin,
-                        const void* cnt, const void* choff,
-                        const void* chunk_off, int Ks, int n_chunks,
-                        const void* W, int Cout, void* partial,
-                        cudaStream_t stream) {
-  const dim3 grid(n_chunks, (Cout + 16 * TN - 1) / (16 * TN));
-  ws_gemm_kernel<T, TN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(F), Cin, static_cast<const int32_t*>(pin),
-      static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(choff),
-      static_cast<const int32_t*>(chunk_off), Ks, static_cast<const T*>(W),
-      Cout, static_cast<float*>(partial));
+// Pack, and rank at a lossy capacity (capacity < M); the sweep then reads
+// `kept` (or `cnt` when every pair is kept).
+cudaError_t launch_pack(const void* m, int ld, const void* cols, int M,
+                        int Ks, int capacity, void* list, void* cnt,
+                        void* kept, cudaStream_t s) {
+  if (M <= 0 || Ks <= 0) return cudaSuccess;
+  const int n_panels = (M + kPanel - 1) / kPanel;
+  const int ldp = ld | 1;
+  const int sub_rows = min(kPanel, (kPackSmem / 4 - Ks) / ldp / 32 * 32);
+  if (sub_rows < 32) return cudaErrorInvalidValue;
+  static bool configured = false;    // above 48 KB needs the opt-in
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ws_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kPackSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  auto* cntp = static_cast<int32_t*>(cnt);
+  ws_pack_kernel<<<n_panels, kPackThreads, (sub_rows * ldp + Ks) * 4, s>>>(
+      static_cast<const int32_t*>(m), ld, static_cast<const int32_t*>(cols),
+      M, Ks, n_panels, sub_rows, static_cast<uint8_t*>(list), cntp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || capacity >= M) return e;
+  ws_rank_kernel<<<Ks, kRankThreads, 0, s>>>(cntp, n_panels, capacity,
+                                             static_cast<int32_t*>(kept));
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* F, int Cin, const void* pin, const void* cnt,
-           const void* choff, const void* chunk_off, int Ks, int n_chunks,
-           const void* W, int Cout, int tn, void* partial, const void* pidx,
-           int M, void* out, void* stream) {
+int launch(const void* F, int Cin, const void* m, int ld, const void* cols,
+           int M, int Ks, const void* W, int Cout, int capacity, void* list,
+           void* cnt, void* kept, void* out, int bn, void* stream) {
   if (M <= 0 || Cout <= 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_chunks > 0) {
-    cudaError_t e;
-    switch (tn) {
-      case 1: e = launch_gemm<T, 1>(F, Cin, pin, cnt, choff, chunk_off, Ks,
-                                    n_chunks, W, Cout, partial, s); break;
-      case 2: e = launch_gemm<T, 2>(F, Cin, pin, cnt, choff, chunk_off, Ks,
-                                    n_chunks, W, Cout, partial, s); break;
-      case 4: e = launch_gemm<T, 4>(F, Cin, pin, cnt, choff, chunk_off, Ks,
-                                    n_chunks, W, Cout, partial, s); break;
-      default: return cudaErrorInvalidValue;
-    }
-    if (e != cudaSuccess) return e;
+  const cudaError_t e =
+      launch_pack(m, ld, cols, M, Ks, capacity, list, cnt, kept, s);
+  if (e != cudaSuccess) return e;
+  const int n_panels = (M + kPanel - 1) / kPanel;
+  const void* kp = capacity < M ? kept : cnt;
+  switch (bn) {
+    case 16: return launch_sweep<T, 16>(F, Cin, m, ld, cols, M, Ks, list, kp,
+                                        n_panels, W, Cout, out, s);
+    case 32: return launch_sweep<T, 32>(F, Cin, m, ld, cols, M, Ks, list, kp,
+                                        n_panels, W, Cout, out, s);
+    case 64: return launch_sweep<T, 64>(F, Cin, m, ld, cols, M, Ks, list, kp,
+                                        n_panels, W, Cout, out, s);
+    case 96: return launch_sweep<T, 96>(F, Cin, m, ld, cols, M, Ks, list, kp,
+                                        n_panels, W, Cout, out, s);
+    default: return cudaErrorInvalidValue;
   }
-  const size_t elems = static_cast<size_t>(M) * Cout;
-  const unsigned blocks =
-      static_cast<unsigned>((elems + kMergeThreads - 1) / kMergeThreads);
-  ws_merge_kernel<<<blocks, kMergeThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const int32_t*>(pidx),
-      M, Ks, Cout, static_cast<float*>(out));
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// F: [N, Cin]; W: [Ks, Cin, Cout] (one type, fp32 or bf16); pin: int32 [P];
-// cnt, choff: int32 [Ks]; chunk_off: int32 [Ks + 1] with n_chunks =
-// chunk_off[Ks]; tn: Cout tile / 16, one of 1, 2, 4; partial: fp32
-// [P, Cout] scratch; pidx: int32 [M, Ks]; out: fp32 [M, Cout]. All
-// contiguous.
+// F: [N, Cin]; W: [Ks, Cin, Cout] (one type, fp32 or bf16); m: int32 rows of
+// `ld` entries, M of them, of which offset k reads column cols[k] (cols:
+// int32 [Ks], or null for column k); capacity: pairs kept per offset
+// (>= M: all); list: uint8 [ceil(M / 128), Ks, 128] and cnt, kept: int32
+// [Ks, ceil(M / 128)] scratch (kept unused when capacity >= M); out: fp32
+// [M, Cout]; bn: the Cout tile (16, 32, 64 or 96). All contiguous.
+// spira_ws_pack runs the pack and rank kernels alone.
+extern "C" int spira_ws_pack(const void* m, int ld, const void* cols, int M,
+                             int Ks, int capacity, void* list, void* cnt,
+                             void* kept, void* stream) {
+  return launch_pack(m, ld, cols, M, Ks, capacity, list, cnt, kept,
+                     static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int spira_ws_scatter_gemm_f32(
-    const void* F, int Cin, const void* pin, const void* cnt,
-    const void* choff, const void* chunk_off, int Ks, int n_chunks,
-    const void* W, int Cout, int tn, void* partial, const void* pidx, int M,
-    void* out, void* stream) {
-  return launch<float>(F, Cin, pin, cnt, choff, chunk_off, Ks, n_chunks, W,
-                       Cout, tn, partial, pidx, M, out, stream);
+    const void* F, int Cin, const void* m, int ld, const void* cols, int M,
+    int Ks, const void* W, int Cout, int capacity, void* list, void* cnt,
+    void* kept, void* out, int bn, void* stream) {
+  return launch<float>(F, Cin, m, ld, cols, M, Ks, W, Cout, capacity, list,
+                       cnt, kept, out, bn, stream);
 }
 
 extern "C" int spira_ws_scatter_gemm_bf16(
-    const void* F, int Cin, const void* pin, const void* cnt,
-    const void* choff, const void* chunk_off, int Ks, int n_chunks,
-    const void* W, int Cout, int tn, void* partial, const void* pidx, int M,
-    void* out, void* stream) {
-  return launch<__nv_bfloat16>(F, Cin, pin, cnt, choff, chunk_off, Ks,
-                               n_chunks, W, Cout, tn, partial, pidx, M, out,
-                               stream);
+    const void* F, int Cin, const void* m, int ld, const void* cols, int M,
+    int Ks, const void* W, int Cout, int capacity, void* list, void* cnt,
+    void* kept, void* out, int bn, void* stream) {
+  return launch<__nv_bfloat16>(F, Cin, m, ld, cols, M, Ks, W, Cout, capacity,
+                               list, cnt, kept, out, bn, stream);
 }

@@ -11,9 +11,12 @@ tensor's write and re-read that the implicit-GEMM kernel
 Replaces the TPU kernel ``repro/kernels/masked_group_gemm.py``
 (``masked_group_gemm``, ``_kernel``) with ``csrc/masked_group_gemm.cu``.
 What bounds it on the H100 and what its design does about that is written
-at the top of that source: a 64×64 output tile per block looping over k,
-rows of ``g[:, k, :]`` staged with 16-byte loads, the mask applied by a
-multiply (never a skip), k-then-Cin ``fmaf`` order.
+at the top of that source: one streaming GEMM of g as ``[M, Kd·Cin]`` by
+W as ``[Kd·Cin, Cout]`` on the tensor cores (bf16 m16n8k16; fp32 as
+3xTF32), a 128-row tile by the Cout tile of :func:`_tile_for`, a 3-stage
+ring loaded by TMA (``cp.async`` where a row pitch is not a multiple of
+16 bytes), the mask multiplied into the A fragments in registers (never a
+skip of a non-finite value), flat-column (k-then-Cin) add order.
 
 :func:`masked_group_gemm_torch` is the plain version — the reference's
 ``masked_group_gemm_ref`` in torch: mask, then one fp32 einsum.
@@ -26,9 +29,11 @@ import torch
 
 from . import _build
 
+TILES_N = (32, 64, 96, 128)   # the kernel's compiled Cout tiles
+
 _SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
 _ENTRY = {torch.float32: "spira_masked_group_gemm_f32",
           torch.bfloat16: "spira_masked_group_gemm_bf16"}
 _fns: dict = {}
@@ -42,6 +47,13 @@ def masked_group_gemm_torch(m: torch.Tensor, gathered: torch.Tensor,
     g = gathered * (m >= 0)[..., None].to(gathered.dtype)
     return torch.einsum("mkc,kcd->md", g.float(),
                         weights.float()).to(gathered.dtype)
+
+
+def _tile_for(cout: int) -> int:
+    """The kernel's Cout tile: the smallest of ``TILES_N`` that covers
+    Cout, else 128 (Cout 256 runs two tiles side by side, which read each
+    row of g from device memory once between them)."""
+    return next((t for t in TILES_N if cout <= t), TILES_N[-1])
 
 
 def masked_group_gemm(m: torch.Tensor, gathered: torch.Tensor,
@@ -77,7 +89,8 @@ def masked_group_gemm(m: torch.Tensor, gathered: torch.Tensor,
         fn = _fns[dt] = _build.function(_ENTRY[dt], _SIG)
     stream = torch.cuda.current_stream(gathered.device).cuda_stream
     err = fn(m.data_ptr(), gathered.data_ptr(), M, Kd, Cin,
-             weights.data_ptr(), Cout, out.data_ptr(), stream)
+             weights.data_ptr(), Cout, out.data_ptr(), _tile_for(Cout),
+             stream)
     masked_group_gemm.launches += 1
     _build.check(err, "masked_group_gemm")
     return out

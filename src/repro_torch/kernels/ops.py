@@ -25,7 +25,7 @@ from .flash_attention import flash_attention, flash_attention_torch
 from .masked_group_gemm import masked_group_gemm, masked_group_gemm_torch
 from .spconv_gather_gemm import (TILE_M, _tile_for, spconv_gather_gemm,
                                  spconv_gather_gemm_torch)
-from .ws_scatter_gemm import (CHUNK, TILES_N, ws_scatter_gemm,
+from .ws_scatter_gemm import (PANEL, TILES_N, ws_scatter_gemm,
                               ws_scatter_gemm_torch)
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -68,22 +68,25 @@ def spconv_os_fused(features: torch.Tensor, m: torch.Tensor,
 
 def spconv_ws_fused(features: torch.Tensor, m: torch.Tensor,
                     weights: torch.Tensor, *, capacity: int,
-                    backend: str = "auto", bm: int = 0,
-                    bn: int = 0) -> torch.Tensor:
-    """WS dataflow as one compact + GEMM + ordered-merge kernel; the result
-    in the features' dtype. ``bm`` is the pair chunk (the CUDA kernel is
-    compiled for 64; 0 = auto) and ``bn`` the Cout tile (16, 32 or 64;
-    0 = the smallest that covers Cout)."""
-    if bm not in (0, CHUNK):
+                    backend: str = "auto", bm: int = 0, bn: int = 0,
+                    cols=None) -> torch.Tensor:
+    """WS dataflow as one pack + panel-sweep kernel; the result in the
+    features' dtype. ``bm`` is the row panel (the CUDA kernel is compiled
+    for 128; 0 = auto) and ``bn`` the Cout tile (16, 32, 64 or 96; 0 = the
+    smallest that covers Cout); ``cols``: the map columns the offsets read
+    (None: all)."""
+    if bm not in (0, PANEL):
         raise ValueError(f"bm={bm}: the CUDA WS kernel is compiled for "
-                         f"{CHUNK}-pair chunks (0 = auto)")
+                         f"{PANEL}-row panels (0 = auto)")
     if bn not in (0, *TILES_N):
         raise ValueError(f"bn={bn}: the CUDA WS kernel is compiled for Cout "
                          f"tiles {TILES_N} (0 = auto)")
     if resolve_backend(backend, features):
-        out = ws_scatter_gemm(features, m, weights, capacity=capacity, bn=bn)
+        out = ws_scatter_gemm(features, m, weights, capacity=capacity, bn=bn,
+                              cols=cols)
     else:
-        out = ws_scatter_gemm_torch(features, m, weights, capacity=capacity)
+        out = ws_scatter_gemm_torch(features, m, weights, capacity=capacity,
+                                    cols=cols)
     return out.to(features.dtype)
 
 

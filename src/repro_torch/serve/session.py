@@ -130,18 +130,23 @@ class SpiraSession:
         logits = pointcloud_forward(self.params, net, plan, feats,
                                     layout=self.layout, segment=self.segment)
         out = plan.coords[specs[-1].m_out]
-        drops = {}
+        # per lossy WS layer the pairs beyond capacity, stacked on the card
+        # and read with one sync
+        names, dropped = [], []
         for s in specs:
             if not s.ws_capacity or s.dataflow not in ("ws", "hybrid"):
                 continue
-            m = plan.kmaps[s.name].m
+            pairs = (plan.kmaps[s.name].m >= 0).sum(dim=0)
             if s.dataflow == "hybrid":
                 _, cols = l1_partition(s.K, s.offset_stride, s.t)
                 if cols.size == 0:
                     continue
-                m = m[:, torch.as_tensor(cols, device=m.device).long()]
-            pairs = (m >= 0).sum(dim=0)
-            drops[s.name] = int((pairs - s.ws_capacity).clamp(min=0).sum())
+                pairs = pairs[torch.as_tensor(cols, device=pairs.device)
+                              .long()]
+            names.append(s.name)
+            dropped.append((pairs - s.ws_capacity).clamp(min=0).sum())
+        drops = (dict(zip(names, torch.stack(dropped).tolist()))
+                 if names else {})
         return logits, out.packed, out.count, drops, plan.stats
 
     # -- hot path ---------------------------------------------------------

@@ -27,7 +27,8 @@ from repro_torch.kernels.masked_group_gemm import (masked_group_gemm,
                                                    masked_group_gemm_torch)
 from repro_torch.kernels.spconv_gather_gemm import (spconv_gather_gemm,
                                                     spconv_gather_gemm_torch)
-from repro_torch.kernels.ws_scatter_gemm import (ws_scatter_gemm,
+from repro_torch.kernels.ws_scatter_gemm import (ws_pack_cuda, ws_pack_torch,
+                                                 ws_scatter_gemm,
                                                  ws_scatter_gemm_torch)
 from repro_torch.kernels.zdelta_window import (zdelta_superwindow_search,
                                                zdelta_window_search)
@@ -310,6 +311,105 @@ def test_ws_kernel_rejects_int64_map(dev):
         ws_scatter_gemm(F, m.long(), W, capacity=m.shape[0])
 
 
+@pytest.mark.parametrize("cap", ["lossless", "lossy", "zero"])
+@pytest.mark.parametrize("K,cols", [(3, "all"), (5, "all"), (5, "ws")])
+def test_ws_pack_kernel_equals_plain(dev, K, cols, cap):
+    """The pack (and rank) kernels' lists, counts and kept prefixes equal
+    ``ws_pack_torch``'s; with ``cols`` the map is read in place."""
+    layout, cs = _levels(dev)
+    _, anchors, zstep = zdelta.zdelta_offsets(K, 1, layout, device=dev)
+    m = zdelta.zdelta_search(cs[0], cs[0], anchors, zstep, K=K)
+    idx = (torch.as_tensor(l1_partition(K, 1, 3)[1], dtype=torch.int32,
+                           device=dev) if cols == "ws" else None)
+    sub = m if idx is None else m[:, idx.long()]
+    top = int((sub >= 0).sum(0).max())
+    c = {"lossless": m.shape[0], "lossy": top // 2, "zero": 0}[cap]
+    got = ws_pack_cuda(m, c, cols=idx)
+    want = ws_pack_torch(m, c, cols=idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got.count, want.count)
+    assert torch.equal(got.kept, want.kept)
+    live = (torch.arange(got.rows.shape[-1], device=dev)
+            < got.count.t()[..., None])
+    assert torch.equal(got.rows[live], want.rows[live])
+    assert torch.equal(got.kept_mask(m.shape[0]),
+                       ws_kept_map(sub, c) >= 0)
+
+
+@pytest.mark.parametrize("cap", [1000, 100])
+def test_ws_pack_kernel_stages_wide_map_rows_in_passes(dev, cap):
+    """Map rows of 240 entries stage 96 rows a pass, so a 128-row panel
+    takes two passes, the second cut at the panel's end."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    m = torch.randint(-1, 1000, (1000, 240), generator=g, dtype=torch.int32)
+    m[torch.rand((1000, 240), generator=g) < 0.6] = -1
+    m = m.to(dev)
+    idx = torch.arange(3, 240, 6, dtype=torch.int32, device=dev)
+    got = ws_pack_cuda(m, cap, cols=idx)
+    want = ws_pack_torch(m, cap, cols=idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got.count, want.count)
+    assert torch.equal(got.kept, want.kept)
+    live = (torch.arange(got.rows.shape[-1], device=dev)
+            < got.count.t()[..., None])
+    assert torch.equal(got.rows[live], want.rows[live])
+
+
+@pytest.mark.parametrize("shift", [1, 127, 128, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ws_kernel_rows_at_panel_boundaries(dev, shift, dtype):
+    """Rows that move across a 128-row panel boundary keep their bits
+    (lossless), and the cut map matches the plain version."""
+    F, m, W = _ws_case(dev, 5, "ws", 32, 32, dtype)
+    full = ws_scatter_gemm(F, m, W, capacity=m.shape[0])
+    part_m = m[shift:shift + 700].contiguous()
+    part = ws_scatter_gemm(F, part_m, W, capacity=700)
+    torch.cuda.synchronize()
+    assert torch.equal(full[shift:shift + 700], part)
+    _assert_ws_close(part, ws_scatter_gemm_torch(F, part_m, W, capacity=700),
+                     dtype)
+
+
+@pytest.mark.parametrize("lossy", [False, True], ids=["lossless", "lossy"])
+def test_ws_column_list_equals_copied_subset(dev, lossy):
+    """The hybrid WS half reading its columns in place is bitwise equal
+    to the kernel over the copied column subset."""
+    F, m, W = _ws_case(dev, 5, "all", 16, 32, torch.float32)
+    idx = torch.as_tensor(l1_partition(5, 1, 3)[1], dtype=torch.int32,
+                          device=dev)
+    sub = m[:, idx.long()].contiguous()
+    Wk = W[idx.long()].contiguous()
+    cap = int((sub >= 0).sum(0).max()) // 2 if lossy else m.shape[0]
+    a = ws_scatter_gemm(F, m, Wk, capacity=cap, cols=idx)
+    b = ws_scatter_gemm(F, sub, Wk, capacity=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_ws_wrapper_does_not_sync(dev):
+    """The WS wrapper (pack, rank, sweep) waits on the card at neither
+    capacity, nor with a column list: it runs under the sync debug mode
+    "error"."""
+    F, m, W = _ws_case(dev, 5, "all", 16, 32, torch.float32)
+    idx = torch.as_tensor(l1_partition(5, 1, 3)[1], dtype=torch.int32,
+                          device=dev)
+    Wk = W[idx.long()].contiguous()
+    lossy = int((m >= 0).sum(0).max()) // 2
+    ws_scatter_gemm(F, m, W, capacity=lossy)     # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [ws_scatter_gemm(F, m, W, capacity=m.shape[0]),
+                ws_scatter_gemm(F, m, W, capacity=lossy),
+                ws_scatter_gemm(F, m, Wk, capacity=lossy, cols=idx),
+                ws_scatter_gemm(F.bfloat16(), m, W.bfloat16(),
+                                capacity=m.shape[0])]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
 def test_centerpoint_session_on_card(dev):
     """CenterPoint-Large (hybrid, t = 3) through the kernels: every kernel
     of the path launches once per layer, batch of 2 bitwise equal to
@@ -398,6 +498,62 @@ def test_masked_group_gemm_kernel_masks_by_multiply(dev):
     got = masked_group_gemm(m, gathered, W)
     assert torch.isnan(got[0]).all()
     assert torch.equal(got[1], torch.full((8,), 32.0, device=dev))
+
+
+@pytest.mark.parametrize("Kd,cin,cout", [(27, 96, 96), (27, 4, 32),
+                                          (27, 17, 20), (125, 32, 256)])
+def test_masked_group_gemm_kernel_float64_gate(dev, Kd, cin, cout):
+    """fp32 (3xTF32) against the same contraction in float64: the kernel's
+    max|error| within max(4 x the plain fp32 version's, 1e-6 max|ref|)."""
+    M = 1000
+    g = torch.Generator(device="cpu").manual_seed(Kd + cin + cout)
+    m = torch.randint(-1, M, (M, Kd), generator=g, dtype=torch.int32).to(dev)
+    gathered = torch.randn((M, Kd, cin), generator=g).to(dev)
+    W = (torch.randn((Kd, cin, cout), generator=g) / (Kd * cin) ** 0.5).to(
+        dev)
+    got = masked_group_gemm(m, gathered, W)
+    ref = masked_group_gemm_torch(m, gathered, W)
+    pre = gathered.double() * (m >= 0)[..., None]
+    ref64 = torch.einsum("mkc,kcd->md", pre, W.double())
+    e_k = float((got.double() - ref64).abs().max())
+    e_p = float((ref.double() - ref64).abs().max())
+    assert e_k <= max(4 * e_p, 1e-6 * float(ref64.abs().max()))
+
+
+@pytest.mark.parametrize("cin", [17, 4, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_group_gemm_kernel_unaligned_rows(dev, cin, dtype):
+    """Rows of g whose pitch (27 Cin elements) is not 16-byte aligned (8-
+    and 4-byte copies; 2-byte loads for odd bf16 pitches), and a g that
+    starts off a 16-byte boundary."""
+    M = 300
+    g = torch.Generator(device="cpu").manual_seed(cin)
+    m = torch.randint(-1, M, (M, 27), generator=g, dtype=torch.int32).to(dev)
+    base = torch.randn((M * 27 * cin + 1,), generator=g).to(dev, dtype)
+    gathered = base[1:].view(M, 27, cin)
+    W = (torch.randn((27, cin, 48), generator=g) / (27 * cin) ** 0.5).to(
+        dev, dtype)
+    got = masked_group_gemm(m, gathered, W)
+    torch.cuda.synchronize()
+    _close(got, masked_group_gemm_torch(m, gathered, W), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_group_gemm_kernel_nan_in_a_masked_fragment(dev, dtype):
+    """An offset that no row of a 16-row fragment uses is skipped only
+    where its values are finite: an inf there still makes its row NaN,
+    and only that row."""
+    M = 40
+    m = torch.zeros((M, 3), dtype=torch.int32, device=dev)
+    m[:, 1] = -1
+    gathered = torch.ones((M, 3, 16), device=dev, dtype=dtype)
+    gathered[5, 1, 7] = float("inf")
+    W = torch.ones((3, 16, 8), device=dev, dtype=dtype)
+    got = masked_group_gemm(m, gathered, W)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[5]).all()
+    rest = torch.cat([got[:5], got[6:]]).float()
+    assert torch.equal(rest, torch.full_like(rest, 32.0))
 
 
 def test_output_stationary_fused_on_card(dev):

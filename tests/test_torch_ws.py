@@ -1,8 +1,8 @@
 """Weight-stationary and hybrid dataflows of the port against the JAX
 package on the CPU: ``weight_stationary`` / ``hybrid`` against the XLA
 path (fp32 within 1e-5 relative; the Pallas-interpret WS differs from XLA
-under capacity overflow and is not the oracle), the kept map and the
-compaction tables integer-exact, CenterPoint-Large end to end against the
+under capacity overflow and is not the oracle), the kept map
+integer-exact (the kernel's pack: ``test_torch_ws_pack.py``), CenterPoint-Large end to end against the
 JAX session, and the session's contracts on a hybrid network: batch of 2
 bitwise equal to single runs, and overflow escalation.
 """
@@ -30,8 +30,6 @@ from repro_torch.core.kernel_map import l1_norm_max, l1_partition
 from repro_torch.core.packing import BitLayout
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.kernels import ops
-from repro_torch.kernels.ws_scatter_gemm import (ws_compaction,
-                                                 ws_scatter_gemm_torch)
 from repro_torch.models import pointcloud as tpc
 from repro_torch.serve import compile_network
 
@@ -116,33 +114,6 @@ def test_weight_stationary_bf16_matches_xla():
     _close(N(got.float()), ref, 2e-2)
 
 
-@pytest.mark.parametrize("cap", ["lossless", "lossy", "zero"])
-def test_compaction_tables(cap):
-    """The pair tables the CUDA kernel reads, against a per-column loop in
-    numpy: pairs ordered by (offset, row), the first ``capacity`` valid
-    rows of each column kept."""
-    _, m, *_ = _case(5, "down", cin=1, cout=1)
-    c = 0 if cap == "zero" else _capacity(m, cap)
-    t = ws_compaction(T(m), c)
-    pin, pidx, cnt = [], np.full(m.shape, -1, np.int32), []
-    for k in range(m.shape[1]):
-        rows = np.nonzero(m[:, k] >= 0)[0][:c]
-        pidx[rows, k] = len(pin) + np.arange(len(rows))
-        pin += list(m[rows, k])
-        cnt.append(len(rows))
-    np.testing.assert_array_equal(N(t.pin), np.asarray(pin, np.int32))
-    np.testing.assert_array_equal(N(t.pidx), pidx)
-    np.testing.assert_array_equal(N(t.cnt), cnt)
-    np.testing.assert_array_equal(N(t.choff),
-                                  np.cumsum([0] + cnt[:-1]).astype(np.int32))
-    for x in t:
-        assert x.dtype == torch.int32
-    if cap == "zero":
-        out = ws_scatter_gemm_torch(torch.ones(m.shape[0], 2), T(m),
-                                    torch.ones(m.shape[1], 2, 3), capacity=0)
-        assert not out.any()
-
-
 def test_ws_with_an_empty_column():
     f, m, w, *_ = _case(3, "sub", cin=4, cout=6)
     m = m.copy()
@@ -183,10 +154,10 @@ def test_ws_overflow_diagnostic():
 
 def test_ws_tile_arguments():
     f, m, w, *_ = _case(3, "sub", cin=4, cout=8)
-    a = ops.spconv_ws_fused(T(f), T(m), T(w), capacity=100, bm=64, bn=16)
+    a = ops.spconv_ws_fused(T(f), T(m), T(w), capacity=100, bm=128, bn=16)
     b = ops.spconv_ws_fused(T(f), T(m), T(w), capacity=100)
     assert torch.equal(a, b)
-    for kw in (dict(bm=128), dict(bn=48)):
+    for kw in (dict(bm=64), dict(bn=48)):
         with pytest.raises(ValueError, match="compiled"):
             ops.spconv_ws_fused(T(f), T(m), T(w), capacity=100, **kw)
 
