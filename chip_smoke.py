@@ -20,7 +20,12 @@ MinkUNet-42 (OS dataflow):
 3. kernels vs plain versions on the card, at the shapes of the main path:
    every launch of one batch-of-2 forward is recorded and re-run through
    the kernel and its plain PyTorch version — superwindow maps and
-   overflow counters equal, segment sums bitwise, OS within
+   overflow counters equal (each search timed on the card with the
+   host's enqueue hidden, as the search kernels take less time than their
+   wrappers' host code, and through the wrapper, each with its GB/s over
+   the bound's bytes: the words at their size, the output rows and
+   anchors read once, the int32 map and counters written once; the
+   level-0 and level-4 launches alone), segment sums bitwise, OS within
    ``1e-5 * max(1, max|ref|)`` in fp32 (and ``2e-2`` relative in bf16 at
    the stem, a 256->256 layer and an up-conv), and every fp32 OS launch
    against the same gather-GEMM in float64 (the kernel's max|error|
@@ -64,6 +69,17 @@ CenterPoint-Large (hybrid dataflow, t = 3, K = 5), same scenes:
    lossless session's bitwise;
 4d. the per-group window engine: its plan's maps equal the superwindow
    engine's for all 20 layers; repaired cells per layer;
+4e. int64 packed words: MinkUNet-42 at full width on two outdoor scenes of
+   extent (2048, 2048, 64) (312,341 and 310,451 voxels, a 12/12/7 + 1
+   batch-bit layout: 32 bits, so int64 words; buckets 524,288 and
+   1,048,576): every superwindow launch of one batch-of-2 forward equal to
+   its plain version, the main path as in 4 (scene 0 alone, then the
+   batch of 2, each twice: finite logits, batched scene 0 bitwise equal
+   to the single run, 42 launches of each kernel per call), and one
+   ``zdelta_cuda_window`` plan of the same coordinates, every launch equal
+   to its plain version and every map to the superwindow engine's; ms
+   per call, the searches' device ms against their bound, repaired cells
+   per layer;
 5b. the plain path (engine "zdelta", backends "torch"): maps equal, logits
    within ``1e-3 * max|logits|``, no kernel launched.
 
@@ -190,6 +206,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn``: one warm-up, then ``reps`` calls
+    enqueued behind a ~2 ms spin of the card, so the host's launch cost is
+    hidden and the two CUDA events see the calls' device time alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def short_kernel_name(name: str) -> str:
     """A device kernel's name without its argument list."""
     name = name.replace("(anonymous namespace)::", "")
@@ -269,49 +303,57 @@ class Recorder:
         return False
 
 
-def check_superwindow(calls) -> dict:
-    """Superwindow launches: kernel maps and counters equal to the plain
-    version; per-forward kernel, plain and bound times."""
+def search_bytes(a, m, ovf) -> int:
+    """Bytes of a search launch's bound: the words (at their size), the
+    output rows and the anchors read once, the per-group search's int32
+    window starts read once, the int32 map and counters written once."""
     import torch
-    from repro_torch.kernels.zdelta_window import (zdelta_superwindow_cuda,
-                                                   zdelta_superwindow_torch)
-    t_k = t_p = b_tot = 0.0
-    for i, (a, kw) in enumerate(calls):
-        mk, ok = zdelta_superwindow_cuda(*a, **kw)
-        mp, op = zdelta_superwindow_torch(*a, **kw)
-        if not (torch.equal(mk, mp) and torch.equal(ok, op)):
-            raise RuntimeError(f"superwindow launch {i}: map or counters "
-                               "differ from the plain version")
-        t_k += cuda_ms(lambda: zdelta_superwindow_cuda(*a, **kw), 3)
-        t_p += cuda_ms(lambda: zdelta_superwindow_torch(*a, **kw), 2)
-        arr, out2d, anchors, starts = a[:4]
-        nb = 4 * (arr.numel() + out2d.numel() + anchors.numel()
-                  + starts.numel() + mk.numel() + ok.numel())
-        b_tot += bound_ms(nb, 0)[0]
-    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
-                bound_by="bytes", library_ms=None)
+    arr, out2d, anchors = a[:3]
+    nb = (arr.element_size() * (arr.numel() + out2d.numel() + anchors.numel())
+          + 4 * (m.numel() + ovf.numel()))
+    if torch.is_tensor(a[3]):               # zdelta_window_cuda's starts
+        nb += 4 * a[3].numel()
+    return nb
 
 
-def check_window(calls) -> dict:
-    """Per-group window launches: maps and counters equal."""
+def check_search(calls, kind: str) -> dict:
+    """Search launches (``kind`` "superwindow" or "window"): the kernel's
+    map and counters equal (``torch.equal``) to its plain version's. Per
+    forward: ``ms``, the launches' device time (``queued_ms``: the host's
+    enqueue hidden; a search kernel takes less time on the card than its
+    wrapper's host code takes to launch it), ``wrapper_ms``, the same
+    launches timed back to back through the wrapper as the other kernels
+    are (host-bound here), plain and bound ms, and the bound's bytes."""
     import torch
-    from repro_torch.kernels.zdelta_window import (zdelta_window_cuda,
-                                                   zdelta_window_torch)
-    t_k = t_p = b_tot = 0.0
+    from repro_torch.kernels import zdelta_window as zw
+    kernel = getattr(zw, f"zdelta_{kind}_cuda")
+    plain = getattr(zw, f"zdelta_{kind}_torch")
+    t_k = t_q = t_p = b_tot = nbytes = 0.0
     for i, (a, kw) in enumerate(calls):
-        mk, ok = zdelta_window_cuda(*a, **kw)
-        mp, op = zdelta_window_torch(*a, **kw)
+        mk, ok = kernel(*a, **kw)
+        mp, op = plain(*a, **kw)
         if not (torch.equal(mk, mp) and torch.equal(ok, op)):
-            raise RuntimeError(f"window launch {i}: map or counters differ "
+            raise RuntimeError(f"{kind} launch {i}: map or counters differ "
                                "from the plain version")
-        t_k += cuda_ms(lambda: zdelta_window_cuda(*a, **kw), 3)
-        t_p += cuda_ms(lambda: zdelta_window_torch(*a, **kw), 2)
-        arr, out2d, anchors, starts = a[:4]
-        nb = 4 * (arr.numel() + out2d.numel() + anchors.numel()
-                  + starts.numel() + mk.numel() + ok.numel())
+        t_k += cuda_ms(lambda: kernel(*a, **kw), 3)
+        t_q += queued_ms(lambda: kernel(*a, **kw), 5)
+        t_p += cuda_ms(lambda: plain(*a, **kw), 2)
+        nb = search_bytes(a, mk, ok)
+        nbytes += nb
         b_tot += bound_ms(nb, 0)[0]
-    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
-                bound_by="bytes", library_ms=None)
+    return dict(max_abs_err=0.0, ms=t_q, wrapper_ms=t_k, plain_ms=t_p,
+                bound_ms=b_tot, bound_by="bytes", library_ms=None,
+                gbytes=nbytes / 1e9)
+
+
+def search_rates(r: dict) -> str:
+    """GB/s over the bound's bytes at the device time and through the
+    wrapper, and the share of the bound's rate (the aim: half or more)."""
+    return (f"device {r['gbytes'] / r['ms'] * 1e3:.0f} GB/s over the "
+            f"bound's {r['gbytes']:.3f} GB ({r['bound_ms'] / r['ms']:.1%} of "
+            f"the bound's rate; half is {2 * r['bound_ms']:.3f} ms); through "
+            f"the wrapper {r['wrapper_ms']:.3f} ms, "
+            f"{r['gbytes'] / r['wrapper_ms'] * 1e3:.0f} GB/s")
 
 
 def os_f64(F, m, W):
@@ -905,8 +947,8 @@ def train_drive(trainer, st, lab, steps: int, expected: dict,
 
 def per_forward(r: dict) -> dict:
     """The per-forward times of a check's result."""
-    return {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")
-            if k in r}
+    return {k: r[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                              "library_ms") if k in r}
 
 
 def drive(session, inputs, expected: dict, label: str, kind: str,
@@ -1028,6 +1070,105 @@ def plain_path(session, net_plain, st, out_kernel, label: str) -> float:
         f"max|diff| {d:.3e} vs 1e-3 * max|logits| = {1e-3 * scale:.3e} "
         f"({d / scale:.2e} relative); no kernel launched")
     return d / scale
+
+def int64_phase(paths: dict, kind: str, card: str) -> None:
+    """Phase 4e: MinkUNet-42 at full width on int64 packed words (a
+    +-51.2 m range at 5 cm voxels: a 12/12/7 + 1 batch-bit layout is 32
+    bits). Every superwindow launch of one batch-of-2 forward equal to its
+    plain version; the main path (scene 0 alone, then the batch of 2, each
+    twice) with batched scene 0 bitwise equal to the single run; one
+    ``zdelta_cuda_window`` plan of the same coordinates, every launch equal
+    to its plain version and every map equal to the superwindow engine's."""
+    import torch
+    from repro_torch.core.sparse_tensor import SparseTensor
+    from repro_torch.data import scenes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import pointcloud as pc
+    from repro_torch.serve import bucket_capacity, compile_network
+    t0 = time.perf_counter()
+    batch = scenes.scene_batch(seed=0, batch=2, kind="outdoor",
+                               extent=(2048, 2048, 64), overlap=0.5)
+    rng = np.random.default_rng(1)
+    clouds = [(sc.coords, rng.normal(size=(len(sc.coords), 4))
+               .astype(np.float32)) for sc in batch]
+    sizes = [len(c) for c, _ in clouds]
+    net = pc.minkunet42(in_channels=4, n_classes=20)
+    session = compile_network(net, batch[0].layout, batch=2, seed=0)
+    st1 = SparseTensor.from_point_clouds(clouds[:1], session.layout)
+    st2 = SparseTensor.from_point_clouds(clouds, session.layout)
+    if not (session.layout.dtype == st1.packed.dtype == st2.packed.dtype
+            == torch.int64):
+        raise RuntimeError(f"4e: layout {session.layout} packs "
+                           f"{st2.packed.dtype} words, expected int64")
+    log(f"[4e int64 inputs] 2 outdoor scenes of extent (2048, 2048, 64) "
+        f"{sizes} voxels, layout {session.layout} "
+        f"({session.layout.bits_total} bits: {st2.packed.dtype} words), "
+        f"buckets {bucket_capacity(sizes[0])}/{bucket_capacity(sum(sizes))}, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+
+    with Recorder(names=("zdelta_superwindow_search",)) as rec:
+        session(st2)
+    torch.cuda.synchronize()
+    z = rec.calls["zdelta_superwindow_search"]
+    if len(z) != len(net.specs) or any(a[0].dtype != torch.int64
+                                       for a, _ in z):
+        raise RuntimeError(f"4e: {len(z)} superwindow launches, expected "
+                           f"{len(net.specs)} on int64 words")
+    r = check_search(z, "superwindow")
+    log(f"[4e int64 superwindow] {len(z)} launches of one batch-of-2 "
+        f"forward (M={z[0][0][1].numel()}, int64 words): maps+counters "
+        f"equal to the plain version; per forward device {r['ms']:.3f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms; "
+        f"{search_rates(r)} | {card}")
+    paths["zdelta_superwindow_search"]["minkunet42 int64 (4e)"] = dict(
+        launches=len(z), **per_forward(r))
+    del rec, z
+    torch.cuda.empty_cache()
+
+    expected = {k: 0 for k in launch_counts()}
+    expected.update({"zdelta_superwindow_search": 42,
+                     "spconv_gather_gemm": 42, "segment_sum": 42})
+    outb, hb, times, counts = drive(session, (("scene0", st1),
+                                              ("batch2", st2)),
+                                    expected, "4e int64", kind, card)
+    paths["zdelta_superwindow_search"]["minkunet42 int64 (4e)"][
+        "main_path_launches"] = counts["zdelta_superwindow_search"]
+    del outb
+    torch.cuda.empty_cache()
+
+    win = compile_network(net, session.layout, batch=2,
+                          params=session.params, engine="zdelta_cuda_window")
+    reset_launch_counts()
+    plan_w = win.plan(st2)
+    torch.cuda.synchronize()
+    wcount = launch_counts()["zdelta_window_search"]
+    if wcount != len(net.specs):
+        raise RuntimeError(f"4e: {wcount} window launches, expected "
+                           f"{len(net.specs)}")
+    plan_s = session.plan(st2)
+    for s in net.specs:
+        if not torch.equal(plan_w.kmaps[s.name].m, plan_s.kmaps[s.name].m):
+            raise RuntimeError(f"4e: window-engine map of {s.name} differs "
+                               "from the superwindow engine's")
+    log(f"[4e int64 window engine] {len(net.specs)} kernel maps equal to "
+        f"the superwindow engine's; window launches {wcount}; repaired "
+        "cells per layer: " + " ".join(f"{k}={int(v)}"
+                                       for k, v in plan_w.stats.items()))
+    del plan_w, plan_s
+    torch.cuda.empty_cache()
+    with Recorder(names=("zdelta_window_search",)) as rec:
+        win.plan(st2)
+    v_calls = rec.calls["zdelta_window_search"]
+    r = check_search(v_calls, "window")
+    log(f"[4e int64 window] {len(v_calls)} launches: maps+counters equal "
+        f"to the plain version; per plan device {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms; "
+        f"{search_rates(r)} | {card}")
+    paths["zdelta_window_search"]["minkunet42 int64 plan (4e)"] = dict(
+        launches=wcount, **per_forward(r))
+    del rec, v_calls, session, win, st1, st2
+    torch.cuda.empty_cache()
+
 
 def attention_bound(q, k, causal: bool) -> tuple:
     """(bound ms, operations, basis) of one attention call: q, k, v read
@@ -1394,8 +1535,6 @@ def main() -> int:
     from repro_torch.kernels.masked_group_gemm import masked_group_gemm
     from repro_torch.kernels.ws_scatter_gemm import (
         ws_pack_cuda, ws_scatter_gemm, ws_scatter_gemm_torch)
-    from repro_torch.kernels.zdelta_window import (zdelta_superwindow_cuda,
-                                                   zdelta_superwindow_torch)
     from repro_torch.models import pointcloud as pc
     from repro_torch.serve import bucket_capacity, compile_network
     if "jax" in sys.modules or "repro" in sys.modules:
@@ -1451,14 +1590,17 @@ def main() -> int:
     z = rec.calls["zdelta_superwindow_search"]
     fine, coarse = z[0], z[[s.m_out for s in net.specs].index(4)]
     for label, (a, kw) in (("fine L0", fine), ("coarse L4", coarse)):
-        log(f"[3 superwindow {label}] M={a[1].numel()} N={a[0].numel()} "
-            f"G={a[2].numel()} SW={kw['SW']}: maps+counters equal, kernel "
-            f"{cuda_ms(lambda: zdelta_superwindow_cuda(*a, **kw), 10):.4f} ms, "
-            f"plain {cuda_ms(lambda: zdelta_superwindow_torch(*a, **kw), 3):.4f} ms")
-    r = results["zdelta_superwindow_search"] = check_superwindow(z)
-    log(f"[3 superwindow] {len(z)} launches equal; per forward kernel "
+        r = check_search([(a, kw)], "superwindow")
+        real = int((a[1] != torch.iinfo(a[1].dtype).max).sum())
+        log(f"[3 superwindow {label}] M={a[1].numel()} ({real} real rows) "
+            f"N={a[0].numel()} G={a[2].numel()} SW={kw['SW']} "
+            f"{a[0].dtype}: maps+counters equal, device {r['ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+            f"{search_rates(r)} | {card}")
+    r = results["zdelta_superwindow_search"] = check_search(z, "superwindow")
+    log(f"[3 superwindow] {len(z)} launches equal; per forward device "
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.4f} ms")
+        f"{r['bound_ms']:.4f} ms; {search_rates(r)} | {card}")
 
     # OS implicit GEMM: fp32 within 1e-5 * max(1, max|ref|)
     o = rec.calls["spconv_gather_gemm"]
@@ -1615,7 +1757,8 @@ def main() -> int:
         log(f"[3 cp ws {name} bf16] max|diff| {d:.3e} (tol {tol:.1e}), "
             f"kernel {ms:.4f} ms")
     # the slice-1 kernels at CenterPoint's shapes
-    for kname, fn in (("zdelta_superwindow_search", check_superwindow),
+    for kname, fn in (("zdelta_superwindow_search",
+                       lambda c: check_search(c, "superwindow")),
                       ("spconv_gather_gemm",
                        lambda c: check_os(c, label="3 cp os")),
                       ("segment_sum", check_segsum)):
@@ -1628,6 +1771,8 @@ def main() -> int:
             log_segsum_passes("3 cp segment_sum", r, card)
             lib = (f", torch.segment_reduce {r['library_ms']:.3f} ms (max "
                    f"rel diff to fp64 {r['lib_rel']:.2e})")
+        if kname == "zdelta_superwindow_search":
+            lib = f"; {search_rates(r)}"
         paths[kname]["centerpoint_large"] = per_forward(r)
         log(f"[3 cp {kname}] {len(c)} launches equal to the plain version "
             f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
@@ -1707,21 +1852,27 @@ def main() -> int:
     with Recorder() as rec:             # the same plan, for the comparison
         win.plan(st2)
     v_calls = rec.calls["zdelta_window_search"]
-    r = results["zdelta_window_search"] = check_window(v_calls)
+    r = results["zdelta_window_search"] = check_search(v_calls, "window")
     paths["zdelta_window_search"] = {"centerpoint_large plan (4d)": dict(
         launches=wcount, **per_forward(r))}
     r["launches"] = wcount
     log(f"[3 cp window] {len(v_calls)} launches: maps+counters equal; per "
-        f"plan kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-        f"{r['bound_ms']:.4f} ms (superwindow at the same shapes: "
+        f"plan device {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms; {search_rates(r)} (superwindow at the "
+        "same shapes: "
         f"{paths['zdelta_superwindow_search']['centerpoint_large']['ms']:.3f}"
-        " ms)")
+        f" ms) | {card}")
     del rec, v_calls
     torch.cuda.empty_cache()
 
     # -- 5b. plain path -------------------------------------------------------
     plain_path(cps, pc.centerpoint_large(backend="torch"), st2, outb,
                "5b plain path")
+    del cps, outb, hb, st1, st2
+    torch.cuda.empty_cache()
+
+    # -- 4e. int64 packed words -----------------------------------------------
+    int64_phase(paths, kind, card)
 
     # == MinkUNet-42 training ================================================
     from repro_torch.core.zdelta import reset_search_calls, search_call_count

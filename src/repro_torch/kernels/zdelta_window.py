@@ -1,35 +1,35 @@
 """Windowed z-delta kernel-map searches: CUDA kernels + plain versions.
 
-Two searches, as in ``repro/kernels/zdelta_window.py``:
+Two searches, as in ``repro/kernels/zdelta_window.py``. Both CUDA kernels
+take int32 or int64 packed words (PAD is the type's maximum) and write the
+map ``[M, G·K]`` and counters ``[M/128, G]`` as int32; the wrappers pick
+the kernel by the words' dtype.
 
 ``zdelta_superwindow_search`` (the plan's default engine) replaces the TPU
 kernel ``zdelta_superwindow_search`` (``_super_kernel``) with
-``csrc/zdelta_superwindow.cu``. Phase A (torch, as it is XLA in the
-reference): one ``searchsorted`` per 128-row output tile for the tile's
-smallest query (first row + first anchor; anchors ascend) gives the window
-base, clamped to ``[0, N − SW]``. Phase B (the kernel): one block per tile
-stages ``arr[base : base + SW]`` in shared memory once for all G anchor
-groups, then resolves every (row, group) pair with a branchless binary
+``csrc/zdelta_superwindow.cu``, phase A included. Per 128-row output tile:
+the window base is the lower bound of the tile's smallest query (first row
++ first anchor; anchors ascend) over the whole input array, clamped to
+``[0, N − SW]``; ``arr[base : base + SW]`` is staged once for all G anchor
+groups, and every (row, group) pair is resolved by a branchless binary
 search (pos = window words < q) and a K-step two-pointer probe. It writes
-the map ``[M, G·K]`` (PAD output rows −1) and per-(tile, group) overflow
-counters: queries of real rows above the window's last word, 0 when the
-window reaches the array's end.
+the map (PAD output rows −1) and per-(tile, group) overflow counters:
+queries of real rows above the window's last word, 0 when the window
+reaches the array's end.
 
 ``zdelta_window_search`` (engine ``"zdelta_cuda_window"``, the per-group
 baseline) replaces the TPU kernel ``zdelta_window_search`` (``_kernel``)
-with ``csrc/zdelta_window.cu``. Phase A: one ``searchsorted`` per (tile,
-group) for the tile's first query of that group. Phase B: one block per
-(tile, group) stages its own W-word window; each (row, member) query's
-match is the first window position equal to it. Counters as above, per
-(tile, group).
+with ``csrc/zdelta_window.cu``. Phase A (torch): one ``searchsorted`` per
+(tile, group) for the tile's first query of that group. The kernel: each
+(row, member) query's match is the first position equal to it in the
+cell's W-word window. Counters as above, per (tile, group).
 
 The plan repairs overflowed cells with the exact ``core.zdelta`` search.
-On the H100 both kernels are bound by bytes; their design notes are in
-the sources. The CUDA kernels take int32 packed words; an int64 CUDA
-tensor raises (ROADMAP Queue 2). The plain versions
-(:func:`zdelta_superwindow_torch`, :func:`zdelta_window_torch`) are
-vectorised over tiles, take both dtypes, and reproduce the kernels' maps
-and counters exactly.
+On the H100 both kernels are bound by bytes (the map); their design notes
+are in the sources. The plain versions (:func:`zdelta_superwindow_torch`,
+:func:`zdelta_window_torch`) are vectorised over tiles, take the same
+arguments as the kernels' wrappers, and reproduce their maps and counters
+exactly.
 """
 from __future__ import annotations
 
@@ -43,10 +43,12 @@ from . import _build
 from .ops import resolve_backend
 from ..core.voxel import CoordSet, pad_value
 
-_SIG = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# (arr, n, outp, n_tiles, anchors, G, zstep, K, W, nbits, [starts,]
+#  m_out, ovf_out, stream)
+_SIG = {"superwindow": [_P, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P],
+        "window": [_P, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P]}
+_WORDS = {torch.int32: "i32", torch.int64: "i64"}
 _fns: dict = {}
 MAX_GROUPS = 128   # kMaxGroups in the superwindow source
 
@@ -56,32 +58,47 @@ def _nbits(W: int) -> int:
     return max(1, int(np.ceil(np.log2(W))))
 
 
-def _int32_only(arr: torch.Tensor, what: str) -> None:
-    if arr.dtype != torch.int32:
-        raise NotImplementedError(
-            f"the CUDA {what} kernel takes int32 packed words; {arr.dtype} "
-            "layouts (> 31 bits) run only the plain version (ROADMAP Queue 2)")
+def _launcher(kind: str, arr: torch.Tensor, out2d: torch.Tensor):
+    """The C entry point of ``kind``'s kernel for the words' dtype, after
+    the checks every launch needs."""
+    if arr.device.type != "cuda":
+        raise ValueError(f"the {kind} wrapper launches a CUDA kernel; got a "
+                         f"tensor on {arr.device}")
+    word = _WORDS.get(arr.dtype)
+    if word is None or out2d.dtype != arr.dtype:
+        raise ValueError(f"the {kind} kernel takes int32 or int64 packed "
+                         f"words of one dtype; got {arr.dtype} inputs and "
+                         f"{out2d.dtype} outputs")
+    if out2d.shape[1] != 128:
+        raise ValueError(f"the CUDA {kind} kernel is compiled for 128-row "
+                         f"tiles, got {out2d.shape[1]}")
+    fn = _fns.get((kind, word))
+    if fn is None:
+        fn = _fns[(kind, word)] = _build.function(
+            f"spira_zdelta_{kind}_{word}", _SIG[kind])
+    return fn
 
 
 def _window_bases(arr: torch.Tensor, out2d: torch.Tensor,
                   anchors: torch.Tensor) -> torch.Tensor:
-    """Phase A: insertion point of each tile's smallest query, int32."""
-    return torch.searchsorted(arr, out2d[:, 0] + anchors[0], side="left",
-                              out_int32=True)
+    """Phase A of the superwindow search: insertion point of each tile's
+    smallest query."""
+    return torch.searchsorted(arr, out2d[:, 0] + anchors[0], side="left")
 
 
 def zdelta_superwindow_torch(arr: torch.Tensor, out2d: torch.Tensor,
-                             anchors: torch.Tensor, starts: torch.Tensor,
-                             zstep: int, *, K: int, SW: int, nbits: int
+                             anchors: torch.Tensor, zstep: int, *, K: int,
+                             SW: int, nbits: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of phase B over all tiles at once: returns
-    (map [n_tiles·bm, G·K] int32, overflow [n_tiles, G] int32)."""
+    """Plain version of the superwindow search (phases A and B) over all
+    tiles at once: returns (map [n_tiles·bm, G·K] int32, overflow
+    [n_tiles, G] int32)."""
     n = arr.shape[0]
     n_tiles, bm = out2d.shape
     G = anchors.shape[0]
     pad = pad_value(arr.dtype)
     dev = arr.device
-    base = starts.to(torch.int64).clamp(0, n - SW)                  # [T]
+    base = _window_bases(arr, out2d, anchors).clamp(0, n - SW)     # [T]
     win = arr[base[:, None] + torch.arange(SW, device=dev)]          # [T, SW]
     real = (out2d != pad)[:, :, None]                                # [T, bm, 1]
     q = out2d[:, :, None] + anchors[None, None, :]                   # [T, bm, G]
@@ -109,36 +126,26 @@ def zdelta_superwindow_torch(arr: torch.Tensor, out2d: torch.Tensor,
 
 
 def zdelta_superwindow_cuda(arr: torch.Tensor, out2d: torch.Tensor,
-                            anchors: torch.Tensor, starts: torch.Tensor,
-                            zstep: int, *, K: int, SW: int, nbits: int
+                            anchors: torch.Tensor, zstep: int, *, K: int,
+                            SW: int, nbits: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel (phase B) on CUDA int32 tensors; same
-    contract as :func:`zdelta_superwindow_torch`."""
-    if arr.device.type != "cuda":
-        raise ValueError("zdelta_superwindow_cuda launches a CUDA kernel; "
-                         f"got a tensor on {arr.device}")
-    _int32_only(arr, "superwindow")
+    """Launch the CUDA superwindow kernel (phases A and B) on CUDA int32 or
+    int64 words; same contract as :func:`zdelta_superwindow_torch`."""
+    fn = _launcher("superwindow", arr, out2d)
     n_tiles, bm = out2d.shape
     G = anchors.shape[0]
-    if bm != 128:
-        raise ValueError(f"the CUDA superwindow kernel is compiled for "
-                         f"128-row tiles, got {bm}")
     if G > MAX_GROUPS:
         raise ValueError(f"{G} anchor groups > {MAX_GROUPS}")
     m = torch.empty((n_tiles * bm, G * K), dtype=torch.int32,
                     device=arr.device)
     ovf = torch.empty((n_tiles, G), dtype=torch.int32, device=arr.device)
-    fn = _fns.get("fn")
-    if fn is None:
-        fn = _fns["fn"] = _build.function("spira_zdelta_superwindow_i32", _SIG)
     arr = arr.contiguous()
     out2d = out2d.contiguous()
-    anchors = anchors.to(torch.int32).contiguous()
-    starts = starts.to(torch.int32).contiguous()
+    anchors = anchors.to(arr.dtype).contiguous()
     stream = torch.cuda.current_stream(arr.device).cuda_stream
     err = fn(arr.data_ptr(), arr.shape[0], out2d.data_ptr(), n_tiles,
              anchors.data_ptr(), G, int(zstep), K, SW, nbits,
-             starts.data_ptr(), m.data_ptr(), ovf.data_ptr(), stream)
+             m.data_ptr(), ovf.data_ptr(), stream)
     zdelta_superwindow_cuda.launches += 1
     _build.check(err, "zdelta_superwindow")
     return m, ovf
@@ -168,12 +175,11 @@ def zdelta_superwindow_search(inputs: CoordSet, outputs: CoordSet,
     nbits = _nbits(W)
     out2d = outputs.packed.reshape(mcap // bm, bm)
     anchors = packed_anchors.to(device=arr.device, dtype=arr.dtype)
-    starts = _window_bases(arr, out2d, anchors)
     if resolve_backend(backend, arr):
-        return zdelta_superwindow_cuda(arr, out2d, anchors, starts, zstep,
-                                       K=K, SW=W, nbits=nbits)
-    return zdelta_superwindow_torch(arr, out2d, anchors, starts, zstep,
-                                    K=K, SW=W, nbits=nbits)
+        return zdelta_superwindow_cuda(arr, out2d, anchors, zstep, K=K,
+                                       SW=W, nbits=nbits)
+    return zdelta_superwindow_torch(arr, out2d, anchors, zstep, K=K, SW=W,
+                                    nbits=nbits)
 
 
 # ---------------------------------------------------------------------------
@@ -215,26 +221,17 @@ def zdelta_window_cuda(arr: torch.Tensor, out2d: torch.Tensor,
                        anchors: torch.Tensor, starts: torch.Tensor,
                        zstep: int, *, K: int, W: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA per-group window kernel on CUDA int32 tensors; same
-    contract as :func:`zdelta_window_torch`."""
-    if arr.device.type != "cuda":
-        raise ValueError("zdelta_window_cuda launches a CUDA kernel; got a "
-                         f"tensor on {arr.device}")
-    _int32_only(arr, "window")
+    """Launch the CUDA per-group window kernel on CUDA int32 or int64
+    words; same contract as :func:`zdelta_window_torch`."""
+    fn = _launcher("window", arr, out2d)
     n_tiles, bm = out2d.shape
     G = anchors.shape[0]
-    if bm != 128:
-        raise ValueError(f"the CUDA window kernel is compiled for 128-row "
-                         f"tiles, got {bm}")
     m = torch.empty((n_tiles * bm, G * K), dtype=torch.int32,
                     device=arr.device)
     ovf = torch.empty((n_tiles, G), dtype=torch.int32, device=arr.device)
-    fn = _fns.get("window")
-    if fn is None:
-        fn = _fns["window"] = _build.function("spira_zdelta_window_i32", _SIG)
     arr = arr.contiguous()
     out2d = out2d.contiguous()
-    anchors = anchors.to(torch.int32).contiguous()
+    anchors = anchors.to(arr.dtype).contiguous()
     starts = starts.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(arr.device).cuda_stream
     err = fn(arr.data_ptr(), arr.shape[0], out2d.data_ptr(), n_tiles,

@@ -76,14 +76,96 @@ def test_superwindow_kernel_equals_plain(dev, K, m_in, m_out, W):
                                                     anchors, zstep, K=K))
 
 
-def test_superwindow_kernel_rejects_int64(dev):
-    tl = packing.BitLayout(bx=20, by=20, bz=12)
-    p = torch.arange(1024, dtype=torch.int64, device=dev) * 7
-    cs = voxel.build_coord_set(p)
-    _, anchors, zstep = zdelta.zdelta_offsets(3, 1, tl, device=dev)
-    with pytest.raises(NotImplementedError):
-        zdelta_superwindow_search(cs, cs, anchors, zstep, K=3, W=512,
-                                  backend="cuda")
+# (K, half-search): G = 5 (the K = 3 half-search), 9 (K = 3), 25 (K = 5)
+SEARCHES = {"G5": (3, True), "G9": (3, False), "G25": (5, False)}
+
+
+def _words(dev, dtype, seed=2, extent=(96, 80, 32)):
+    """Coordinate sets of levels 0-2 of an outdoor sweep in int32 words (its
+    own layout) or int64 words (a 52-bit layout of the same coordinates),
+    with two all-PAD output tiles past the last real row."""
+    sc = scenes.outdoor_scene(seed, extent=extent)
+    layout = sc.layout if dtype == torch.int32 else packing.BitLayout(
+        bx=20, by=20, bz=12, guard=sc.layout.guard)
+    p = packing.pack(torch.from_numpy(sc.coords).to(dev), layout)
+    assert p.dtype == dtype
+    words = torch.full((-(-p.shape[0] // 128) * 128 + 256,),
+                       voxel.pad_value(dtype), dtype=dtype, device=dev)
+    words[: p.shape[0]] = p
+    lv = (0, 1, 2)
+    return layout, dict(zip(lv, voxel.downsample_all(
+        voxel.build_coord_set(words), layout, lv)))
+
+
+def _anchors(layout, search, m_in, m_out, dev):
+    K, half = SEARCHES[search]
+    _, anchors, zstep = zdelta.zdelta_offsets(K, 1 << min(m_in, m_out),
+                                              layout, device=dev)
+    if half:
+        anchors = anchors[: zdelta.symmetry_anchor_count(K)]
+    return K, anchors, zstep
+
+
+def _assert_search_equal(search_fn, inputs, outputs, anchors, zstep, K, W):
+    mk, ok = search_fn(inputs, outputs, anchors, zstep, K=K, W=W,
+                       backend="cuda")
+    mp, op = search_fn(inputs, outputs, anchors, zstep, K=K, W=W,
+                       backend="torch")
+    torch.cuda.synchronize()
+    assert mk.dtype == ok.dtype == torch.int32
+    assert torch.equal(mk, mp)
+    assert torch.equal(ok, op)
+    pad = outputs.packed == voxel.pad_value(outputs.packed.dtype)
+    assert bool((mk[pad] == -1).all())
+    return mk, ok
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("search", list(SEARCHES))
+@pytest.mark.parametrize("m_in,m_out", [(0, 0), (0, 1), (2, 1)])
+@pytest.mark.parametrize("W", [256, 2048, "N"])
+def test_superwindow_kernel_sweep(dev, dtype, search, m_in, m_out, W):
+    """Both word types, G = 5/9/25, windows of 256 and 2048 words (clamped
+    at the array's end on the coarse levels) and the whole array (base 0):
+    maps and counters equal to the plain version, PAD rows -1; the level
+    sets hold all-PAD tiles and one partly PAD tile each."""
+    layout, cs = _words(dev, dtype)
+    K, anchors, zstep = _anchors(layout, search, m_in, m_out, dev)
+    n = cs[m_in].capacity
+    W = n if W == "N" else min(W, n)
+    _, ok = _assert_search_equal(zdelta_superwindow_search, cs[m_in],
+                                 cs[m_out], anchors, zstep, K, W)
+    if W == n:
+        assert int(ok.sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("search", ["G9", "G25"])
+def test_superwindow_kernel_all_pad_outputs(dev, dtype, search):
+    """Outputs that are all PAD: the kernel stages nothing, the map is -1
+    everywhere and the counters 0, as in the plain version."""
+    layout, cs = _words(dev, dtype)
+    K, anchors, zstep = _anchors(layout, search, 0, 0, dev)
+    empty = voxel.CoordSet(packed=torch.full_like(cs[1].packed,
+                                                  voxel.pad_value(dtype)),
+                           count=torch.zeros_like(cs[1].count))
+    mk, ok = _assert_search_equal(zdelta_superwindow_search, cs[0], empty,
+                                  anchors, zstep, K, 2048)
+    assert bool((mk == -1).all()) and int(ok.abs().sum()) == 0
+
+
+def test_superwindow_kernel_int64_equals_int32(dev):
+    """The same coordinates in int32 and in int64 words: packed order is
+    the same, so the int64 kernel's maps and counters equal the int32
+    kernel's."""
+    out = []
+    for dtype in (torch.int32, torch.int64):
+        layout, cs = _words(dev, dtype)
+        K, anchors, zstep = _anchors(layout, "G25", 0, 1, dev)
+        out.append(zdelta_superwindow_search(cs[0], cs[1], anchors, zstep,
+                                             K=K, W=2048, backend="cuda"))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
 
 
 def _os_map(dev, Kd):
@@ -231,14 +313,65 @@ def test_window_kernel_equals_plain(dev, K, m_in, m_out, W):
                                                     anchors, zstep, K=K))
 
 
-def test_window_kernel_rejects_int64(dev):
-    tl = packing.BitLayout(bx=20, by=20, bz=12)
-    p = torch.arange(1024, dtype=torch.int64, device=dev) * 7
-    cs = voxel.build_coord_set(p)
-    _, anchors, zstep = zdelta.zdelta_offsets(3, 1, tl, device=dev)
-    with pytest.raises(NotImplementedError):
-        zdelta_window_search(cs, cs, anchors, zstep, K=3, W=512,
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("search", list(SEARCHES))
+@pytest.mark.parametrize("m_in,m_out", [(0, 0), (0, 1), (2, 1)])
+@pytest.mark.parametrize("W", [256, 512, 2048, "N"])
+def test_window_kernel_sweep(dev, dtype, search, m_in, m_out, W):
+    """The per-group window kernel over both word types, G = 5/9/25 and
+    windows of 256, 512 (the plan's, an unrolled search), 2048 and all
+    words (one window per staged span where windows are wide): maps and
+    counters equal to the plain version, PAD rows -1."""
+    layout, cs = _words(dev, dtype)
+    K, anchors, zstep = _anchors(layout, search, m_in, m_out, dev)
+    n = cs[m_in].capacity
+    W = n if W == "N" else min(W, n)
+    _, ok = _assert_search_equal(zdelta_window_search, cs[m_in], cs[m_out],
+                                 anchors, zstep, K, W)
+    if W == n:
+        assert int(ok.sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_window_kernel_all_pad_outputs(dev, dtype):
+    layout, cs = _words(dev, dtype)
+    K, anchors, zstep = _anchors(layout, "G25", 0, 0, dev)
+    empty = voxel.CoordSet(packed=torch.full_like(cs[1].packed,
+                                                  voxel.pad_value(dtype)),
+                           count=torch.zeros_like(cs[1].count))
+    mk, ok = _assert_search_equal(zdelta_window_search, cs[0], empty,
+                                  anchors, zstep, K, 512)
+    assert bool((mk == -1).all()) and int(ok.abs().sum()) == 0
+
+
+def test_search_wrappers_do_not_sync(dev):
+    """Neither search wrapper (phase A included) waits on the card, for
+    int32 or int64 words: both run under the sync debug mode "error"."""
+    cases = []
+    for dtype in (torch.int32, torch.int64):
+        layout, cs = _words(dev, dtype)
+        K, anchors, zstep = _anchors(layout, "G25", 0, 1, dev)
+        cases.append((cs[0], cs[1], anchors, zstep, K))
+    for inputs, outputs, anchors, zstep, K in cases:   # builds the library
+        zdelta_superwindow_search(inputs, outputs, anchors, zstep, K=K,
+                                  W=2048, backend="cuda")
+        zdelta_window_search(inputs, outputs, anchors, zstep, K=K, W=512,
                              backend="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = []
+        for inputs, outputs, anchors, zstep, K in cases:
+            outs += [zdelta_superwindow_search(inputs, outputs, anchors,
+                                               zstep, K=K, W=2048,
+                                               backend="cuda"),
+                     zdelta_window_search(inputs, outputs, anchors, zstep,
+                                          K=K, W=512, backend="cuda")]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool((m >= -1).all()) and bool((o >= 0).all())
+               for m, o in outs)
 
 
 def _ws_case(dev, K, cols, cin, cout, dtype, seed=0):

@@ -220,8 +220,8 @@ def test_cuda_backend_on_cpu_raises_everywhere():
         ws_scatter_gemm(T(f), T(m), T(w), capacity=10)
     arr = torch.arange(256, dtype=torch.int32)
     with pytest.raises(ValueError):
-        zdelta_superwindow_cuda(arr, arr.reshape(2, 128), arr[:9], arr[:2],
-                                1, K=3, SW=128, nbits=7)
+        zdelta_superwindow_cuda(arr, arr.reshape(2, 128), arr[:9], 1, K=3,
+                                SW=128, nbits=7)
     with pytest.raises(ValueError):
         zdelta_window_cuda(arr, arr.reshape(2, 128), arr[:9],
                            arr[:18].reshape(2, 9), 1, K=3, W=128)

@@ -1,11 +1,13 @@
 """Parity of the port's kernel-map construction with the JAX package:
 the superwindow and per-group window searches' plain versions against the
-Pallas kernels in interpret mode (maps AND overflow counters), and the
-network plan of every MinkUNet-42 and CenterPoint-Large layer on the port
-engines against the JAX search, all integer-exact.
+Pallas kernels in interpret mode (maps AND overflow counters), on int32
+and on int64 packed words, and the network plan of every MinkUNet-42 and
+CenterPoint-Large layer on the port engines against the JAX search, all
+integer-exact; an int64 layout's plan equals the int32 layout's.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,6 +149,89 @@ def test_window_plain_matches_pallas_interpret(K, layer, W):
     if int(to.sum()) == 0:
         full = tzd.zdelta_search(tc[m_in], tc[m_out], tanch, tz, K=K)
         assert torch.equal(tm, full)
+
+
+def _levels64(cap=2048, levels=(0, 1, 2), per_scene=1000):
+    """``_levels`` on int64 words: 1,000 voxels of each of two rooms packed
+    with a 32-bit layout (12/12/7 + 1 batch bit). Call it under
+    ``jax.enable_x64(True)``, as every JAX step on its words."""
+    batch = jscenes.scene_batch(seed=3, batch=2, kind="indoor",
+                                extent=(24, 20, 16), overlap=0.5)
+    tl = tpk.BitLayout(bx=12, by=12, bz=7, bb=1, guard=batch[0].layout.guard)
+    rng = np.random.default_rng(3)
+    parts = [N(tpk.pack(T(sc.coords[rng.permutation(len(sc.coords))
+                                    [:per_scene]]),
+                        tl, torch.full((per_scene,), b)))
+             for b, sc in enumerate(batch)]
+    p = np.concatenate(parts)
+    p = p[rng.permutation(len(p))]
+    out = np.full(cap, np.iinfo(np.int64).max, np.int64)
+    out[: len(p)] = p
+    jl = jpk.BitLayout(**dataclasses.asdict(tl))
+    jc = jvx.downsample_all(jvx.build_coord_set(jnp.asarray(out)), jl, levels)
+    tc = tvx.downsample_all(tvx.build_coord_set(T(out)), tl, levels)
+    assert tl.bits_total == 32 and tc[0].packed.dtype == torch.int64
+    assert jc[0].packed.dtype == jnp.int64
+    return jl, tl, dict(zip(levels, jc)), dict(zip(levels, tc))
+
+
+@pytest.mark.parametrize("search", ["superwindow", "window"])
+@pytest.mark.parametrize("K", [3, 5])
+@pytest.mark.parametrize("layer", ["sub", "down"])
+@pytest.mark.parametrize("W", [64, 2048])
+def test_plain_matches_pallas_interpret_int64(search, K, layer, W):
+    """int64 words (a 32-bit layout): the plain superwindow and per-group
+    window searches equal the Pallas kernels in interpret mode under x64,
+    maps and counters; W=64 overflows, W=2048 covers the whole array."""
+    j_fn, t_fn = ((j_superwindow, t_superwindow) if search == "superwindow"
+                  else (j_window, t_window))
+    with jax.enable_x64(True):
+        jl, tl, jc, tc = _levels64()
+        m_in, m_out = LAYERS[layer]
+        stride = 1 << min(m_in, m_out)
+        _, janch, jz = jzd.zdelta_offsets(K, stride, jl)
+        _, tanch, tz = tzd.zdelta_offsets(K, stride, tl, device=CPU)
+        jm, jo = j_fn(jc[m_in], jc[m_out], janch, jz, K=K, W=W,
+                      interpret=True)
+        jm, jo = np.asarray(jm), np.asarray(jo)
+    tm, to = t_fn(tc[m_in], tc[m_out], tanch, tz, K=K, W=W)
+    assert tm.dtype == to.dtype == torch.int32
+    np.testing.assert_array_equal(N(tm), jm)
+    np.testing.assert_array_equal(N(to), jo)
+    if W == 64:
+        assert int(to.sum()) > 0
+    else:
+        assert int(to.sum()) == 0
+        full = tzd.zdelta_search(tc[m_in], tc[m_out], tanch, tz, K=K)
+        assert torch.equal(tm, full)
+
+
+@pytest.mark.parametrize("engine", ["zdelta", "zdelta_cuda",
+                                    "zdelta_cuda_window"])
+def test_int64_layout_plan_equals_int32(engine):
+    """The same coordinates packed in an int32 layout and in a widened
+    int64 one (12/12/7 + 1 batch bit) sort in the same order, so every
+    MinkUNet-42 and CenterPoint-Large layer's map is the same."""
+    batch = jscenes.scene_batch(seed=3, batch=2, kind="indoor",
+                                extent=(40, 32, 20), overlap=0.5)
+    narrow = tpk.BitLayout(**dataclasses.asdict(batch[0].layout.with_batch(2)))
+    wide = tpk.BitLayout(bx=12, by=12, bz=7, bb=1, guard=narrow.guard)
+    assert narrow.dtype == torch.int32 and wide.dtype == torch.int64
+    specs = (tpc.minkunet42(width=(8, 8, 8, 8)).specs
+             + tpc.centerpoint_large(width=(8, 8, 8, 8)).specs)
+    plans = []
+    for tl in (narrow, wide):
+        p = np.concatenate([N(tpk.pack(T(sc.coords), tl,
+                                       torch.full((len(sc.coords),), b)))
+                            for b, sc in enumerate(batch)])
+        words = torch.full((bucket_capacity(len(p), min_bucket=128),),
+                           tvx.pad_value(tl.dtype), dtype=tl.dtype)
+        words[: len(p)] = T(p)
+        plans.append(build_network_plan(words, specs=specs, layout=tl,
+                                        engine=engine))
+    for s in specs:
+        assert torch.equal(plans[0].kmaps[s.name].m,
+                           plans[1].kmaps[s.name].m), s.name
 
 
 def test_window_input_checks():
