@@ -83,6 +83,30 @@ CenterPoint-Large (hybrid dataflow, t = 3, K = 5), same scenes:
 5b. the plain path (engine "zdelta", backends "torch"): maps equal, logits
    within ``1e-3 * max|logits|``, no kernel launched.
 
+The tuner and the paper's baselines (phase 8, after 4e; the scenes of
+phases 4 and 4b, tuned on scene 0 alone):
+
+8a. CenterPoint-Large through ``compile_network(tuner="cost_model")``
+   and ``tuner="measure"``: per layer the tuned t, backend, window (and
+   whether it was held to the search kernel's largest) and half-search,
+   the seconds each tuning took; every tuned layer on the kernels
+   (``backend == "cuda"``). The measure-tuned session driven as in 4b
+   (launches per call from its tuned specs, batched scene 0 bitwise equal
+   to the single run, repaired cells per layer, one profiled call), then
+   the untuned, measure- and cost-model-tuned sessions' batch-2 calls in
+   turns; its logits against the plain path with the same tuned specs,
+   and bitwise equal to a session rebuilt from the mapping form of the
+   same results;
+8b. MinkUNet-42 under ``tuner="cost_model"``: the half-search decisions
+   of the submanifold layers, driven as in 4, logits against the plain
+   path with the same specs;
+8c. the baselines at MinkUNet-42's batch-2 plan (bucket 262,144): the
+   ``bsearch`` and ``hash`` engines' maps and the sequential plan's
+   levels and maps (``sequential_plan_fns``) equal to the fused
+   ``zdelta_cuda`` plan's, ``BucketedPlanner`` one key per bucket, and
+   each engine's network-plan ms (wall clock, synchronised; the plain
+   torch engines timed, not tuned).
+
 MinkUNet-42 training (the same scenes with 20-class labels, batch 2,
 bucket 262,144):
 
@@ -137,7 +161,8 @@ yi-9b LM serving (48 layers, d_model 4096, 32 heads, GQA kv 4, head dim
    distances printed, and the kernel path's distance in fp32); greedy
    agreement printed, not gated (random-init logits have near-ties).
 
-The second-to-last lines are the kernel table as JSON and the raw
+After each phase a ``[seconds]`` line gives its seconds and the run's so
+far. The second-to-last lines are the kernel table as JSON and the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -188,6 +213,19 @@ DEV = "cuda"
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+class PhaseClock:
+    """Seconds of each phase and of the run so far, one line per phase."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        log(f"[seconds] {phase}: {now - self.last:.1f} s (run "
+            f"{now - self.start:.1f} s)")
+        self.last = now
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1170,6 +1208,197 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def expected_launches(specs) -> dict:
+    """Kernel launches of one forward of ``specs`` on the superwindow
+    engine: one search and one segment sum per layer, the OS kernel for a
+    layer with dense offsets, the WS kernel for one with sparse offsets."""
+    from repro_torch.core.kernel_map import l1_partition
+    from repro_torch.kernels import launch_counts
+    exp = {k: 0 for k in launch_counts()}
+    exp["zdelta_superwindow_search"] = exp["segment_sum"] = len(specs)
+    for s in specs:
+        if s.dataflow == "hybrid":
+            dense, sparse = l1_partition(s.K, s.offset_stride, s.t)
+            os_, ws_ = bool(dense.size), bool(sparse.size)
+        else:
+            os_, ws_ = s.dataflow == "os", s.dataflow == "ws"
+        exp["spconv_gather_gemm"] += os_
+        exp["ws_scatter_gemm"] += ws_
+    return exp
+
+
+def log_tuning(label: str, session) -> None:
+    """Per layer the tuned t, backend, window (and whether it was held to
+    the search kernel's largest) and half-search; gates every layer on
+    the kernels."""
+    rep = session.tune_report
+    rows = []
+    for s in session.net.specs:
+        held = rep.windows_limited.get(s.name)
+        w = (f"W={s.window}" + (f" (planned {held[0]}, held)" if held
+                                else "")) if s.window else "W=default"
+        rows.append(f"{s.name}: t={s.t} {s.backend} {w} sym={s.symmetry}")
+    log(f"[{label}] {rep.mode} tuning took {rep.seconds:.2f} s; "
+        f"{len(rep.windows_limited)} of {len(session.net.specs)} windows "
+        "held to the kernel's largest; " + "; ".join(rows))
+    bad = [s.name for s in session.net.specs if s.backend != "cuda"]
+    if bad:
+        raise RuntimeError(f"{label}: tuned layers {bad} off the kernels")
+
+
+def tuner_phases(batch, kind: str, card: str, cp_untuned_ms: float) -> None:
+    """Phase 8: the §5.4 tuner on the card and the paper's mapping
+    baselines, on phase 4's scenes (module doc)."""
+    import torch
+    from repro_torch.core.network_plan import (build_network_plan,
+                                               sequential_plan_fns)
+    from repro_torch.core.sparse_tensor import SparseTensor
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import pointcloud as pc
+    from repro_torch.serve import BucketedPlanner, compile_network
+
+    def clouds_of(channels):
+        rng = np.random.default_rng(1)
+        return [(sc.coords, rng.normal(size=(len(sc.coords), channels))
+                 .astype(np.float32)) for sc in batch]
+
+    def plain_net(net):
+        return dataclasses.replace(net, specs=tuple(
+            dataclasses.replace(s, backend="torch") for s in net.specs))
+
+    def wall_ms(fn, reps: int = 3) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    layout = batch[0].layout
+    # -- 8a. CenterPoint-Large tuned on the card ------------------------------
+    t_phase = time.perf_counter()
+    clouds = clouds_of(5)
+    cp = pc.centerpoint_large()
+    base = compile_network(cp, layout, batch=2, seed=0)
+    st1 = SparseTensor.from_point_clouds(clouds[:1], base.layout)
+    st2 = SparseTensor.from_point_clouds(clouds, base.layout)
+    tuned = {}
+    for mode in ("cost_model", "measure"):
+        tuned[mode] = compile_network(cp, layout, batch=2,
+                                      params=base.params, tuner=mode,
+                                      tune_sample=st1)
+        log_tuning(f"8a cp {mode}", tuned[mode])
+    meas = tuned["measure"]
+    log(f"[8a cp measure] segment engine {meas.segment.backend} "
+        f"({meas.tune_report.segment.per_backend})")
+    outb, hb, times, counts = drive(meas, (("scene0", st1), ("batch2", st2)),
+                                    expected_launches(meas.net.specs),
+                                    "8a cp tuned", kind, card)
+    profile_line("8a", lambda: meas(st2), times["batch2"][1], card)
+    # the untuned (t = 3), cost-model and measure-tuned sessions in turns
+    turns = {}
+    for name, sess in (("untuned", base), ("measure", meas),
+                       ("cost_model", tuned["cost_model"]),
+                       ("measure", meas), ("untuned", base)):
+        turns.setdefault(name, []).append(wall_ms(lambda: sess(st2)))
+    log(f"[8a cp tuned vs untuned] batch-2 ms per call: measure-tuned "
+        f"{times['batch2'][1]:.1f} (drive), 4b untuned {cp_untuned_ms:.1f}; "
+        "in turns (3 calls each): " + ", ".join(
+            f"{k} " + "/".join(f"{v:.1f}" for v in vs)
+            for k, vs in turns.items()) + f" | {kind} | {card}")
+    plain_path(meas, plain_net(meas.net), st2, outb, "8a plain path")
+    again = compile_network(cp, layout, batch=2, params=base.params,
+                            tuner=meas.tune_report.results)
+    if again.net.specs != meas.net.specs:
+        raise RuntimeError("8a: the mapping form gave other specs")
+    outm = again(st2)
+    if not torch.equal(outm.features, outb.features):
+        raise RuntimeError("8a: logits of the session rebuilt from the "
+                           "mapping form not bitwise equal")
+    log(f"[8a cp mapping] rebuilt from tune_report.results: same specs, "
+        f"logits bitwise equal; phase 8a "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del base, tuned, meas, again, outb, outm, st1, st2
+    torch.cuda.empty_cache()
+
+    # -- 8b. MinkUNet-42 under the cost model ---------------------------------
+    t_phase = time.perf_counter()
+    clouds = clouds_of(4)
+    net = pc.minkunet42(in_channels=4, n_classes=20)
+    st1 = SparseTensor.from_point_clouds(clouds[:1], layout.with_batch(2))
+    st2 = SparseTensor.from_point_clouds(clouds, layout.with_batch(2))
+    mk = compile_network(net, layout, batch=2, seed=0, tuner="cost_model",
+                         tune_sample=st1)
+    log_tuning("8b mk cost_model", mk)
+    sub = [s for s in mk.net.specs if s.submanifold]
+    log(f"[8b mk symmetry] half-search chosen on "
+        f"{sum(bool(s.symmetry) for s in sub)} of {len(sub)} submanifold "
+        "layers: " + " ".join(f"{s.name}={s.symmetry}" for s in sub))
+    outb, hb, times, counts = drive(mk, (("scene0", st1), ("batch2", st2)),
+                                    expected_launches(mk.net.specs),
+                                    "8b mk tuned", kind, card)
+    plain_path(mk, plain_net(mk.net), st2, outb, "8b plain path")
+    log(f"[8b] phase {time.perf_counter() - t_phase:.1f} s")
+    del outb
+
+    # -- 8c. the baselines at MinkUNet-42's batch-2 plan ----------------------
+    t_phase = time.perf_counter()
+    specs = net.specs
+    stp = st2.pad_to(mk._bucket(st2.capacity))
+    ref = build_network_plan(stp.packed, specs=specs, layout=mk.layout)
+    plan_ms = {}
+    for engine in ("zdelta_cuda", "zdelta", "bsearch", "hash"):
+        reset_launch_counts()
+        plan = build_network_plan(stp.packed, specs=specs, layout=mk.layout,
+                                  engine=engine)
+        if engine in ("bsearch", "hash") and any(launch_counts().values()):
+            raise RuntimeError(f"8c: engine {engine} launched kernels")
+        for s in specs:
+            if not torch.equal(plan.kmaps[s.name].m, ref.kmaps[s.name].m):
+                raise RuntimeError(f"8c: {engine} map of {s.name} differs "
+                                   "from zdelta_cuda's")
+        del plan
+        plan_ms[engine] = wall_ms(lambda: build_network_plan(
+            stp.packed, specs=specs, layout=mk.layout, engine=engine))
+    sort_fn, level_fns, map_fns = sequential_plan_fns(specs, mk.layout)
+
+    def sequential():
+        v0 = sort_fn(stp.packed)
+        coords = {0: v0, **{m: fn(v0) for m, fn in level_fns.items()}}
+        return coords, {s.name: map_fns[s.name](coords[s.m_in],
+                                                coords[s.m_out])
+                        for s in specs}
+
+    coords, kmaps = sequential()
+    for m, cs in coords.items():
+        if not (torch.equal(cs.packed, ref.coords[m].packed)
+                and int(cs.count) == int(ref.coords[m].count)):
+            raise RuntimeError(f"8c: sequential level {m} differs")
+    for s in specs:
+        if not torch.equal(kmaps[s.name].m, ref.kmaps[s.name].m):
+            raise RuntimeError(f"8c: sequential map of {s.name} differs")
+    del coords, kmaps
+    plan_ms["sequential"] = wall_ms(sequential)
+    planner = BucketedPlanner(specs=specs, layout=mk.layout)
+    for st in (st1, st2, st1):
+        planner.plan(st.packed[: int(st.count)])
+    buckets = {mk._bucket(int(st1.count)), mk._bucket(int(st2.count))}
+    if planner.compile_count != len(buckets):
+        raise RuntimeError(f"8c: BucketedPlanner compile_count "
+                           f"{planner.compile_count} != {len(buckets)}")
+    log(f"[8c baselines] {len(specs)} MinkUNet-42 maps at bucket "
+        f"{stp.capacity}: bsearch and hash equal to zdelta_cuda's, the "
+        f"sequential plan's levels and maps equal to the fused plan's; "
+        f"BucketedPlanner {planner.compile_count} keys for buckets "
+        f"{sorted(buckets)} (hits {planner.bucket_hits})")
+    log(f"[8c plan ms] network plan, wall ms per build (3 builds, synced): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in plan_ms.items())
+        + f" | {kind} | {card}; phase {time.perf_counter() - t_phase:.1f} s")
+    del mk, ref, planner, st1, st2, stp
+    torch.cuda.empty_cache()
+
+
 def attention_bound(q, k, causal: bool) -> tuple:
     """(bound ms, operations, basis) of one attention call: q, k, v read
     once and the output written once, over the HBM rate; 4 * B * H * Sq *
@@ -1517,6 +1746,7 @@ def lm_phases(results: dict, paths: dict, card: str) -> None:
 
 def main() -> int:
     import torch
+    tick = PhaseClock()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1563,6 +1793,7 @@ def main() -> int:
     for ln in ptxas:
         log(f"    ptxas {ln}")
 
+    tick("1-2 device and build")
     # -- the main path's inputs -------------------------------------------
     t0 = time.perf_counter()
     batch = scenes.scene_batch(seed=0, batch=2, kind="outdoor",
@@ -1579,6 +1810,7 @@ def main() -> int:
         f"buckets {bucket_capacity(sizes[0])}/{bucket_capacity(sum(sizes))}, "
         f"{len(net.specs)} layers, made in {time.perf_counter() - t0:.1f} s")
 
+    tick("inputs")
     # -- 3. kernels vs plain, at the main path's shapes --------------------
     with Recorder() as rec:
         session(st2)
@@ -1650,6 +1882,7 @@ def main() -> int:
     del rec, z, o, s_calls
     torch.cuda.empty_cache()
 
+    tick("3 MinkUNet-42 kernels vs plain")
     # -- 4. main path --------------------------------------------------------
     expected = {k: 0 for k in launch_counts()}
     expected.update({"zdelta_superwindow_search": 42,
@@ -1663,6 +1896,7 @@ def main() -> int:
                                        **per_forward(results[k]))}
     profile_line("4", lambda: session(st2), times["batch2"][1], card)
 
+    tick("4 MinkUNet-42 main path")
     # -- 5. plain path on the same card --------------------------------------
     plain_path(session, pc.minkunet42(in_channels=4, n_classes=20,
                                       backend="torch"),
@@ -1670,6 +1904,7 @@ def main() -> int:
     del session, outb, hb, st1, st2
     torch.cuda.empty_cache()
 
+    tick("5 MinkUNet-42 plain path")
     # == CenterPoint-Large: hybrid (OS + WS), K = 5 ==========================
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)
@@ -1781,6 +2016,7 @@ def main() -> int:
     del rec, w_calls, F, m, W
     torch.cuda.empty_cache()
 
+    tick("3 CenterPoint-Large kernels vs plain")
     # -- 4b. main path ------------------------------------------------------
     expected = {k: 0 for k in launch_counts()}
     n_os = sum(1 for s in cp.specs
@@ -1789,6 +2025,7 @@ def main() -> int:
                      "spconv_gather_gemm": n_os, "ws_scatter_gemm": 20})
     outb, hb, times, counts = drive(cps, (("scene0", st1), ("batch2", st2)),
                                     expected, "4b main path", kind, card)
+    cp_untuned_ms = times["batch2"][1]
     for k in ("zdelta_superwindow_search", "spconv_gather_gemm",
               "segment_sum"):
         paths[k]["centerpoint_large"]["launches"] = counts[k]
@@ -1798,6 +2035,7 @@ def main() -> int:
         **per_forward(results["ws_scatter_gemm"]))}
     profile_line("4b", lambda: cps(st2), times["batch2"][1], card)
 
+    tick("4b CenterPoint-Large main path")
     # -- 4c. escalation -----------------------------------------------------
     lossy_net = dataclasses.replace(cp, specs=tuple(
         dataclasses.replace(s, ws_capacity=LOSSY_CAPACITY) for s in cp.specs))
@@ -1828,6 +2066,7 @@ def main() -> int:
     del esc, oute
     torch.cuda.empty_cache()
 
+    tick("4c escalation")
     # -- 4d. per-group window engine -----------------------------------------
     win = compile_network(cp, cps.layout, batch=2, params=cps.params,
                           engine="zdelta_cuda_window")
@@ -1865,15 +2104,22 @@ def main() -> int:
     del rec, v_calls
     torch.cuda.empty_cache()
 
+    tick("4d window engine")
     # -- 5b. plain path -------------------------------------------------------
     plain_path(cps, pc.centerpoint_large(backend="torch"), st2, outb,
                "5b plain path")
     del cps, outb, hb, st1, st2
     torch.cuda.empty_cache()
 
+    tick("5b CenterPoint-Large plain path")
     # -- 4e. int64 packed words -----------------------------------------------
     int64_phase(paths, kind, card)
 
+    tick("4e int64 words")
+    # -- 8. the tuner and the paper's baselines --------------------------------
+    tuner_phases(batch, kind, card, cp_untuned_ms)
+
+    tick("8 tuner and baselines")
     # == MinkUNet-42 training ================================================
     from repro_torch.core.zdelta import reset_search_calls, search_call_count
     from repro_torch.train import labeled_batch
@@ -1985,6 +2231,7 @@ def main() -> int:
     del fwd, s6
     torch.cuda.empty_cache()
 
+    tick("inputs train, 6 training kernels")
     # -- 6b. the training main path ------------------------------------------
     reset_search_calls()
     sess = compile_network(tnet, lbatch[0].layout, batch=2, seed=0)
@@ -2045,6 +2292,7 @@ def main() -> int:
     del trainer, out
     torch.cuda.empty_cache()
 
+    tick("6b training main path")
     # -- 6c. gradients on the card -------------------------------------------
     gk = grads_vs_plain("6c grads", tnet, plain_tnet, sess.layout,
                         sess.params, stp.packed, stp.features, labp, card)
@@ -2062,6 +2310,7 @@ def main() -> int:
     del gk, g2, st2, lab2, sess
     torch.cuda.empty_cache()
 
+    tick("6c gradients")
     # -- 6d. WS backward at full width ---------------------------------------
     wnet = pc.minkunet42(in_channels=4, n_classes=20, dataflow="ws")
     wsess = compile_network(wnet, lbatch[0].layout, batch=2, seed=0)
@@ -2091,7 +2340,9 @@ def main() -> int:
 
     del lbatch, tst, tlab, stp, labp, tnet, plain_tnet
     torch.cuda.empty_cache()
+    tick("6d WS backward")
     lm_phases(results, paths, card)
+    tick("7 yi-9b serving")
 
     # -- result ----------------------------------------------------------------
     table = []

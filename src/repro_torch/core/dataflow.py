@@ -61,6 +61,24 @@ def _mask_rows(x: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
                                                      device=x.device))
 
 
+def rowsum(x: torch.Tensor) -> torch.Tensor:
+    """Column sums as a ``[1, N] @ [N, C]`` fp32 matmul, in ``x``'s dtype:
+    the reference's whole-buffer reduction idiom (a dot, whose grouping of
+    a shared row prefix does not change when zero rows are appended).
+    Only the retired sliced BN baseline
+    (``models.pointcloud._relu_bn_sliced``) uses it; the serving and
+    training paths reduce per scene on the segment engine."""
+    ones = torch.ones((1, x.shape[0]), dtype=torch.float32, device=x.device)
+    return (ones @ x.float())[0].to(x.dtype)
+
+
+def bcast_rows(v: torch.Tensor, cap: int) -> torch.Tensor:
+    """Broadcast a [C] vector over ``cap`` rows as the rank-1 matmul
+    ``ones[cap, 1] @ v[None, :]`` (forward-exact; autograd's row
+    reduction of its cotangent is then a matmul, as in :func:`rowsum`)."""
+    return torch.ones((cap, 1), dtype=v.dtype, device=v.device) @ v[None, :]
+
+
 # ---------------------------------------------------------------------------
 # dense per-row layer (the classifier head)
 # ---------------------------------------------------------------------------
@@ -333,3 +351,43 @@ def hybrid(features: torch.Tensor, kmap: KernelMap, weights: torch.Tensor,
             capacity=ws_capacity, backend=backend, bm=bm, bn=bn,
             self_transpose=self_transpose, cols=cols)
     return out
+
+
+# ---------------------------------------------------------------------------
+# analytic bytes model (the cost-model tuner and the benchmarks)
+# ---------------------------------------------------------------------------
+
+def hbm_bytes_model(M: int, Kd: int, Cin: int, Cout: int, itemsize: int = 4,
+                    *, backend: str = "torch", dataflow: str = "os",
+                    nnz: int | None = None,
+                    capacity: int | None = None) -> dict:
+    """Modelled device-memory bytes of one layer's feature computation
+    (the reference's ``hbm_bytes_model``; ``"cuda"`` there is
+    ``"pallas"``, ``"torch"`` is ``"xla"``).
+
+    ``"cuda"``: the fused kernels read each valid pair's input row once
+    and never write a gathered intermediate. ``"torch"``: the plain
+    versions gather every (row, offset) — OS ``[M, Kd, Cin]``, WS ``Kd``
+    columns of ``capacity`` rows — and write and re-read the
+    intermediate; WS also passes over the ``[M, Cout]`` accumulator per
+    offset. Weights and the output count once either way. ``nnz`` is the
+    number of valid map entries (default ``M·Kd``)."""
+    nnz = M * Kd if nnz is None else int(nnz)
+    w_bytes = Kd * Cin * Cout * itemsize
+    out_bytes = M * Cout * itemsize
+    if backend == "cuda":
+        gather, intermediate = nnz * Cin * itemsize, 0
+    elif dataflow == "os":
+        gather = M * Kd * Cin * itemsize
+        intermediate = 2 * M * Kd * Cin * itemsize
+    else:
+        cap = M if capacity is None else int(capacity)
+        gather = Kd * cap * Cin * itemsize
+        intermediate = Kd * (cap * Cin + 2 * M * Cout) * itemsize
+    return {
+        "total": gather + intermediate + w_bytes + out_bytes,
+        "gather": gather,
+        "intermediate": intermediate,
+        "weights": w_bytes,
+        "out": out_bytes,
+    }

@@ -83,3 +83,13 @@ def l1_partition(K: int, stride: int, t: int) -> Tuple[np.ndarray, np.ndarray]:
 
 def l1_norm_max(K: int, stride: int) -> int:
     return 3 * ((K - 1) // 2) * stride
+
+
+def density_by_l1(kmap: KernelMap, K: int, stride: int) -> dict[int, float]:
+    """Average column density grouped by offset L1 norm (the measurement
+    behind the paper's Fig. 3b). Host-side helper: one copy of the column
+    densities to the host."""
+    l1 = offset_l1(offset_grid(K, stride))
+    dens = kmap.column_density().cpu().numpy()
+    return {int(v): float(dens[l1 == v].mean())
+            for v in sorted(set(l1.tolist()))}

@@ -22,7 +22,21 @@ Engines:
 
 On both kernel engines, cells whose queries ran past their window are
 repaired with the exact ``"zdelta"`` search, so the map is exact either
-way; ``NetworkPlan.stats`` counts the repaired cells per layer.
+way; ``NetworkPlan.stats`` counts the repaired cells per layer. A layer's
+window is ``spec.window`` (0: the engine's default), held to the largest
+window the kernel can stage for the word type
+(``kernels.zdelta_window.max_window``).
+
+The paper's baselines, in plain torch (yardsticks, not main paths):
+
+* ``"bsearch"`` — one full binary search per query
+  (``zdelta.simple_bsearch``, Fig. 10);
+* ``"hash"`` — a linear-probing hash table built over the inputs and
+  probed per query (``core.hashmap``, Figs. 2 and 10);
+* :func:`sequential_plan_fns` — one function per level and one per layer,
+  called back to back, every level paying its own sort (Fig. 12).
+
+Every engine gives the same kernel maps.
 """
 from __future__ import annotations
 
@@ -31,15 +45,17 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from . import hashmap
 from .kernel_map import KernelMap
-from .packing import BitLayout
+from .packing import BitLayout, offset_grid, pack_offsets
 from .spconv import SpConvSpec
-from .voxel import CoordSet, build_coord_set, downsample_all, pad_value
-from .zdelta import (expand_half_map, symmetrize_kernel_map,
+from .voxel import (CoordSet, build_coord_set, downsample, downsample_all,
+                    pad_value)
+from .zdelta import (expand_half_map, simple_bsearch, symmetrize_kernel_map,
                      symmetry_anchor_count, zdelta_offsets, zdelta_search,
                      zdelta_search_symmetric)
 
-ENGINES = ("zdelta", "zdelta_cuda", "zdelta_cuda_window")
+ENGINES = ("zdelta", "zdelta_cuda", "zdelta_cuda_window", "bsearch", "hash")
 
 
 @dataclasses.dataclass
@@ -65,6 +81,9 @@ def plan_levels(specs: Sequence[SpConvSpec]) -> Tuple[int, ...]:
 
 
 PLAN_BM = 128   # output-tile rows of the windowed searches
+# the windows a spec's ``window = 0`` asks for, by search
+DEFAULT_WINDOW = {"superwindow": max(16 * PLAN_BM, 2048),
+                  "window": max(4 * PLAN_BM, 512)}
 
 
 def _kernel_map_search(inputs: CoordSet, outputs: CoordSet,
@@ -76,7 +95,8 @@ def _kernel_map_search(inputs: CoordSet, outputs: CoordSet,
     :func:`zdelta_search`. Outputs are PAD-padded to a multiple of
     ``PLAN_BM`` so the kernel runs full tiles; the map is sliced back.
     Returns ``(map, overflowed cells)``."""
-    from ..kernels.zdelta_window import (zdelta_superwindow_search,
+    from ..kernels.zdelta_window import (max_window,
+                                         zdelta_superwindow_search,
                                          zdelta_window_search)
 
     mcap = outputs.packed.shape[0]
@@ -90,13 +110,14 @@ def _kernel_map_search(inputs: CoordSet, outputs: CoordSet,
         outp[:mcap] = outputs.packed
         out_padded = CoordSet(packed=outp, count=outputs.count)
     n = inputs.packed.shape[0]
+    kind = "superwindow" if superwindow else "window"
+    W = min(W or DEFAULT_WINDOW[kind], n,
+            max_window(kind, inputs.packed.dtype, anchors.shape[0], K))
     if superwindow:
-        W = min(W or max(16 * bm, 2048), n)
         m, ovf = zdelta_superwindow_search(inputs, out_padded, anchors,
                                            zstep, K=K, W=W, bm=bm,
                                            backend=backend)
     else:
-        W = min(W or max(4 * bm, 512), n)
         m, ovf = zdelta_window_search(inputs, out_padded, anchors, zstep,
                                       K=K, W=W, bm=bm, backend=backend)
     m = m[:mcap]
@@ -112,30 +133,51 @@ def _kernel_map_search(inputs: CoordSet, outputs: CoordSet,
 def _layer_map(inputs: CoordSet, outputs: CoordSet, s: SpConvSpec,
                layout: BitLayout, engine: str):
     """One layer's kernel map, symmetry-aware for submanifold layers;
-    returns ``(map, window_overflow_cells)``."""
+    returns ``(map, window_overflow_cells)``, the counter 0 for the
+    engines without a window."""
     if engine not in ENGINES:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported (the port has {ENGINES}; "
-            "bsearch and hash are in ROADMAP Queue 1)")
+        raise ValueError(f"unknown engine {engine!r}; the port has "
+                         f"{ENGINES}")
     dev = inputs.packed.device
+    if engine in ("bsearch", "hash"):
+        no_ovf = torch.zeros((), dtype=torch.int32, device=dev)
+        offs = pack_offsets(offset_grid(s.K, s.offset_stride), layout,
+                            device=dev)
+        if engine == "bsearch":
+            return simple_bsearch(inputs, outputs, offs, K=s.K), no_ovf
+        tk, tv = hashmap.build_table(
+            inputs, table_size=hashmap.table_size_for(inputs.capacity))
+        return hashmap.hash_kernel_map(tk, tv, outputs, offs, K=s.K), no_ovf
     _, anchors, zstep = zdelta_offsets(s.K, s.offset_stride, layout,
                                        device=dev)
     # the per-group window engine never takes the half-search, as in JAX
     use_sym = (s.symmetry and s.submanifold
                and engine in ("zdelta", "zdelta_cuda"))
+    return zdelta_engine_map(inputs, outputs, anchors, zstep, K=s.K,
+                             engine=engine, symmetric=use_sym, W=s.window)
+
+
+def zdelta_engine_map(inputs: CoordSet, outputs: CoordSet,
+                      anchors: torch.Tensor, zstep: int, *, K: int,
+                      engine: str, symmetric: bool = False, W: int = 0):
+    """The map of one z-delta engine (``"zdelta"``, ``"zdelta_cuda"`` or
+    ``"zdelta_cuda_window"``) over the full anchor set, by the §5.4
+    half-search and mirror fill when ``symmetric`` (a submanifold layer;
+    not on the per-group window engine); returns ``(map, overflowed
+    cells)``. The tuner times the session's own search through it."""
     if engine == "zdelta":
-        no_ovf = torch.zeros((), dtype=torch.int32, device=dev)
-        if use_sym:
+        no_ovf = torch.zeros((), dtype=torch.int32,
+                             device=inputs.packed.device)
+        if symmetric:
             return zdelta_search_symmetric(inputs, outputs, anchors, zstep,
-                                           K=s.K), no_ovf
-        return zdelta_search(inputs, outputs, anchors, zstep, K=s.K), no_ovf
-    if use_sym:
-        anchors = anchors[: symmetry_anchor_count(s.K)]
-    m, ovf = _kernel_map_search(inputs, outputs, anchors, zstep, K=s.K,
-                                W=s.window,
+                                           K=K), no_ovf
+        return zdelta_search(inputs, outputs, anchors, zstep, K=K), no_ovf
+    if symmetric:
+        anchors = anchors[: symmetry_anchor_count(K)]
+    m, ovf = _kernel_map_search(inputs, outputs, anchors, zstep, K=K, W=W,
                                 superwindow=(engine == "zdelta_cuda"))
-    if use_sym:
-        m = symmetrize_kernel_map(expand_half_map(m, K=s.K), K=s.K)
+    if symmetric:
+        m = symmetrize_kernel_map(expand_half_map(m, K=K), K=K)
     return m, ovf
 
 
@@ -159,3 +201,30 @@ def build_network_plan(packed_raw: torch.Tensor, *,
                                   in_count=inputs.count)
         stats[s.name] = ovf
     return NetworkPlan(coords=coords, kmaps=kmaps, stats=stats)
+
+
+def sequential_plan_fns(specs: Tuple[SpConvSpec, ...], layout: BitLayout):
+    """The sequential-indexing baseline of the paper's Fig. 12: a sort
+    function for V0, one downsample function per coarser level (each its
+    own full sort, ``method="sort"``) and one mapping function per layer
+    (the ``"zdelta"`` search), called back to back by the caller.
+    Returns ``(sort_fn, level_fns, map_fns)``; ``map_fns[name](inputs,
+    outputs)`` gives the layer's :class:`KernelMap`, equal to
+    :func:`build_network_plan`'s."""
+    def sort_fn(packed_raw: torch.Tensor) -> CoordSet:
+        return build_coord_set(packed_raw)
+
+    level_fns = {m: (lambda c, m=m: downsample(c, layout, m, method="sort"))
+                 for m in plan_levels(specs) if m != 0}
+
+    def make(s: SpConvSpec):
+        def one(inputs: CoordSet, outputs: CoordSet) -> KernelMap:
+            _, anchors, zstep = zdelta_offsets(s.K, s.offset_stride, layout,
+                                               device=inputs.packed.device)
+            m = zdelta_search(inputs, outputs, anchors, zstep, K=s.K)
+            return KernelMap(m=m, out_count=outputs.count,
+                             in_count=inputs.count)
+        return one
+
+    map_fns = {s.name: make(s) for s in specs}
+    return sort_fn, level_fns, map_fns

@@ -87,6 +87,23 @@ def zdelta_search(inputs: CoordSet, outputs: CoordSet,
     return torch.where(valid_row, m, -1).to(torch.int32)
 
 
+def simple_bsearch(inputs: CoordSet, outputs: CoordSet,
+                   packed_offsets: torch.Tensor, *, K: int) -> torch.Tensor:
+    """The paper's Fig. 10 baseline: one full binary search
+    (``torch.searchsorted``) per query, |Vq|·K³ of them, no
+    pre-processing. ``packed_offsets`` [K³] in z-delta group order gives
+    :func:`zdelta_search`'s column layout; PAD output rows are −1."""
+    _count_search()
+    arr = inputs.packed
+    n = arr.shape[0]
+    pad = pad_value(arr.dtype)
+    q = outputs.packed[:, None] + packed_offsets[None, :]    # wraps on PAD
+    pos = torch.searchsorted(arr, q, side="left", out_int32=True)
+    cand = arr[pos.clamp(0, n - 1)]
+    hit = (cand == q) & (pos < n) & (outputs.packed[:, None] != pad)
+    return torch.where(hit, pos, -1).to(torch.int32)
+
+
 def mirror_permutation(K: int) -> np.ndarray:
     """Column permutation δ → −δ under z-delta group order (a reversal)."""
     return np.arange(K * K * K - 1, -1, -1)

@@ -58,6 +58,51 @@ def _nbits(W: int) -> int:
     return max(1, int(np.ceil(np.log2(W))))
 
 
+# the launchers' shared-memory sizing (zdelta_common.cuh, the two .cu
+# sources), mirrored so a window can be held to what a launch accepts
+_MAX_SMEM = 227 * 1024          # kMaxSmem
+_CHUNK_BUDGET = 32 * 1024       # kChunkBudget (both sources)
+_SW_SLACK = 64                  # kSlack (superwindow)
+_SPAN_BUDGET = 16 * 1024        # kSpanBudget (per-group window)
+
+
+def _align16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def _staged_words(count: int, word: int) -> int:
+    v = 16 // word
+    return (count + 2 * v - 1) // v * v
+
+
+def _smem_bytes(kind: str, word: int, G: int, K: int, nbits: int) -> int:
+    """Shared memory a launch of ``kind`` asks for, plus the headroom its
+    launcher keeps for static shared memory."""
+    lg = 7
+    while lg > 2 and (G * K * 4 << lg) > _CHUNK_BUDGET:
+        lg -= 1
+    chunk = _align16(G * K * 4 << lg)
+    if kind == "superwindow":
+        return (chunk + _staged_words(_SW_SLACK + (1 << nbits), word) * word
+                + 4096)
+    span = max(_SPAN_BUDGET // word, 1 << nbits)
+    return (chunk + _align16(2 * G * 4) + _staged_words(span, word) * word
+            + 2048)
+
+
+def max_window(kind: str, dtype: torch.dtype, G: int, K: int) -> int:
+    """The largest window ``kind``'s kernel ("superwindow" or "window")
+    can stage for words of ``dtype`` with G anchor groups of K members: a
+    launch stages the window padded to a power of two, so this is the
+    largest power of two whose staging fits a block's shared memory
+    (32,768 int32 or 16,384 int64 words)."""
+    word = 8 if dtype == torch.int64 else 4
+    for nbits in range(30, 0, -1):
+        if _smem_bytes(kind, word, G, K, nbits) <= _MAX_SMEM:
+            return 1 << nbits
+    raise ValueError(f"no {kind} window fits G={G}, K={K}")
+
+
 def _launcher(kind: str, arr: torch.Tensor, out2d: torch.Tensor):
     """The C entry point of ``kind``'s kernel for the words' dtype, after
     the checks every launch needs."""

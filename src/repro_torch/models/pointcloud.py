@@ -33,8 +33,8 @@ import torch
 from torch import nn
 
 # HEAD_ROWS and head_matmul are re-exported: the head lives in core.dataflow
-from ..core.dataflow import (HEAD_ROWS, head_matmul,  # noqa: F401
-                             rowdot_matmul)
+from ..core.dataflow import (HEAD_ROWS, bcast_rows,  # noqa: F401
+                             head_matmul, rowdot_matmul, rowsum)
 from ..core.network_plan import NetworkPlan
 from ..core.packing import BitLayout
 from ..core.spconv import SpConv, SpConvSpec, apply_spconv, init_spconv
@@ -235,6 +235,67 @@ def _relu_bn(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,
                        spec=segment)
     return torch.where((sid < S)[:, None], (x - r[:, :c]) * r[:, c:],
                        torch.zeros((), dtype=x.dtype, device=dev))
+
+
+# calls of the retired O(S·cap) BN baseline: no session or trainer path may
+# call it, so this stays 0 while the segment engine's count grows
+SLICED_BN_CALLS = {"count": 0}
+
+
+def reset_sliced_bn_calls() -> None:
+    SLICED_BN_CALLS["count"] = 0
+
+
+def sliced_bn_call_count() -> int:
+    return SLICED_BN_CALLS["count"]
+
+
+def _relu_bn_sliced(x: torch.Tensor, count: torch.Tensor,
+                    seg: Optional[tuple] = None) -> torch.Tensor:
+    """The RETIRED O(S·cap) per-scene BN: per scene a capacity-wide slice
+    aligned at its first row for the statistics (whole-buffer
+    :func:`~repro_torch.core.dataflow.rowsum` reductions), then a
+    ``[cap, S]`` one-hot matmul to apply them. Kept as the baseline the
+    benchmarks price the segment engine against and as a numerical
+    cross-check of :func:`_relu_bn`; nothing on the session or training
+    path calls it (``SLICED_BN_CALLS``)."""
+    SLICED_BN_CALLS["count"] += 1
+    x = torch.relu(x)
+    cap, c = x.shape
+    dev = x.device
+
+    def stats(v, valid, cnt):
+        z = torch.where(valid, v, torch.zeros((), dtype=v.dtype, device=dev))
+        sm = rowsum(torch.cat([z, z * z], dim=1))
+        denom = cnt.to(v.dtype).clamp(min=1.0)
+        mean, ex2 = sm[:c] / denom, sm[c:] / denom
+        var = (ex2 - mean * mean).clamp(min=0.0)
+        return mean, torch.rsqrt(var + 1e-5)
+
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    if seg is None or seg[3] == 1:
+        mask = (torch.arange(cap, device=dev) < count)[:, None]
+        mean, inv = stats(x, mask, count)
+        return torch.where(mask, (x - bcast_rows(mean, cap))
+                           * bcast_rows(inv, cap), zero)
+    sid, starts, counts, S = seg
+    xpad = torch.cat([x, torch.zeros_like(x)])
+    local = torch.arange(cap, device=dev)
+    means, invs = [], []
+    for b in range(S):
+        # a capacity-wide window from the scene's first row (the
+        # reference's dynamic_slice, its start clamped the same way)
+        start = starts[b].clamp(0, cap)
+        sl = xpad[start + local]
+        mean, inv = stats(sl, (local < counts[b])[:, None], counts[b])
+        means.append(mean)
+        invs.append(inv)
+    sid_c = sid.clamp(0, S - 1)
+    onehot = (sid_c[:, None] == torch.arange(S, device=dev)[None, :]).to(
+        x.dtype)
+    mean_r = onehot @ torch.stack(means)
+    inv_r = onehot @ torch.stack(invs)
+    return torch.where((sid < S)[:, None], (x - mean_r) * inv_r, zero)
 
 
 def packed_segments(packed: torch.Tensor, count: torch.Tensor,

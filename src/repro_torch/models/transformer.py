@@ -17,7 +17,7 @@ Entry points:
 ``backend`` ("auto" | "torch" | "cuda") picks the flash attention kernel or
 its plain version for the full-sequence attention calls
 (``kernels.ops.resolve_backend``). Mamba, mLSTM and sLSTM blocks, MoE FFNs
-and embedding-input archs are not ported yet (ROADMAP Queue 1 item 10) and
+and embedding-input archs are not ported yet (ROADMAP Queue 1 item 7) and
 raise ``NotImplementedError``; so does the loss, which waits for LM
 training.
 """
@@ -30,7 +30,7 @@ import torch
 from . import layers
 from .common import ModelConfig, ParamCtx, rms_norm
 
-_TODO = "not ported yet (ROADMAP Queue 1 item 10)"
+_TODO = "not ported yet (ROADMAP Queue 1 item 7)"
 
 
 def check_supported(cfg: ModelConfig) -> None:

@@ -25,6 +25,13 @@ contiguous at every level and kernel maps never cross scenes, and every
 per-row computation on the path adds in an order that does not depend on
 the row's position or the bucket (``models.pointcloud`` module doc).
 
+Tuning (Spira §5.4): ``compile_network(tuner=..., tune_sample=...)``
+tunes every layer once, before serving, and persists the tuned specs on
+``session.net``; ``session.tune_report`` keeps the raw results, the
+windows held to the search kernel's largest and the seconds the tuning
+took. On the card a tuned layer always runs the kernels
+(``backend="cuda"``): the plain versions are never timed or chosen there.
+
 Overflow escalation: WS/hybrid layers with a tuned ``ws_capacity`` drop
 pairs beyond it. Each call counts the pairs its plan drops; when nonzero
 the session replans at the next escalation level (bucket and every
@@ -37,7 +44,9 @@ of a lossless run: every kernel on the path is zero-extension invariant.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import time
+import zlib
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -45,11 +54,21 @@ from ..core.kernel_map import l1_partition
 from ..core.network_plan import NetworkPlan, build_network_plan
 from ..core.packing import BitLayout
 from ..core.sparse_tensor import SparseTensor, ensure_sparse_tensor
+from ..core.spconv import SpConvSpec
+from ..core.tuner import (H100_COSTS, CostConstants, LayerTuneResult,
+                          SegmentTuneResult, apply_tuning, device_backends,
+                          tune_layer_cost_model, tune_layer_measure,
+                          tune_segment_backend_measure)
+from ..core.zdelta import symmetry_anchor_count, zdelta_offsets
 from ..kernels.segsum import SegmentSpec
+from ..kernels.zdelta_window import max_window
 from ..models.pointcloud import (PointCloudModel, PointCloudNet,
-                                 init_pointcloud, pointcloud_forward)
+                                 init_pointcloud, packed_segments,
+                                 pointcloud_forward)
 from ..obs import MetricsRegistry, span
 from .bucketing import bucket_capacity
+
+TunerArg = Union[None, str, Mapping[str, LayerTuneResult]]
 
 
 @dataclasses.dataclass
@@ -85,6 +104,22 @@ class HealthReport:
 
 
 @dataclasses.dataclass
+class TuneReport:
+    """What ``compile_network(tuner=...)`` did: ``mode`` ("cost_model",
+    "measure" or "mapping"), the raw per-layer ``results`` (a mapping that
+    ``tuner=`` takes back), the layers whose planned window exceeded what
+    the search kernel can stage (``{layer: (planned W, W used)}``; the
+    per-cell repair keeps their maps exact), the segment engine's result
+    (measure mode) and the seconds the tuning took."""
+
+    mode: str
+    results: Dict[str, LayerTuneResult]
+    windows_limited: Dict[str, Tuple[int, int]]
+    segment: Optional[SegmentTuneResult]
+    seconds: float
+
+
+@dataclasses.dataclass
 class SpiraSession:
     """Point-cloud pipeline ``session(st) -> st`` of logits on the net's
     output-level coordinates. Built by :func:`compile_network`."""
@@ -100,6 +135,7 @@ class SpiraSession:
     max_overflow_replans: int = 2
     metrics: Optional[MetricsRegistry] = None
     device: torch.device | str = "cuda"
+    tune_report: Optional[TuneReport] = None
 
     def __post_init__(self):
         if self.metrics is None:
@@ -244,7 +280,7 @@ class SpiraSession:
         if guard is not None or ckpt is not None or resume:
             raise NotImplementedError(
                 "compile_train(guard=/ckpt=/resume=) is not ported yet "
-                "(ROADMAP Queue 1, item 8: train/guard.py, ckpt/manager.py)")
+                "(ROADMAP Queue 1, item 3: train/guard.py, ckpt/manager.py)")
         from ..train.pointcloud import PointCloudTrainer
         return PointCloudTrainer(self, tcfg, opt_state=opt_state)
 
@@ -282,7 +318,9 @@ def compile_network(
     downsample_method: str = "auto",
     min_bucket: int = 1024,
     max_bucket: Optional[int] = None,
-    tuner: None = None,
+    tuner: TunerArg = None,
+    tune_sample: Optional[SparseTensor] = None,
+    tune_costs: CostConstants = H100_COSTS,
     segment_backend: str = "auto",
     max_overflow_replans: int = 2,
     dtype=torch.float32,
@@ -297,22 +335,147 @@ def compile_network(
       ``convert.params_from_jax``); omitted, ``init_pointcloud(net,
       seed=seed)``.
     * ``engine`` — ``"zdelta_cuda"`` (superwindow search kernel),
-      ``"zdelta_cuda_window"`` (per-group window search kernel) or
-      ``"zdelta"`` (the search in torch).
+      ``"zdelta_cuda_window"`` (per-group window search kernel),
+      ``"zdelta"`` (the search in torch), or the paper's baselines
+      ``"bsearch"`` and ``"hash"`` (``core.network_plan``).
+    * ``tuner`` — the one-time §5.4 tuning, before serving:
+        - ``None``: the specs as written;
+        - ``"cost_model"``: the analytic (t, backend, symmetry) choice per
+          layer from the sample plan's kernel-map statistics, weighted by
+          ``tune_costs`` (default the H100's; ``core.tuner``);
+        - ``"measure"``: a wall-clock sweep of t per layer on this device,
+          the exact window from the sample's coordinates and, for
+          submanifold layers, the half-search timed on ``engine``'s own
+          search; also the segment engine's backend;
+        - a mapping ``{layer: LayerTuneResult}`` of earlier results (e.g.
+          ``session.tune_report.results``).
+      ``tune_sample`` (a :class:`SparseTensor`) is the sample the first
+      two build their plan from. The backend axis is the device's own
+      (``"cuda"`` on the card, ``"torch"`` on the CPU); a window above the
+      search kernel's largest for the word type is held to it. The tuned
+      specs live on ``session.net``, the raw results on
+      ``session.tune_report``.
     * ``segment_backend`` — backend of the BN segment sums.
-    * ``tuner`` — not ported yet; anything but None raises.
     """
-    if tuner is not None:
-        raise NotImplementedError(
-            "compile_network(tuner=...) is not ported yet (ROADMAP Queue 1, "
-            "item 7); pass tuned specs in the network instead")
     if (1 << layout.bb) < batch:
         layout = layout.with_batch(batch)
     if params is None:
         params = init_pointcloud(net, seed=seed, device=device, dtype=dtype)
-    return SpiraSession(net=net, layout=layout, params=params, engine=engine,
-                        downsample_method=downsample_method,
-                        min_bucket=min_bucket, max_bucket=max_bucket,
-                        segment=SegmentSpec(backend=segment_backend),
-                        max_overflow_replans=max_overflow_replans,
-                        metrics=metrics, device=device)
+    seg_spec = SegmentSpec(backend=segment_backend)
+    report = None
+    if tuner is not None:
+        tic = time.perf_counter()
+        specs, results = _tune_specs(
+            net, layout, params, tuner, tune_sample, engine=engine,
+            downsample_method=downsample_method, min_bucket=min_bucket,
+            costs=tune_costs, device=device)
+        specs, limited = _limit_windows(specs, engine, layout)
+        net = dataclasses.replace(net, specs=specs)
+        seg_res = None
+        if tuner == "measure":
+            seg_res = _tune_segment(seg_spec, tune_sample,
+                                    min_bucket=min_bucket, device=device)
+            seg_spec = dataclasses.replace(seg_spec, backend=seg_res.backend)
+        report = TuneReport(
+            mode=tuner if isinstance(tuner, str) else "mapping",
+            results=results, windows_limited=limited, segment=seg_res,
+            seconds=time.perf_counter() - tic)
+    session = SpiraSession(net=net, layout=layout, params=params,
+                           engine=engine,
+                           downsample_method=downsample_method,
+                           min_bucket=min_bucket, max_bucket=max_bucket,
+                           segment=seg_spec,
+                           max_overflow_replans=max_overflow_replans,
+                           metrics=metrics, device=device,
+                           tune_report=report)
+    if report is not None:
+        session.metrics.gauge("tuner_windows_limited").set(
+            len(report.windows_limited))
+    return session
+
+
+def _tune_segment(seg_spec: SegmentSpec, tune_sample: SparseTensor, *,
+                  min_bucket: int, device) -> SegmentTuneResult:
+    """Time the segment engine on the sample's V0 segmentation (step-time
+    objective), on the device's own backend."""
+    st = tune_sample.to(device)
+    stp = st.pad_to(bucket_capacity(st.capacity, min_bucket=min_bucket))
+    seg = packed_segments(stp.packed, stp.count, stp.layout)
+    return tune_segment_backend_measure(stp.features, seg, q=seg_spec.q)
+
+
+def _tune_specs(net: PointCloudNet, layout: BitLayout,
+                params: PointCloudModel, tuner: TunerArg,
+                tune_sample: Optional[SparseTensor], *, engine: str,
+                downsample_method: str, min_bucket: int,
+                costs: CostConstants, device
+                ) -> Tuple[Tuple[SpConvSpec, ...], Dict[str, LayerTuneResult]]:
+    """Resolve ``tuner`` into tuned specs and the raw results by layer
+    (see compile_network)."""
+    if isinstance(tuner, Mapping):
+        results = {s.name: tuner[s.name] for s in net.specs
+                   if s.name in tuner}
+        return tuple(apply_tuning(s, results[s.name]) if s.name in results
+                     else s for s in net.specs), results
+    if tuner not in ("cost_model", "measure"):
+        raise ValueError(f"tuner must be None, 'cost_model', 'measure' or a "
+                         f"{{layer: LayerTuneResult}} mapping, got {tuner!r}")
+    if tune_sample is None:
+        raise ValueError(f"tuner={tuner!r} needs tune_sample= (a "
+                         "representative SparseTensor) to build the sample "
+                         "plan it tunes against")
+    ensure_sparse_tensor(tune_sample, where="compile_network(tune_sample=)")
+    st = tune_sample.to(device)
+    stp = st.pad_to(bucket_capacity(st.capacity, min_bucket=min_bucket))
+    with torch.no_grad():
+        plan = build_network_plan(stp.packed, specs=net.conv_specs(),
+                                  layout=layout, engine=engine,
+                                  downsample_method=downsample_method)
+    backends = device_backends(stp.packed)
+    itemsize = torch.finfo(params.head.dtype).bits // 8
+    results = {}
+    for s in net.specs:
+        kmap = plan.kmaps[s.name]
+        if tuner == "cost_model":
+            res = tune_layer_cost_model(
+                kmap, K=s.K, stride=s.offset_stride, cin=s.cin, cout=s.cout,
+                itemsize=itemsize, backends=backends,
+                submanifold=s.submanifold, **dataclasses.asdict(costs))
+        else:
+            # features from a generator seeded by a stable function of the
+            # layer's name (Python's hash is salted per process)
+            gen = torch.Generator().manual_seed(zlib.crc32(s.name.encode()))
+            feats = torch.randn((plan.coords[s.m_in].capacity, s.cin),
+                                generator=gen).to(
+                device=stp.packed.device, dtype=params.head.dtype)
+            _, anchors, zstep = zdelta_offsets(s.K, s.offset_stride, layout,
+                                               device=stp.packed.device)
+            coords = (plan.coords[s.m_in], plan.coords[s.m_out], anchors,
+                      zstep)
+            res = tune_layer_measure(
+                feats, kmap, params.layers[s.name].weight.detach(), K=s.K,
+                stride=s.offset_stride, ws_capacity=kmap.m.shape[0],
+                backends=backends, coords=coords,
+                submanifold=s.submanifold, engine=engine)
+        results[s.name] = res
+    return tuple(apply_tuning(s, results[s.name]) for s in net.specs), results
+
+
+def _limit_windows(specs: Tuple[SpConvSpec, ...], engine: str,
+                   layout: BitLayout):
+    """Hold every spec's window to the largest its engine's search kernel
+    can stage for the layout's words; returns the specs and
+    ``{layer: (planned W, W used)}`` of those held."""
+    if engine not in ("zdelta_cuda", "zdelta_cuda_window"):
+        return specs, {}
+    kind = "superwindow" if engine == "zdelta_cuda" else "window"
+    out, limited = [], {}
+    for s in specs:
+        sym = s.symmetry and s.submanifold and engine == "zdelta_cuda"
+        G = symmetry_anchor_count(s.K) if sym else s.K * s.K
+        cap = max_window(kind, layout.dtype, G, s.K)
+        if s.window > cap:
+            limited[s.name] = (s.window, cap)
+            s = dataclasses.replace(s, window=cap)
+        out.append(s)
+    return tuple(out), limited

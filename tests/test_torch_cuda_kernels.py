@@ -11,6 +11,10 @@ and a ``compile_train`` step through the kernels against the plain path.
 LM serving: the flash attention kernel against its plain version (head
 dims 64/128/256, fp32/bf16, ragged, cross-length, GQA, strided inputs),
 and a small dense LM's prefill, decode and slot engine on the card.
+Tuner and baselines: measure-mode tuning times and picks the kernels
+only, a window above the search kernels' largest is held to it (int32
+and int64 words) with exact maps, and the hash, bsearch and sequential
+plans equal the superwindow engine's, build after build.
 """
 import numpy as np
 import pytest
@@ -1121,3 +1125,112 @@ def test_lm_serve_engine_on_card(dev):
                             if backend == "auto" else 0)
         outs[backend] = [r.out for r in reqs]
     assert outs["auto"] == outs["torch"]
+
+
+# ---------------------------------------------------------------------------
+# the tuner and the paper's baselines on the card
+# ---------------------------------------------------------------------------
+
+def _scene_clouds(seed=2, extent=(96, 80, 32), channels=5, scenes_n=2):
+    batch = scenes.scene_batch(seed=seed, batch=scenes_n, kind="outdoor",
+                               extent=extent, overlap=0.5)
+    rng = np.random.default_rng(seed)
+    return batch[0].layout, [
+        (sc.coords, rng.normal(size=(len(sc.coords), channels))
+         .astype(np.float32)) for sc in batch]
+
+
+def test_measure_tuning_on_card_runs_the_kernels(dev):
+    """Measure mode on the card times the kernels only: every tuned layer
+    and the segment engine on "cuda", and the tuned session serves."""
+    layout, clouds = _scene_clouds()
+    net = pc.centerpoint_large(width=(8, 8, 8, 8))
+    sample = SparseTensor.from_point_clouds(clouds[:1], layout.with_batch(2))
+    s = compile_network(net, layout, batch=2, min_bucket=128,
+                        tuner="measure", tune_sample=sample)
+    assert all(sp.backend == "cuda" for sp in s.net.specs)
+    for r in s.tune_report.results.values():
+        assert {k[1] for k in r.per_config} == {"cuda"} and r.window > 0
+    assert s.segment.backend == "cuda"
+    assert set(s.tune_report.segment.per_backend) == {"cuda"}
+    out = s(SparseTensor.from_point_clouds(clouds, s.layout))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.features[:int(out.count)]).all())
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+def test_oversized_window_is_limited_and_exact(dev, wide):
+    """The largest window ``max_window`` names launches and twice it does
+    not; a tuned W above it is held to it, and the session's maps equal
+    the exact search's."""
+    from repro_torch.core.network_plan import build_network_plan
+    from repro_torch.core.tuner import LayerTuneResult
+    from repro_torch.kernels.zdelta_window import max_window
+    sc = scenes.outdoor_scene(2, extent=(768, 768, 40))
+    layout = (packing.BitLayout(bx=12, by=12, bz=7, bb=1, guard=sc.layout.guard)
+              if wide else sc.layout.with_batch(2))
+    assert layout.dtype == (torch.int64 if wide else torch.int32)
+    rng = np.random.default_rng(0)
+    st = SparseTensor.from_point_clouds(
+        [(sc.coords, rng.normal(size=(len(sc.coords), 4)).astype(np.float32))],
+        layout)
+    cs = voxel.build_coord_set(st.pad_to(65536).packed)
+    for kind, search in (("superwindow", zdelta_superwindow_search),
+                         ("window", zdelta_window_search)):
+        cap = max_window(kind, layout.dtype, 9, 3)
+        assert cap == (16384 if wide else 32768)
+        _, anchors, zstep = zdelta.zdelta_offsets(3, 1, layout, device=dev)
+        m, ovf = search(cs, cs, anchors, zstep, K=3, W=cap, backend="cuda")
+        torch.cuda.synchronize()
+        assert int(ovf.sum()) == 0
+        assert torch.equal(m, zdelta.zdelta_search(cs, cs, anchors, zstep,
+                                                   K=3))
+        with pytest.raises(RuntimeError):
+            search(cs, cs, anchors, zstep, K=3, W=2 * cap, backend="cuda")
+    net = pc.tiny_segnet(in_channels=4, n_classes=5, width=8, depth=2)
+    big = LayerTuneResult(t_best=0, backend="cuda", bm=0, bn=0,
+                          window=10 ** 6, per_config={}, mode="measure")
+    for engine, kind in (("zdelta_cuda", "superwindow"),
+                         ("zdelta_cuda_window", "window")):
+        s = compile_network(net, layout, engine=engine,
+                            tuner={sp.name: big for sp in net.specs})
+        cap = max_window(kind, layout.dtype, 9, 3)
+        assert s.tune_report.windows_limited == {
+            sp.name: (10 ** 6, cap) for sp in net.specs}
+        plan = s.plan(st)
+        ref = build_network_plan(st.pad_to(plan.coords[0].capacity).packed,
+                                 specs=net.specs, layout=layout,
+                                 engine="zdelta")
+        for sp in net.specs:
+            assert torch.equal(plan.kmaps[sp.name].m, ref.kmaps[sp.name].m)
+        out = s(st)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out.features[:int(out.count)]).all())
+
+
+def test_baseline_engines_on_card_equal_zdelta_cuda(dev):
+    """The hash engine's maps equal the superwindow engine's on every
+    MinkUNet-42 and CenterPoint-Large layer, build after build (its insert
+    scatter keeps an arbitrary winner per slot on the card); so do the
+    bsearch engine's and the sequential plan's."""
+    from repro_torch.core.network_plan import (build_network_plan,
+                                               sequential_plan_fns)
+    layout, clouds = _scene_clouds(extent=(256, 256, 32))
+    st = SparseTensor.from_point_clouds(clouds, layout.with_batch(2))
+    p = st.pad_to(-(-st.capacity // 128) * 128).packed
+    specs = (pc.minkunet42(width=(8, 8, 8, 8)).specs
+             + pc.centerpoint_large(width=(8, 8, 8, 8)).specs)
+    ref = build_network_plan(p, specs=specs, layout=st.layout)
+    for engine, builds in (("hash", 4), ("bsearch", 1)):
+        for _ in range(builds):
+            plan = build_network_plan(p, specs=specs, layout=st.layout,
+                                      engine=engine)
+            for s in specs:
+                assert torch.equal(plan.kmaps[s.name].m,
+                                   ref.kmaps[s.name].m), (engine, s.name)
+    sort_fn, level_fns, map_fns = sequential_plan_fns(specs, st.layout)
+    v0 = sort_fn(p)
+    coords = {0: v0, **{m: fn(v0) for m, fn in level_fns.items()}}
+    for s in specs:
+        km = map_fns[s.name](coords[s.m_in], coords[s.m_out])
+        assert torch.equal(km.m, ref.kmaps[s.name].m), s.name

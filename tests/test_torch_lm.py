@@ -114,9 +114,9 @@ def test_configs_are_the_references(arch, smoke):
                                   "qwen3-moe-30b-a3b", "musicgen-medium"])
 def test_unported_archs_raise(arch):
     tc = tconfigs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         ttf.init_params(tc, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         ttf.init_decode_state(tc, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError):
         ttf.loss_fn()

@@ -362,10 +362,15 @@ def test_downsample_methods_give_one_plan():
 
 
 def test_unported_engine_raises():
+    """An unknown engine raises; the paper's baselines are engines now."""
     p, jl, tl = _batch_packed()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown engine"):
         build_network_plan(T(p), specs=(SpConvSpec("a", 4, 8),), layout=tl,
-                           engine="hash")
+                           engine="octree")
+    for engine in ("bsearch", "hash"):
+        plan = build_network_plan(T(p), specs=(SpConvSpec("a", 4, 8),),
+                                  layout=tl, engine=engine)
+        assert plan.kmaps["a"].m.shape[1] == 27
 
 
 def test_bucketing_matches_reference():

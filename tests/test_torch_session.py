@@ -137,9 +137,21 @@ def test_session_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="channels"):
         s(SparseTensor.from_point_clouds([(c, f[:, :3])], s.layout,
                                          device=CPU))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tune_sample"):
         compile_network(net, _tl(jl), tuner="measure", device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+    with pytest.raises(ValueError, match="tuner"):
+        compile_network(net, _tl(jl), tuner="fastest", device=CPU)
+    # the tuner runs: measure mode on the CPU sweeps the plain versions
+    sample = SparseTensor.from_point_clouds(clouds[:1], _tl(jl), device=CPU)
+    tuned = compile_network(net, _tl(jl), batch=2, tuner="measure",
+                            tune_sample=sample, device=CPU)
+    assert all(sp.backend == "torch" for sp in tuned.net.specs)
+    assert set(tuned.tune_report.results) == {sp.name for sp in net.specs}
+    assert tuned.segment.backend == "torch"
+    out = tuned(SparseTensor.from_point_clouds(clouds, tuned.layout,
+                                               device=CPU))
+    assert bool(torch.isfinite(out.features[:int(out.count)]).all())
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
         s.compile_train(guard=True)
 
 
