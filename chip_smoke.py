@@ -138,6 +138,35 @@ bucket 262,144):
 6d. the WS dataflow's training at full width: 2 steps (WS forward and dF
    at Cout 32-256) and its gradients against the plain path as in 6c.
 
+The self-healing trainer and its checkpoints (phase 9, after 6d; the same
+scenes, labels and bucket; every attempt — a full batch or a bisection
+sub-batch — launches each kernel as a 6b step does and runs one plan's
+42 searches; checkpoints go to a temporary directory):
+
+9a. ``compile_train(guard=...)`` and ``compile_train()`` from the same
+   weights, 13 clean steps each in turns: params, moments and step bitwise
+   equal after every step; ms per step of each (CUDA events) over the
+   last 12 pairs, in alternating order, and the per-pair difference's
+   median and quartiles;
+9b. scene 0 alone at its bucket, a bisected commit's shape: its gradients
+   against the plain path as in 6c; scene 1 poisoned with NaN, then +Inf, then -Inf
+   (``train.faults.poison_scene_nonfinite``): each full batch refused
+   (``step_ok`` 0), scene 0 committed alone by bisection and scene 1
+   quarantined, the state bitwise equal to the plain trainer stepped on
+   scene 0 alone, nothing non-finite in params or moments; then every
+   label poisoned (``poison_labels``) after the detector has its history:
+   skipped as a spike, the state unchanged; the counters and the ms of a
+   bisected step;
+9c. ``GuardConfig(ckpt_every=2)`` with an async manager (keep 3): the ms
+   a save blocks the step, the writer's ms and the checkpoint's size; a
+   fresh session resumed from step 6 (restore ms) and stepped twice,
+   bitwise equal to the uninterrupted run's step 8; step ms with a write
+   in flight against without one, in turns; the newest checkpoint
+   byte-flipped: resume walks back to step 6 with one checksum failure;
+   both scenes NaN: every ``rollback_after`` dead steps restore
+   ``last_good`` bitwise, and after ``max_rollbacks`` the trainer raises
+   ``TrainAbortError``.
+
 yi-9b LM serving (48 layers, d_model 4096, 32 heads, GQA kv 4, head dim
 128, bf16; random weights from a seeded generator on the card):
 
@@ -205,6 +234,8 @@ PORT_ONLY = {
                        "src/repro/core/dataflow.py:282"),
 }
 TRAIN_STEPS = 5
+SPIKE_WARM_STEPS = 10           # phase 9b's clean commits before the spike
+GUARD_PAIRS = 12                # phase 9a's timed guarded/plain step pairs
 LM_ARCH = "yi-9b"
 LM_SLOTS, LM_CACHE, LM_MAX_NEW = 4, 4096, 16
 LM_LONG = (1024, 2000)          # long prompts: multi-tile causal work
@@ -981,6 +1012,376 @@ def train_drive(trainer, st, lab, steps: int, expected: dict,
             raise RuntimeError(f"{label} step {i}: non-finite metrics {m}")
         metrics.append(m)
     return times, metrics, launch_counts()
+
+
+# -- phase 9: the self-healing trainer and its checkpoints --------------------
+
+def event_ms(fn) -> tuple:
+    """``fn()`` between two CUDA events: its ms on the card's timeline
+    (the trainer's step ends in a host read, so the events bracket all of
+    it) and its result."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+class AttemptCheck:
+    """Wraps a guarded trainer's step function: every attempt (a full
+    batch or a bisection sub-batch) must launch each kernel exactly as a
+    plain training step does and run one inference plan's searches. The
+    launch counters are host counts taken at enqueue, so this adds no
+    sync. ``totals`` sums each kernel's launches over the attempts alone:
+    the guarded path's run, whatever else launches in between."""
+
+    def __init__(self, expected: dict, label: str):
+        self.expected = expected
+        self.label = label
+        self.attempts = 0
+        self.totals = {k: 0 for k in expected}
+
+    def wrap(self, trainer) -> None:
+        inner = trainer._step
+
+        def step(*args):
+            from repro_torch.core.zdelta import search_call_count
+            from repro_torch.kernels import launch_counts
+            before, s0 = launch_counts(), search_call_count()
+            out = inner(*args)
+            after = launch_counts()
+            grew = {k: after[k] - before[k] for k in after}
+            if grew != self.expected:
+                raise RuntimeError(f"{self.label} attempt {self.attempts}: "
+                                   f"launches {grew}, expected "
+                                   f"{self.expected}")
+            searches = search_call_count() - s0
+            if searches != self.expected["zdelta_superwindow_search"]:
+                raise RuntimeError(f"{self.label} attempt {self.attempts}: "
+                                   f"{searches} kernel-map searches")
+            self.attempts += 1
+            for k, v in grew.items():
+                self.totals[k] += v
+            return out
+
+        trainer._step = step
+
+
+def train_state(session, trainer) -> dict:
+    """A trainer's state by name: parameters, moments and the step."""
+    out = {f"p:{k}": p for k, p in session.params.named_parameters()}
+    out.update({f"mu:{k}": t for k, t in trainer.opt_state.mu.items()})
+    out.update({f"nu:{k}": t for k, t in trainer.opt_state.nu.items()})
+    out["step"] = trainer.opt_state.step
+    return out
+
+
+def snapshot_state(session, trainer) -> dict:
+    return {k: v.clone() if hasattr(v, "clone") else v
+            for k, v in train_state(session, trainer).items()}
+
+
+def same_state(a: dict, b: dict, what: str) -> None:
+    """Raise unless two states are bitwise equal (step included)."""
+    import torch
+    if a["step"] != b["step"]:
+        raise RuntimeError(f"{what}: step {a['step']} != {b['step']}")
+    diff = [k for k in a if k != "step" and not torch.equal(a[k], b[k])]
+    if diff:
+        raise RuntimeError(f"{what}: {len(diff)} tensors differ, first "
+                           f"{diff[:3]}")
+
+
+def all_finite(state: dict, what: str) -> None:
+    import torch
+    bad = [k for k, v in state.items() if k != "step"
+           and not bool(torch.isfinite(v).all())]
+    if bad:
+        raise RuntimeError(f"{what}: non-finite values in {bad[:3]}")
+
+
+def guard_phases(tnet, plain_tnet, lbatch, tst, tlab, expected: dict,
+                 paths: dict, card: str) -> None:
+    """Phases 9a-9c (module doc): the guarded trainer at full width on
+    phase 6b's scenes and labels, checkpoints in a temporary directory."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core.zdelta import reset_search_calls
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.serve import compile_network
+    from repro_torch.train import (GuardConfig, GuardedPointCloudTrainer,
+                                   TrainAbortError, checkpoint_trees,
+                                   labeled_batch)
+    from repro_torch.train import faults as tf
+    layout = lbatch[0].layout
+    n_l = len(tnet.specs)
+    check = AttemptCheck(expected, "9 guarded")
+
+    # -- 9a. guarded against plain, clean batches --------------------------
+    reset_launch_counts()
+    reset_search_calls()
+    sg = compile_network(tnet, layout, batch=2, seed=0)
+    n_params = sum(p.numel() for p in sg.params.parameters())
+    log(f"[9 memory] {n_params:,} parameters: a staged guarded update "
+        f"holds {3 * n_params * 4 / 2**20:.1f} MiB beside them (new "
+        "parameters and both moments)")
+    sp = compile_network(tnet, layout, batch=2, seed=0)
+    guard = GuardConfig(spike_window=6, spike_factor=1.8, spike_min_history=4)
+    tg = sg.compile_train(guard=guard)
+    if not isinstance(tg, GuardedPointCloudTrainer):
+        raise RuntimeError("9a: compile_train(guard=...) is not guarded")
+    tp = sp.compile_train()
+    check.wrap(tg)
+    same_state(train_state(sg, tg), train_state(sp, tp), "9a start")
+    # one warm step each (the first guarded step also grows the allocator
+    # by the staged update's buffers), then GUARD_PAIRS timed pairs; the
+    # order within a pair alternates
+    ms_g, ms_p, losses = [], [], []
+    trainers = {"guarded": tg, "plain": tp}
+    for i in range(1 + GUARD_PAIRS):
+        order = ("guarded", "plain") if i % 2 == 0 else ("plain", "guarded")
+        out = {k: event_ms(lambda: trainers[k].step(tst, tlab))
+               for k in order}
+        (tg_ms, m), (tp_ms, mp) = out["guarded"], out["plain"]
+        if not (tg.last_report.ok and m["step_ok"] == 1.0
+                and m["loss"] == mp["loss"]):
+            raise RuntimeError(f"9a step {i}: {tg.last_report.summary()}, "
+                               f"loss {m['loss']} vs plain {mp['loss']}")
+        same_state(train_state(sg, tg), train_state(sp, tp), f"9a step {i}")
+        losses.append(m["loss"])
+        if i:
+            ms_g.append(tg_ms)
+            ms_p.append(tp_ms)
+    diff = np.array(ms_g) - np.array(ms_p)
+    q25, q50, q75 = (float(v) for v in np.percentile(diff, [25, 50, 75]))
+    verdict = ("resolved" if q25 > 0 or q75 < 0 else
+               "unresolved: the quartiles straddle 0")
+    log(f"[9a guarded] {tnet.name} full width, batch 2: {1 + GUARD_PAIRS} "
+        f"clean steps, params, moments and step bitwise equal to the plain "
+        f"trainer's after every step; losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; ms per step (CUDA events,"
+        f" after one warm step each, {GUARD_PAIRS} pairs in alternating "
+        f"order) guarded {', '.join(f'{v:.1f}' for v in ms_g)}, plain "
+        f"{', '.join(f'{v:.1f}' for v in ms_p)}; medians guarded "
+        f"{float(np.median(ms_g)):.1f} (range {min(ms_g):.1f}-"
+        f"{max(ms_g):.1f}), plain {float(np.median(ms_p)):.1f} (range "
+        f"{min(ms_p):.1f}-{max(ms_p):.1f}); guarded minus plain per pair: "
+        f"median {q50:.1f} ms, quartiles {q25:.1f} / {q75:.1f} ({verdict})"
+        f" | {card}")
+
+    # -- 9b. poison: bisection, quarantine, the spike skip -----------------
+    single = labeled_batch([lbatch[0]], sg.layout)
+    # a bisected commit runs the training kernels on scene 0 alone at its
+    # own bucket: hold that shape's gradients against the plain path first
+    cap = sg._bucket(single[0].capacity)
+    sst = single[0].pad_to(cap)
+    slab = torch.cat([single[1], torch.full(
+        (cap - single[1].shape[0],), -1, dtype=torch.int32,
+        device=single[1].device)])
+    grads_vs_plain(f"9b grads scene 0 at bucket {cap}", tnet, plain_tnet,
+                   sg.layout, sg.params, sst.packed, sst.features, slab,
+                   card)
+    del sst, slab
+    torch.cuda.empty_cache()
+    bis_ms = []
+    for value in (float("nan"), float("inf"), float("-inf")):
+        x = tf.poison_scene_nonfinite(tst, 1, value=value)
+        t, m = event_ms(lambda: tg.step(x, tlab))
+        bis_ms.append(t)
+        r = tg.last_report
+        if not (m["step_ok"] == 0.0 and r.action == "bisected"
+                and r.nonfinite and r.committed == [[0]]
+                and r.quarantined == [1]):
+            raise RuntimeError(f"9b {value}: step_ok {m['step_ok']}, "
+                               f"{r.summary()}")
+        tp.step(*single)
+        same_state(train_state(sg, tg), train_state(sp, tp),
+                   f"9b {value} (bisected commit vs the plain trainer on "
+                   "scene 0 alone)")
+        all_finite(train_state(sg, tg), f"9b {value}")
+        log(f"[9b poison] scene 1 feature = {value}: full batch step_ok 0, "
+            f"{r.summary()}; state bitwise equal to the plain trainer "
+            f"stepped on scene 0 alone; no non-finite parameter or moment; "
+            f"bisected step {t:.1f} ms | {card}")
+    # the spike needs a trained baseline (at random init every label costs
+    # about ln 20, a poisoned one too; the reference's spike test trains
+    # 15 steps first): clean steps in lockstep first
+    for i in range(SPIKE_WARM_STEPS):
+        m = tg.step(tst, tlab)
+        tp.step(tst, tlab)
+        same_state(train_state(sg, tg), train_state(sp, tp),
+                   f"9b clean step {i}")
+        losses.append(m["loss"])
+    ring = list(tg._spikes.ring)
+    labeled = int(tst.count)
+    bad_lab = tf.poison_labels(tlab, rows=range(labeled))
+    before = snapshot_state(sg, tg)
+    m = tg.step(tst, bad_lab)
+    r = tg.last_report
+    if not (r.spike and not r.nonfinite and m["step_ok"] == 1.0
+            and r.committed == []):
+        raise RuntimeError(f"9b label poison: {r.summary()} (median of "
+                           f"{len(ring)} committed losses "
+                           f"{float(np.median(ring)):.4f}, factor "
+                           f"{guard.spike_factor})")
+    same_state(train_state(sg, tg), before, "9b label poison")
+    log(f"[9b spike] {SPIKE_WARM_STEPS} more clean steps in lockstep "
+        f"(bitwise; full-batch losses so far "
+        f"{', '.join(f'{v:.4f}' for v in losses)}), then all {labeled} "
+        f"labeled rows set to 10**6 (clipped to class {tnet.n_classes - 1}):"
+        f" loss "
+        f"{m['loss']:.4f} against {guard.spike_factor} x the median "
+        f"{float(np.median(ring)):.4f} of the last committed losses: "
+        f"{r.summary()}; state unchanged bitwise")
+    log(f"[9b counters] {tg.counters}; bisected step ms "
+        f"{', '.join(f'{v:.1f}' for v in bis_ms)} (median "
+        f"{float(np.median(bis_ms)):.1f}) against the guarded clean step's "
+        f"{float(np.median(ms_g)):.1f} | {card}")
+    del sg, sp, tg, tp, single, before
+    torch.cuda.empty_cache()
+
+    # -- 9c. checkpoints: cadence, kill and resume, corruption, rollback ---
+    with tempfile.TemporaryDirectory() as d:
+        sc = compile_network(tnet, layout, batch=2, seed=0)
+        mgr = CheckpointManager(d, keep=3, async_save=True,
+                                metrics=sc.metrics)
+        tc = sc.compile_train(guard=GuardConfig(ckpt_every=2), ckpt=mgr)
+        check.wrap(tc)
+        blocked = []
+        save = mgr.save
+
+        def timed_save(*a, **k):
+            t0 = time.perf_counter()
+            save(*a, **k)
+            blocked.append((time.perf_counter() - t0) * 1e3)
+
+        mgr.save = timed_save
+        for _ in range(6):
+            tc.step(tst, tlab)
+        mgr.wait()
+        snap6 = snapshot_state(sc, tc)
+        if mgr.complete_steps() != [2, 4, 6] or mgr.last_good_step() != 4:
+            raise RuntimeError(f"9c cadence: checkpoints "
+                               f"{mgr.complete_steps()}, last_good "
+                               f"{mgr.last_good_step()}")
+        h = sc.metrics.snapshot()["histograms"]
+        nbytes = os.path.getsize(os.path.join(d, "ckpt_00000006.npz"))
+        log(f"[9c save] ckpt_every 2, keep 3, async: saves at steps 2, 4, "
+            f"6 (last_good 4); {nbytes / 2**20:.1f} MiB per checkpoint; "
+            f"ms a save blocks the step {', '.join(f'{v:.1f}' for v in blocked)}"
+            f" (the D2H snapshot {h['ckpt/snapshot']['sum'] / h['ckpt/snapshot']['count'] * 1e3:.1f}"
+            f" ms mean); the writer (CRC32 + npz + manifest) "
+            f"{h['ckpt/save']['sum'] / h['ckpt/save']['count'] * 1e3:.1f} "
+            f"ms mean over {h['ckpt/save']['count']} writes | {card}")
+
+        # kill at step 6 and resume in a fresh session
+        sr = compile_network(tnet, layout, batch=2, seed=0)
+        tr = sr.compile_train(guard=True, ckpt=d)
+        t0 = time.perf_counter()
+        restored = tr.resume()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if restored != 6:
+            raise RuntimeError(f"9c resume restored step {restored}")
+        same_state(train_state(sr, tr), snap6, "9c resume")
+        check.wrap(tr)
+        for _ in range(2):
+            tr.step(tst, tlab)
+        for _ in range(2):
+            tc.step(tst, tlab)       # the uninterrupted run: steps 7, 8
+        mgr.wait()
+        same_state(train_state(sr, tr), train_state(sc, tc),
+                   "9c kill and resume")
+        log(f"[9c resume] a fresh session resumed step 6 in {restore_ms:.1f}"
+            f" ms (verify + copy into its tensors), then 2 steps: params, "
+            f"moments and step bitwise equal to the uninterrupted run's "
+            f"step 8 | {card}")
+
+        # a step with a write in flight against one without, in turns
+        scratch = CheckpointManager(os.path.join(d, "contention"), keep=1,
+                                    async_save=True, metrics=sr.metrics)
+        busy, idle, overlap = [], [], []
+        for flight in (True, False, False, True, True, False):
+            if flight:
+                scratch.save(tr.opt_state.step,
+                             *checkpoint_trees(sr.params, tr.opt_state))
+            t, _ = event_ms(lambda: tr.step(tst, tlab))
+            if flight:
+                overlap.append(scratch._thread is not None
+                               and scratch._thread.is_alive())
+                busy.append(t)
+            else:
+                idle.append(t)
+            scratch.wait()
+        log(f"[9c contention] step ms with a checkpoint write in flight "
+            f"{', '.join(f'{v:.1f}' for v in busy)} (median "
+            f"{float(np.median(busy)):.1f}; the write outlasted the step "
+            f"{sum(overlap)} of 3 times), without "
+            f"{', '.join(f'{v:.1f}' for v in idle)} (median "
+            f"{float(np.median(idle)):.1f}) | {card}")
+
+        # corrupt the newest checkpoint: resume walks back to step 6
+        snap8 = mgr.latest_step()
+        tf.corrupt_checkpoint(d, snap8, mode="flip")
+        t3 = sr.compile_train(guard=True, ckpt=d, resume=True)
+        if not (t3.opt_state.step == 6
+                and t3.counters["checksum_failures"] == 1):
+            raise RuntimeError(f"9c corrupt: resumed step "
+                               f"{t3.opt_state.step}, {t3.counters}")
+        same_state(train_state(sr, t3), snap6, "9c corrupt newest")
+        log(f"[9c corrupt] ckpt_{snap8:08d}.npz byte-flipped: resume walked "
+            f"back to step 6 (bitwise), checksum_failures 1")
+        del t3, tr, sr, scratch
+        torch.cuda.empty_cache()
+
+        # rollback_after bad batches restore last_good; then the abort
+        if mgr.last_good_step() != 6:
+            raise RuntimeError(f"9c: last_good {mgr.last_good_step()}")
+        starts, _ = tst.scene_segments()
+        both = tf.poison_nonfinite(tst, rows=tuple(int(s) for s in starts))
+        rollbacks = 0
+        try:
+            for i in range(3 * tc.guard.rollback_after):
+                tc.step(both, tlab)
+                r = tc.last_report
+                if r.action == "rolled_back":
+                    rollbacks += 1
+                    if r.rollback_to != 6:
+                        raise RuntimeError(f"9c rollback to {r.rollback_to}")
+                    same_state(train_state(sc, tc), snap6,
+                               f"9c rollback {rollbacks}")
+        except TrainAbortError as e:
+            abort = e
+        else:
+            raise RuntimeError("9c: no TrainAbortError after max_rollbacks")
+        if rollbacks != tc.guard.max_rollbacks:
+            raise RuntimeError(f"9c: {rollbacks} rollbacks before the abort")
+        same_state(train_state(sc, tc), snap6, "9c after the abort")
+        log(f"[9c rollback] both scenes NaN: every {tc.guard.rollback_after}"
+            f" dead steps restored last_good (step 6) bitwise, "
+            f"{rollbacks} times; then TrainAbortError ({abort}); counters "
+            f"{abort.counters} | {card}")
+        del sc, tc, mgr
+    torch.cuda.empty_cache()
+    totals = check.totals
+    for k in ("zdelta_superwindow_search", "spconv_gather_gemm",
+              "segment_sum", "dw_gather_gemm"):
+        if not totals[k]:
+            raise RuntimeError(f"9: {k} never launched")
+        paths[k]["minkunet42 guarded train step"] = dict(
+            launches=expected[k], attempts=check.attempts,
+            run_total=totals[k])
+    if any(totals[k] for k in totals if not expected[k]):
+        raise RuntimeError(f"9: kernels off the path launched: {totals}")
+    log(f"[9 launches] {check.attempts} guarded attempts (full batches and "
+        f"bisection sub-batches), each with one plan's {n_l} searches and "
+        f"the plain step's launches {({k: v for k, v in expected.items() if v})}; "
+        f"the guarded attempts' total "
+        f"{({k: v for k, v in totals.items() if v})}")
 
 
 def per_forward(r: dict) -> dict:
@@ -2275,6 +2676,7 @@ def main() -> int:
     paths["dw_gather_gemm"] = {"minkunet42 train step": dict(
         launches=per_step["dw_gather_gemm"],
         **per_forward(results["dw_gather_gemm"]))}
+    train_expected = dict(expected)
     paths["masked_group_gemm"] = {"minkunet42 layers (6)": dict(
         launches=results["masked_group_gemm"]["launches"],
         **per_forward(results["masked_group_gemm"]))}
@@ -2337,10 +2739,14 @@ def main() -> int:
                    labp, card)
     del wtrainer, wsess
     torch.cuda.empty_cache()
+    tick("6d WS backward")
 
+    # -- 9. the self-healing trainer and its checkpoints ----------------------
+    guard_phases(tnet, plain_tnet, lbatch, tst, tlab, train_expected, paths,
+                 card)
     del lbatch, tst, tlab, stp, labp, tnet, plain_tnet
     torch.cuda.empty_cache()
-    tick("6d WS backward")
+    tick("9 guarded training and checkpoints")
     lm_phases(results, paths, card)
     tick("7 yi-9b serving")
 

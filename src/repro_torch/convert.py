@@ -1,4 +1,5 @@
-"""Load the JAX package's parameters and optimizer state into the port's.
+"""Carry parameters and optimizer state between the JAX package and the
+port, both ways.
 
 The JAX parameter tree of a point-cloud net is ``{layer: {"w", "b"},
 "head"}``, and that of an LM ``{"embed", "final_norm", "lm_head"?,
@@ -6,7 +7,12 @@ The JAX parameter tree of a point-cloud net is ``{layer: {"w", "b"},
 on axis 0; taken to numpy with ``jax.tree.map(np.asarray, params)`` they
 are plain arrays, which is all this module reads (it imports no JAX). With
 the same weights in both packages, their outputs can be held against each
-other; with the same AdamW state, one update step can.
+other; with the same AdamW state, one update step can. The reverse direction
+(:func:`params_to_jax`, :func:`opt_state_to_jax`) gives the numpy form of
+the JAX trees. Both nest the port's tensors as the JAX trees through
+``models.pointcloud.jax_tree``, as the guarded trainer does when it hands
+its state to the checkpoint manager (``train.guard.checkpoint_trees``), so
+either package restores the other's checkpoints.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import torch
 from .core.spconv import SpConv
 from .models.common import ModelConfig
 from .models.transformer import check_supported
-from .models.pointcloud import PointCloudModel, PointCloudNet
+from .models.pointcloud import PointCloudModel, PointCloudNet, jax_tree
 from .train.optimizer import OptState
 
 
@@ -66,6 +72,33 @@ def opt_state_from_jax(state, net: PointCloudNet, *, device="cuda",
     return OptState(mu=_named_from_jax(state.mu, net, device, dtype),
                     nu=_named_from_jax(state.nu, net, device, dtype),
                     step=int(np.asarray(state.step)))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` that no later in-place update can reach (on
+    the CPU ``.cpu()`` would return the same storage)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _host_tree(named: Mapping[str, torch.Tensor],
+               net: PointCloudNet) -> dict:
+    return jax_tree({k: _host(t) for k, t in named.items()}, net)
+
+
+def params_to_jax(model: PointCloudModel, net: PointCloudNet) -> dict:
+    """A :class:`PointCloudModel` → the numpy form of the JAX parameter
+    tree ``{layer: {"w", "b"?}, "head"}`` (host copies; the inverse of
+    :func:`params_from_jax`)."""
+    return _host_tree(dict(model.named_parameters()), net)
+
+
+def opt_state_to_jax(state: OptState, net: PointCloudNet) -> OptState:
+    """The port's :class:`~repro_torch.train.OptState` → the numpy form of
+    the JAX ``OptState``: ``mu`` and ``nu`` as parameter-shaped trees and
+    ``step`` a 0-d int32 array, under the same field names (the inverse of
+    :func:`opt_state_from_jax`)."""
+    return OptState(mu=_host_tree(state.mu, net), nu=_host_tree(state.nu, net),
+                    step=np.asarray(state.step, np.int32))
 
 
 def _lm_shapes(cfg: ModelConfig) -> dict:

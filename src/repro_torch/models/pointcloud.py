@@ -27,7 +27,7 @@ panels, so parameter gradients are bitwise equal across capacity buckets.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -203,6 +203,33 @@ def init_pointcloud(net: PointCloudNet, *, seed: int = 0, device="cuda",
     head = torch.randn((net.specs[-1].cout, net.n_classes), generator=gen,
                        dtype=torch.float32) * 0.02
     return PointCloudModel(net, layers, head.to(device=device, dtype=dtype))
+
+
+def jax_param_paths(net: PointCloudNet) -> Dict[str, str]:
+    """The port's parameter names → the JAX tree's ``/``-joined paths
+    (``layers.stem.weight`` → ``stem/w``, ``layers.stem.bias`` →
+    ``stem/b``, ``head`` → ``head``), in the order of ``net.specs``."""
+    out = {}
+    for s in net.specs:
+        out[f"layers.{s.name}.weight"] = f"{s.name}/w"
+        if s.bias:
+            out[f"layers.{s.name}.bias"] = f"{s.name}/b"
+    out["head"] = "head"
+    return out
+
+
+def jax_tree(named: Mapping[str, object], net: PointCloudNet) -> dict:
+    """Values keyed by the port's parameter names (the parameters, or an
+    AdamW moment) nested as the JAX package's parameter tree
+    ``{layer: {"w", "b"?}, "head"}``; the leaves are the given objects."""
+    tree: dict = {}
+    for port, path in jax_param_paths(net).items():
+        *outer, leaf = path.split("/")
+        node = tree
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[leaf] = named[port]
+    return tree
 
 
 def _relu_bn(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,

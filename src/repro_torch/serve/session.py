@@ -275,14 +275,34 @@ class SpiraSession:
         updates ``self.params`` in place, so the session serves the trained
         weights at once. The backward adds no kernel-map search.
 
-        ``guard`` / ``ckpt`` / ``resume`` (the reference's self-healing
-        trainer and checkpoints) are not ported yet and raise."""
-        if guard is not None or ckpt is not None or resume:
-            raise NotImplementedError(
-                "compile_train(guard=/ckpt=/resume=) is not ported yet "
-                "(ROADMAP Queue 1, item 3: train/guard.py, ckpt/manager.py)")
-        from ..train.pointcloud import PointCloudTrainer
-        return PointCloudTrainer(self, tcfg, opt_state=opt_state)
+        Any of ``guard`` / ``ckpt`` / ``resume`` upgrades the result to a
+        :class:`~repro_torch.train.GuardedPointCloudTrainer`, the
+        self-healing trainer (``train.guard`` module doc): non-finite skip,
+        loss-spike skip, per-scene bisection quarantine, checkpoint
+        rollback, typed abort.
+
+        * ``guard`` — a :class:`~repro_torch.train.GuardConfig`, or
+          ``True`` for the defaults.
+        * ``ckpt`` — a :class:`~repro_torch.ckpt.CheckpointManager` or a
+          directory path; enables the auto-checkpoint cadence
+          (``GuardConfig.ckpt_every``), the ``last_good`` rollback anchor
+          and crash-safe resume.
+        * ``resume=True`` — restore the newest *verifying* checkpoint from
+          ``ckpt`` before the first step (torn or corrupt checkpoints are
+          walked past).
+        """
+        if guard is None and ckpt is None and not resume:
+            from ..train.pointcloud import PointCloudTrainer
+            return PointCloudTrainer(self, tcfg, opt_state=opt_state)
+        from ..train.guard import GuardConfig, GuardedPointCloudTrainer
+        if guard is True:
+            guard = GuardConfig()
+        if resume and ckpt is None:
+            raise ValueError("compile_train(resume=True) needs ckpt= (a "
+                             "CheckpointManager or directory) to resume "
+                             "from")
+        return GuardedPointCloudTrainer(self, tcfg, guard=guard, ckpt=ckpt,
+                                        opt_state=opt_state, resume=resume)
 
     def _bucket(self, n: int) -> int:
         return bucket_capacity(n, min_bucket=self.min_bucket,

@@ -1,10 +1,13 @@
 """Point-cloud training on the Spira engine (torch port of
-``repro.train``): AdamW and the segmentation trainer behind
-``SpiraSession.compile_train``."""
-from .optimizer import (AdamWConfig, OptState, apply_updates, global_norm,
-                        init_opt_state, lr_at)
+``repro.train``): AdamW, the segmentation trainer and the self-healing
+trainer behind ``SpiraSession.compile_train``."""
+from .guard import (GuardConfig, GuardedPointCloudTrainer, LossSpikeDetector,
+                    TrainAbortError, TrainHealthReport, checkpoint_trees,
+                    guarded_apply_updates, make_guarded_train_step)
+from .optimizer import (AdamWConfig, OptState, StagedUpdate, apply_updates,
+                        global_norm, init_opt_state, lr_at, stage_updates)
 from .pointcloud import (PointCloudTrainConfig, PointCloudTrainer,
                          labeled_batch, labeled_tensor,
-                         make_pointcloud_train_step,
+                         make_grad_fn, make_pointcloud_train_step,
                          make_segmentation_loss_fn, scene_features,
-                         scene_pool, segmentation_loss)
+                         read_metrics, scene_pool, segmentation_loss)

@@ -66,6 +66,39 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _step_scalars(grads: Dict[str, torch.Tensor], state: OptState,
+                  cfg: AdamWConfig):
+    """The step's shared factors: the gradient norm (0-d), its clip scale
+    (0-d), the learning rate and the two bias corrections (host floats)."""
+    step = state.step + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    return gnorm, scale, lr_at(cfg, state.step), 1 - cfg.b1 ** step, \
+        1 - cfg.b2 ** step
+
+
+def _leaf_update(p, g, m, v, scale, lr: float, bc1: float, bc2: float,
+                 cfg: AdamWConfig):
+    """One tensor's new (param, first moment, second moment), out of place.
+    The plain and the guarded update both go through here, so a committed
+    guarded step is bitwise the plain one."""
+    b1, b2 = cfg.b1, cfg.b2
+    g32 = g.float() * scale
+    m32 = b1 * m.float() + (1 - b1) * g32
+    v32 = b2 * v.float() + (1 - b2) * g32 * g32
+    delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) \
+        + cfg.weight_decay * p.float()
+    return p.float() - lr * delta, m32, v32
+
+
+@torch.no_grad()
+def _commit(p, m, v, new) -> None:
+    p.copy_(new[0])
+    m.copy_(new[1])
+    v.copy_(new[2])
+
+
 @torch.no_grad()
 def apply_updates(params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state: OptState,
@@ -74,22 +107,40 @@ def apply_updates(params: Dict[str, torch.Tensor],
     on the state's moments. Returns ``(params, new_state, metrics)`` with
     ``metrics = {"grad_norm": 0-d tensor, "lr": float}``, as the
     reference's ``(new_params, new_state, metrics)``."""
-    step = state.step + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    lr = lr_at(cfg, state.step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - b1 ** step
-    bc2 = 1 - b2 ** step
+    gnorm, scale, lr, bc1, bc2 = _step_scalars(grads, state, cfg)
     for k, p in params.items():
-        g32 = grads[k].float() * scale
-        m32 = b1 * state.mu[k].float() + (1 - b1) * g32
-        v32 = b2 * state.nu[k].float() + (1 - b2) * g32 * g32
-        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        state.mu[k].copy_(m32)
-        state.nu[k].copy_(v32)
-    return params, OptState(state.mu, state.nu, step), {"grad_norm": gnorm,
-                                                        "lr": lr}
+        _commit(p, state.mu[k], state.nu[k], _leaf_update(
+            p, grads[k], state.mu[k], state.nu[k], scale, lr, bc1, bc2, cfg))
+    return params, OptState(state.mu, state.nu, state.step + 1), {
+        "grad_norm": gnorm, "lr": lr}
+
+
+class StagedUpdate:
+    """An AdamW step computed out of place and not yet written: the
+    guarded trainer's update (``train.guard``). :meth:`commit` copies the
+    new values into the parameter and moment tensors and returns the new
+    state; dropping the object leaves them bitwise as they were."""
+
+    def __init__(self, params, state: OptState, new: dict):
+        self.params = params
+        self.state = state
+        self.new = new
+
+    def commit(self) -> OptState:
+        for k, p in self.params.items():
+            _commit(p, self.state.mu[k], self.state.nu[k], self.new[k])
+        return OptState(self.state.mu, self.state.nu, self.state.step + 1)
+
+
+@torch.no_grad()
+def stage_updates(params: Dict[str, torch.Tensor],
+                  grads: Dict[str, torch.Tensor], state: OptState,
+                  cfg: AdamWConfig):
+    """The AdamW step of :func:`apply_updates`, same ops in the same order,
+    with nothing written: returns ``(StagedUpdate, metrics)``. Holds one
+    extra copy of the parameters and of both moments until committed or
+    dropped."""
+    gnorm, scale, lr, bc1, bc2 = _step_scalars(grads, state, cfg)
+    new = {k: _leaf_update(p, grads[k], state.mu[k], state.nu[k], scale, lr,
+                           bc1, bc2, cfg) for k, p in params.items()}
+    return StagedUpdate(params, state, new), {"grad_norm": gnorm, "lr": lr}

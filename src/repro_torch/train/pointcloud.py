@@ -219,6 +219,32 @@ def make_segmentation_loss_fn(
     return loss_fn
 
 
+def make_grad_fn(
+    net: PointCloudNet,
+    layout: BitLayout,
+    *,
+    engine: str = "zdelta_cuda",
+    downsample_method: str = "auto",
+    segment: Optional[SegmentSpec] = None,
+) -> Callable:
+    """The plan → forward → loss → backward chain as ``grad_fn(params,
+    packed, feats, labels) -> (named, grads, loss, accuracy)``: the
+    parameters by name, their gradients under the same names, and the
+    detached 0-d loss and accuracy."""
+    loss_fn = make_segmentation_loss_fn(
+        net, layout, engine=engine, downsample_method=downsample_method,
+        segment=segment)
+
+    def grad_fn(params: PointCloudModel, packed, feats, labels):
+        named = dict(params.named_parameters())
+        with torch.enable_grad():
+            loss, acc = loss_fn(params, packed, feats, labels)
+            grads = torch.autograd.grad(loss, list(named.values()))
+        return named, dict(zip(named, grads)), loss.detach(), acc.detach()
+
+    return grad_fn
+
+
 def make_pointcloud_train_step(
     net: PointCloudNet,
     layout: BitLayout,
@@ -233,22 +259,29 @@ def make_pointcloud_train_step(
     metrics)``. ``params`` (a :class:`PointCloudModel`) is updated in
     place and returned; ``metrics`` holds 0-d tensors ``loss``,
     ``accuracy``, ``grad_norm`` and the float ``lr``."""
-    loss_fn = make_segmentation_loss_fn(
-        net, layout, engine=engine, downsample_method=downsample_method,
-        segment=segment)
+    grad_fn = make_grad_fn(net, layout, engine=engine,
+                           downsample_method=downsample_method,
+                           segment=segment)
 
     def step(params: PointCloudModel, opt_state: OptState, packed, feats,
              labels):
-        named = dict(params.named_parameters())
-        with torch.enable_grad():
-            loss, acc = loss_fn(params, packed, feats, labels)
-            grads = torch.autograd.grad(loss, list(named.values()))
-        _, opt_state, metrics = apply_updates(named, dict(zip(named, grads)),
-                                              opt_state, tcfg.opt)
-        metrics.update(loss=loss.detach(), accuracy=acc.detach())
+        named, grads, loss, acc = grad_fn(params, packed, feats, labels)
+        _, opt_state, metrics = apply_updates(named, grads, opt_state,
+                                              tcfg.opt)
+        metrics.update(loss=loss, accuracy=acc)
         return params, opt_state, metrics
 
     return step
+
+
+def read_metrics(metrics: dict) -> dict:
+    """A step's metrics as host floats, its 0-d tensors read in one
+    device-to-host copy (one sync per step, however many metrics)."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    out = dict(metrics)
+    out.update(zip(keys, torch.stack([metrics[k].float() for k in keys])
+                   .tolist()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -314,12 +347,12 @@ class PointCloudTrainer:
         with span("train/pack", self.metrics):
             stp, labels = self._prepare(st, labels)
         self._buckets.add(stp.capacity)
-        # the span ends after the float() reads, which wait for the device
+        # the span ends after the metrics' read, which waits for the device
         with span("train/step", self.metrics):
             _, self.opt_state, metrics = self._step(
                 self.session.params, self.opt_state, stp.packed,
                 stp.features, labels)
-            out = {k: float(v) for k, v in metrics.items()}
+            out = read_metrics(metrics)
         return out
 
     @property

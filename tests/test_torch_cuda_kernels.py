@@ -15,6 +15,10 @@ Tuner and baselines: measure-mode tuning times and picks the kernels
 only, a window above the search kernels' largest is held to it (int32
 and int64 words) with exact maps, and the hash, bsearch and sequential
 plans equal the superwindow engine's, build after build.
+The guarded trainer: NaN and ±Inf features make the gradient norm
+non-finite through the kernels, a refused step is bitwise a no-op, a
+bisected commit equals the plain trainer on the same scene, and the
+guarded update syncs no more than the plain one.
 """
 import numpy as np
 import pytest
@@ -1234,3 +1238,147 @@ def test_baseline_engines_on_card_equal_zdelta_cuda(dev):
     for s in specs:
         km = map_fns[s.name](coords[s.m_in], coords[s.m_out])
         assert torch.equal(km.m, ref.kmaps[s.name].m), s.name
+
+
+# -- the self-healing trainer on the card -------------------------------------
+
+def _guard_case(dev):
+    """A narrow MinkUNet-42 session, its labeled batch of 2 and a second
+    session with the same weights in separate tensors."""
+    from repro_torch.train import labeled_batch
+    batch = scenes.scene_batch(seed=3, batch=2, kind="outdoor",
+                               extent=(160, 160, 32), overlap=0.5,
+                               labels=True, n_classes=8)
+    net = pc.minkunet42(width=(16, 16, 32, 32), n_classes=8)
+    s = compile_network(net, batch[0].layout, batch=2, device=dev)
+    twin = compile_network(net, batch[0].layout, batch=2, device=dev)
+    st, lab = labeled_batch(batch, s.layout, device=dev)
+    return batch, s, twin, st, lab
+
+
+def _state(s, tr):
+    return ([p.detach().clone() for p in s.params.parameters()]
+            + [t.clone() for t in tr.opt_state.mu.values()]
+            + [t.clone() for t in tr.opt_state.nu.values()]
+            + [tr.opt_state.step])
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"),
+                                   float("-inf")])
+def test_nonfinite_features_make_the_gradient_norm_nonfinite(dev, value):
+    """NaN and ±Inf in one scene's features reach the loss or the gradient
+    norm through the OS forward and dF, dW and the segment sum (3xTF32
+    splits an Inf into hi = Inf, lo = NaN): the guarded update refuses the
+    step."""
+    from repro_torch.train import faults as tf
+    from repro_torch.train import (PointCloudTrainConfig,
+                                   guarded_apply_updates, init_opt_state)
+    from repro_torch.train.pointcloud import make_grad_fn
+    _, s, _, st, lab = _guard_case(dev)
+    stp = tf.poison_scene_nonfinite(st, 1, value=value).pad_to(
+        s._bucket(st.capacity))
+    labp = torch.cat([lab, torch.full((stp.capacity - lab.shape[0],), -1,
+                                      dtype=torch.int32, device=dev)])
+    grad_fn = make_grad_fn(s.net, s.layout)
+    reset_launch_counts()
+    named, grads, loss, _ = grad_fn(s.params, stp.packed, stp.features, labp)
+    n = launch_counts()
+    assert n["spconv_gather_gemm"] == 83 and n["dw_gather_gemm"] == 43
+    assert n["segment_sum"] == 127
+    cfg = PointCloudTrainConfig().opt
+    _, m = guarded_apply_updates(named, grads, init_opt_state(named, cfg),
+                                 cfg, loss=loss)
+    assert not bool(m["step_ok"])
+    assert not bool(torch.isfinite(m["grad_norm"]))
+
+
+def test_guarded_noop_on_card_is_bitwise(dev):
+    """A refused step (both scenes NaN) leaves params, moments and step
+    bitwise as they were, through the kernels."""
+    from repro_torch.train import faults as tf
+    _, s, _, st, lab = _guard_case(dev)
+    tr = s.compile_train(guard=True)
+    tr.step(st, lab)
+    before = _state(s, tr)
+    starts, _ = st.scene_segments()
+    m = tr.step(tf.poison_nonfinite(st, rows=tuple(int(x) for x in starts)),
+                lab)
+    assert m["step_ok"] == 0.0 and tr.last_report.quarantined == [0, 1]
+    assert tr.last_report.committed == []
+    assert _same(_state(s, tr), before)
+
+
+def test_bisected_commit_equals_plain_scene_step_on_card(dev):
+    """NaN in scene 1: bisection commits scene 0 alone, bitwise equal to
+    the plain trainer stepped on scene 0 alone from the same state (the
+    kernels' batch and bucket invariance); a clean guarded step is bitwise
+    the plain step."""
+    from repro_torch.train import faults as tf
+    from repro_torch.train import labeled_batch
+    batch, s, twin, st, lab = _guard_case(dev)
+    g = s.compile_train(guard=True)
+    p = twin.compile_train()
+    g.step(st, lab)
+    p.step(st, lab)
+    assert _same(_state(s, g), _state(twin, p))
+    g.step(tf.poison_scene_nonfinite(st, 1), lab)
+    assert g.last_report.committed == [[0]]
+    assert g.last_report.quarantined == [1]
+    p.step(*labeled_batch([batch[0]], twin.layout, device=dev))
+    assert _same(_state(s, g), _state(twin, p))
+
+
+def test_guarded_update_syncs_no_more_than_plain(dev):
+    """The update itself never waits on the card, staged or plain, and
+    the metrics' read costs the guarded step the same syncs as the plain
+    step (the flag rides in the same copy)."""
+    import warnings
+    from repro_torch.train import (PointCloudTrainConfig, apply_updates,
+                                   guarded_apply_updates, init_opt_state,
+                                   read_metrics)
+    from repro_torch.train.pointcloud import make_grad_fn
+    _, s, twin, st, lab = _guard_case(dev)
+    stp = st.pad_to(s._bucket(st.capacity))
+    labp = torch.cat([lab, torch.full((stp.capacity - lab.shape[0],), -1,
+                                      dtype=torch.int32, device=dev)])
+    cfg = PointCloudTrainConfig().opt
+    grad_fn = make_grad_fn(s.net, s.layout)
+    named, grads, loss, acc = grad_fn(s.params, stp.packed, stp.features,
+                                      labp)
+    tnamed = dict(twin.params.named_parameters())
+    gstate = init_opt_state(named, cfg)
+    pstate = init_opt_state(tnamed, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        staged, gm = guarded_apply_updates(named, grads, gstate, cfg,
+                                           loss=loss)
+        _, _, pm = apply_updates(tnamed, grads, pstate, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    gm.update(loss=loss, accuracy=acc)
+    pm.update(loss=loss, accuracy=acc)
+    reads = []
+    for metrics in (gm, pm):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                read_metrics(metrics)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        reads.append(sum("synchroniz" in str(x.message) for x in w))
+    assert reads[0] == reads[1] >= 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        staged.commit()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(named.values(), tnamed.values()):
+        assert torch.equal(a, b)

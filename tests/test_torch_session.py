@@ -151,8 +151,10 @@ def test_session_rejects_what_it_cannot_run():
     out = tuned(SparseTensor.from_point_clouds(clouds, tuned.layout,
                                                device=CPU))
     assert bool(torch.isfinite(out.features[:int(out.count)]).all())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        s.compile_train(guard=True)
+    from repro_torch.train import GuardedPointCloudTrainer
+    assert isinstance(s.compile_train(guard=True), GuardedPointCloudTrainer)
+    with pytest.raises(ValueError, match="resume=True"):
+        s.compile_train(resume=True)
 
 
 def test_net_factories_match_reference():
