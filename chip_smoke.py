@@ -167,6 +167,35 @@ sub-batch — launches each kernel as a 6b step does and runs one plan's
    ``last_good`` bitwise, and after ``max_rollbacks`` the trainer raises
    ``TrainAbortError``.
 
+The point-cloud serving engine (phase 10, after 9; ``PointCloudServeEngine``
+over ``compile_network(..., batch=2)`` sessions with the weights of phases
+4 and 4b; four requests: phase 4's two scenes and two more of
+``scene_batch(seed=1, ...)``, features as phase 4 makes them):
+
+10a. MinkUNet-42: a clean run (two batches of 2; every answer, logits and
+   voxels, bitwise equal to the bare session's single-scene call; every
+   session call launches 42 superwindow, 42 OS and 42 segment-sum
+   kernels, counted without the ``Recorder``); a poisoned run through
+   ``FaultySession(poison=feature_poison())`` with request 1 carrying a
+   ``poison_features`` marker (request 1 quarantined by bisection, the
+   others bitwise the clean run; the counters); 8 requests serial and
+   with ``pack_ahead=True`` in turns (answers bitwise, ``packs_overlapped``);
+   ms per request and per batch against the bare batch-2 call timed in
+   the same run, the host's pack, move and answer ms and the ``serve/pack``
+   and ``serve/dispatch`` histograms; one engine ``step()`` profiled;
+10b. CenterPoint-Large, as 10a (20 superwindow, 20 segment-sum, 17 OS
+   and 20 WS launches per call), then phase 4c's lossy session
+   (``ws_capacity = 32768``) through the engine: one replan counted in
+   ``overflow_replans``, answers bitwise the lossless session's; with a
+   ``DegradationLadder`` pinned at rung 2 the same call carries
+   ``max_replans=0`` and its ``HealthReport`` shows the dropped pairs;
+10c. 2x overload with the MinkUNet-42 session: ``tests/test_overload.py``'s
+   scenario (admission and ladder configs, ``scheduler="bucket"``) on a
+   ``FakeClock`` whose service time is 10a's bare batch-2 median, 24
+   requests at ``2 * num_scenes / d``: every request one terminal
+   outcome, every ``ok`` answer bitwise the unloaded one, every dispatch
+   the real kernels; ``LoadReport.summary()``.
+
 yi-9b LM serving (48 layers, d_model 4096, 32 heads, GQA kv 4, head dim
 128, bf16; random weights from a seeded generator on the card):
 
@@ -239,6 +268,8 @@ GUARD_PAIRS = 12                # phase 9a's timed guarded/plain step pairs
 LM_ARCH = "yi-9b"
 LM_SLOTS, LM_CACHE, LM_MAX_NEW = 4, 4096, 16
 LM_LONG = (1024, 2000)          # long prompts: multi-tile causal work
+SERVE_EXTENT = (1024, 1024, 40)  # phase 10's two extra scenes (seed 1)
+SERVE_OVERLOAD_REQUESTS = 24    # 10c's offered requests
 DEV = "cuda"
 
 
@@ -2145,6 +2176,382 @@ def lm_phases(results: dict, paths: dict, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 10: the point-cloud serving engine ---------------------------------
+
+class CallCheck:
+    """Shadows a session's ``run_with_health`` for the ``with`` block:
+    every call that reaches the session must launch each kernel as
+    ``expected`` says, times the escalation levels it planned (host counts
+    taken at enqueue, so this adds no sync). ``calls`` counts the calls
+    and ``totals`` sums their launches."""
+
+    def __init__(self, session, expected: dict, label: str):
+        self.session = session
+        self.expected = expected
+        self.label = label
+        self.calls = 0
+        self.totals = {k: 0 for k in expected}
+
+    def __enter__(self):
+        inner = self.session.run_with_health
+
+        def call(st, **kw):
+            from repro_torch.kernels import launch_counts
+            before = launch_counts()
+            out, health = inner(st, **kw)
+            after = launch_counts()
+            grew = {k: after[k] - before[k] for k in after}
+            want = {k: v * (health.replans + 1)
+                    for k, v in self.expected.items()}
+            if grew != want:
+                raise RuntimeError(f"{self.label} call {self.calls}: "
+                                   f"launches {grew}, expected {want}")
+            self.calls += 1
+            for k, v in grew.items():
+                self.totals[k] += v
+            return out, health
+
+        self.session.run_with_health = call
+        return self
+
+    def __exit__(self, *exc):
+        del self.session.run_with_health     # the bound method again
+        return False
+
+
+def bare_answer(session, cloud) -> tuple:
+    """The bare session's single-scene call on ``cloud``, split by
+    ``unbatch()`` and ``coords()``: the reference for the engine's
+    answers."""
+    from repro_torch.core.sparse_tensor import SparseTensor
+    out = session(SparseTensor.from_point_clouds([cloud], session.layout,
+                                                 device=DEV))
+    scene = out.unbatch()[0]
+    n = int(scene.count)
+    return scene.features[:n].cpu().numpy(), scene.coords()[0]
+
+
+def check_answers(reqs, want, label: str, skip=()) -> None:
+    """Every request not in ``skip`` ended ``ok`` with logits and voxels
+    bitwise equal to ``want`` (cycled over the requests)."""
+    for i, r in enumerate(reqs):
+        if i in skip:
+            continue
+        logits, voxels = want[i % len(want)]
+        if r.outcome != "ok":
+            raise RuntimeError(f"{label}: request {i} ended {r.outcome} "
+                               f"({r.error})")
+        if not (np.array_equal(r.logits, logits)
+                and np.array_equal(r.voxels, voxels)):
+            raise RuntimeError(f"{label}: request {i}'s answer is not "
+                               "bitwise the bare session's")
+
+
+def serve_requests(engine, clouds) -> tuple:
+    """``engine.run`` over fresh requests on ``clouds``, timed on the host
+    clock with the card synchronised on both sides; returns the requests
+    and the ms."""
+    import torch
+    from repro_torch.serve import PointCloudRequest
+    reqs = [PointCloudRequest(c, f.copy()) for c, f in clouds]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    return reqs, (time.perf_counter() - t0) * 1e3
+
+
+def hist_line(reg, name: str) -> str:
+    h = reg.histogram(name)
+    return (f"{name} p50 {h.percentile(0.5) * 1e3:.2f} ms (bucket edge), "
+            f"mean {h.sum / max(h.count, 1) * 1e3:.2f} ms over {h.count}")
+
+
+def engine_phase(label: str, session, clouds, expected: dict, card: str,
+                 paths: dict, path: str) -> dict:
+    """10a / 10b on one session (module doc): a clean run, a poisoned run
+    and pack-ahead through the engine, each answer against the bare
+    session's single-scene call; the engine timed against the bare
+    batch-2 call; one profiled engine step. Returns the reference answers
+    and the bare batch-2 call's median seconds."""
+    import torch
+    from repro_torch.core.sparse_tensor import SparseTensor
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import (FaultySession, PointCloudRequest,
+                                   PointCloudServeEngine, feature_poison,
+                                   poison_features)
+    from repro_torch.serve.engine import host_answers
+    name = session.net.name
+    refs = [bare_answer(session, c) for c in clouds]
+    per_call = {k: v for k, v in expected.items() if v}
+
+    # clean run: two batches of 2
+    reset_launch_counts()
+    with CallCheck(session, expected, f"{label} clean") as chk:
+        eng = PointCloudServeEngine(session)
+        reqs, _ = serve_requests(eng, clouds)
+    counts = launch_counts()
+    check_answers(reqs, refs, f"{label} clean")
+    if not (eng.batches_run == chk.calls == 2
+            and all(counts[k] == 2 * v for k, v in expected.items())):
+        raise RuntimeError(f"{label} clean: {eng.batches_run} batches, "
+                           f"{chk.calls} calls, launches {counts}")
+    for k, v in per_call.items():
+        paths.setdefault(k, {})[path] = dict(launches=counts[k])
+    log(f"[{label} clean] {name}: {len(reqs)} requests "
+        f"{[len(c) for c, _ in clouds]} voxels, 2 batches of 2: all ok, "
+        f"each bitwise the bare single-scene call (logits and voxels); "
+        f"launches {per_call} per batch, run {counts}")
+
+    # poisoned: request 1 carries a poison_features marker
+    poisoned = [(c, f.copy()) for c, f in clouds]
+    poisoned[1] = (poisoned[1][0], poison_features(poisoned[1][1]))
+    reset_launch_counts()
+    with CallCheck(session, expected, f"{label} poisoned") as chk:
+        eng_p = PointCloudServeEngine(FaultySession(
+            session, poison=feature_poison()))
+        reqs_p, _ = serve_requests(eng_p, poisoned)
+    counts = launch_counts()
+    outcomes = [r.outcome for r in reqs_p]
+    if outcomes != ["ok", "quarantined", "ok", "ok"]:
+        raise RuntimeError(f"{label} poisoned: outcomes {outcomes}")
+    check_answers(reqs_p, refs, f"{label} poisoned", skip=(1,))
+    if not all(counts[k] == chk.calls * v for k, v in expected.items()):
+        raise RuntimeError(f"{label} poisoned: launches {counts} over "
+                           f"{chk.calls} session calls")
+    log(f"[{label} poisoned] request 1 quarantined by bisection "
+        f"({reqs_p[1].error.split(' (')[0]}); requests 0, 2, 3 bitwise the "
+        f"clean run (request 0 alone at its own bucket); {chk.calls} "
+        f"session calls reached the card; counters {eng_p.counters}")
+
+    # under the dispatch watchdog: the session runs on the watchdog's thread
+    with CallCheck(session, expected, f"{label} watchdog") as chk:
+        eng_w = PointCloudServeEngine(session, dispatch_timeout=60.0)
+        reqs_w, ms_w = serve_requests(eng_w, clouds)
+    check_answers(reqs_w, refs, f"{label} watchdog")
+    if chk.calls != 2 or eng_w.dispatch_timeouts:
+        raise RuntimeError(f"{label} watchdog: {chk.calls} calls, "
+                           f"{eng_w.dispatch_timeouts} timeouts")
+    log(f"[{label} watchdog] dispatch_timeout=60 s: the session called "
+        f"from the watchdog's thread on the card, answers bitwise, "
+        f"{chk.calls} calls each with the path's launches, {ms_w:.1f} ms")
+
+    # serial and pack-ahead over 8 requests, in turns
+    eight = clouds * 2
+    runs = {"serial": [], "pack_ahead": []}
+    regs = {}
+    with CallCheck(session, expected, f"{label} timed"):
+        for mode in ("serial", "pack_ahead", "pack_ahead", "serial"):
+            reg = regs[mode] = MetricsRegistry()
+            eng_t = PointCloudServeEngine(
+                session, pack_ahead=mode == "pack_ahead", metrics=reg)
+            reqs_t, ms = serve_requests(eng_t, eight)
+            check_answers(reqs_t, refs, f"{label} {mode}")
+            runs[mode].append((ms, eng_t.batches_run,
+                               eng_t.packs_overlapped))
+    # the bare batch-2 call on batches packed ahead, on the card
+    sts = [SparseTensor.from_point_clouds(clouds[i:i + 2], session.layout,
+                                          device=DEV) for i in (0, 2)]
+    bare = []
+    for _ in range(3):
+        for st in sts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = session.run_with_health(st)
+            torch.cuda.synchronize()
+            bare.append((time.perf_counter() - t0) * 1e3)
+    bare_ms = float(np.median(bare))
+    # the host's own work around a call: pack on the host, move, answer
+    pack, move, answer = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        st_h = SparseTensor.from_point_clouds(clouds[:2], session.layout,
+                                              device="cpu")
+        t1 = time.perf_counter()
+        st_d = st_h.to(DEV)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out, _ = session.run_with_health(st_d)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host_answers(out, 2)
+        t4 = time.perf_counter()
+        pack.append((t1 - t0) * 1e3)
+        move.append((t2 - t1) * 1e3)
+        answer.append((t4 - t3) * 1e3)
+    ser = [ms for ms, _, _ in runs["serial"]]
+    pa = [ms for ms, _, _ in runs["pack_ahead"]]
+    n_b = runs["serial"][0][1]
+    overlapped = [p for _, _, p in runs["pack_ahead"]]
+    log(f"[{label} times] {name}, 8 requests in {n_b} batches of 2, in "
+        f"turns: serial {ser[0]:.1f} / {ser[1]:.1f} ms = "
+        f"{ser[0] / 8:.1f} / {ser[1] / 8:.1f} ms per request, "
+        f"{ser[0] / n_b:.1f} / {ser[1] / n_b:.1f} per batch; pack-ahead "
+        f"{pa[0]:.1f} / {pa[1]:.1f} ms = {pa[0] / 8:.1f} / "
+        f"{pa[1] / 8:.1f} per request, {pa[0] / n_b:.1f} / "
+        f"{pa[1] / n_b:.1f} per batch (packs_overlapped {overlapped} of "
+        f"{n_b - 1}); bare batch-2 call on a tensor already on the card "
+        f"median {bare_ms:.1f} ms ({', '.join(f'{v:.1f}' for v in bare)}) "
+        f"| {card}")
+    log(f"[{label} host] per batch of 2: pack on the host "
+        f"{float(np.median(pack)):.1f} ms, H2D move "
+        f"{float(np.median(move)):.1f} ms, answer read and split "
+        f"{float(np.median(answer)):.1f} ms (medians of 3); serial engine "
+        f"{hist_line(regs['serial'], 'serve/pack')}, "
+        f"{hist_line(regs['serial'], 'serve/dispatch')}; pack-ahead "
+        f"{hist_line(regs['pack_ahead'], 'serve/pack')} | {card}")
+
+    # one engine step under the profiler
+    eng_s = PointCloudServeEngine(session)
+    two = [PointCloudRequest(c, f.copy()) for c, f in clouds[:2]]
+    for r in two:
+        eng_s.submit(r)
+    profile_line(label, lambda: eng_s.step(), ser[1] / n_b, card,
+                 what="engine step (pack, call, answer)")
+    check_answers(two, refs[:2], f"{label} profiled step")
+    return dict(refs=refs, bare_s=bare_ms / 1e3,
+                serial_batch_ms=ser[1] / n_b)
+
+
+def lossy_phase(cps, lossy_net, clouds, refs, card: str) -> None:
+    """10b's escalation through the engine: the lossy session replans once
+    and answers bitwise as the lossless one; with the ladder pinned at
+    rung 2 the same call carries ``max_replans=0`` and serves with drops
+    flagged."""
+    from repro_torch.serve import (DegradationLadder, FaultySession,
+                                   LadderConfig, PointCloudServeEngine,
+                                   compile_network)
+    lossy = compile_network(lossy_net, cps.layout, batch=2,
+                            params=cps.params, device=DEV)
+    eng = PointCloudServeEngine(lossy)
+    reqs, ms = serve_requests(eng, clouds[:2])
+    h = reqs[0].health
+    if not (h.replans == 1 and h.ok and eng.overflow_replans == 1):
+        raise RuntimeError(f"10b lossy: health {h.summary()}, "
+                           f"overflow_replans {eng.overflow_replans}")
+    check_answers(reqs, refs[:2], "10b lossy")
+    log(f"[10b escalation] ws_capacity {LOSSY_CAPACITY} on every layer, "
+        f"requests 0 and 1 in one batch: {h.summary()}, engine "
+        f"overflow_replans {eng.overflow_replans}; answers bitwise the "
+        f"lossless session's; {ms:.1f} ms | {card}")
+    ladder = DegradationLadder(LadderConfig(max_rung=2,
+                                            deescalate_after=float("inf")))
+    ladder.rung = 2
+    fs = FaultySession(lossy)
+    eng2 = PointCloudServeEngine(fs, ladder=ladder)
+    reqs2, ms2 = serve_requests(eng2, clouds[:2])
+    h2 = reqs2[0].health
+    if not (fs.last_call_kwargs == {"max_replans": 0}
+            and all(r.outcome == "ok" and r.degradation == 2 for r in reqs2)
+            and h2.replans == 0 and h2.total_ws_dropped > 0
+            and eng2.degradation_rung == 2):
+        raise RuntimeError(f"10b rung 2: kwargs {fs.last_call_kwargs}, "
+                           f"health {h2.summary()}, outcomes "
+                           f"{[r.outcome for r in reqs2]}")
+    log(f"[10b rung 2] ladder pinned at rung 2: the call carried "
+        f"{fs.last_call_kwargs}, served degraded with {h2.summary()}; "
+        f"{ms2:.1f} ms | {card}")
+
+
+def overload_phase(session, clouds, refs, delay: float, expected: dict,
+                   card: str) -> None:
+    """10c (module doc): test_overload's 2x scenario on a FakeClock with
+    the MinkUNet-42 session's real calls; every dispatch runs the kernels
+    and every ok answer is bitwise the unloaded one."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import (AdmissionConfig, FakeClock, FaultySession,
+                                   LadderConfig, PointCloudServeEngine,
+                                   arrival_times, make_traffic,
+                                   run_open_loop)
+    terminal = ("ok", "invalid", "quarantined", "shed", "deadline_expired",
+                "rejected_open", "dispatch_timeout")
+    n = SERVE_OVERLOAD_REQUESTS
+    ck = FakeClock()
+    reg = MetricsRegistry(clock=ck)
+    eng = PointCloudServeEngine(
+        FaultySession(session, delay=delay, sleep=ck.sleep), clock=ck,
+        max_queue=8, metrics=reg, scheduler="bucket",
+        admission=AdmissionConfig(target=0.05, interval=0.2),
+        ladder=LadderConfig(target=0.05, escalate_after=0.2,
+                            deescalate_after=0.5, voxel_budget=1 << 20))
+    reqs = make_traffic(clouds, n)
+    rate = 2 * session.num_scenes / delay
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with CallCheck(session, expected, "10c") as chk:
+        rep = run_open_loop(eng, list(zip(arrival_times(n, rate), reqs)),
+                            ck, idle_tick=0.01)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    recorded = sum(reg.histogram(f"serve_latency_{o}").count
+                   for o in terminal)
+    if not (all(r.outcome in terminal for r in reqs) and recorded == n
+            and sum(rep.outcomes.values()) == n):
+        raise RuntimeError(f"10c: outcomes {rep.outcomes}, {recorded} "
+                           f"finalizations for {n} requests")
+    served = [i for i, r in enumerate(reqs) if r.outcome == "ok"]
+    check_answers(reqs, refs, "10c",
+                  skip=set(range(n)) - set(served))
+    if not (served and chk.calls == eng.batches_run
+            and all(counts[k] == chk.calls * v
+                    for k, v in expected.items())):
+        raise RuntimeError(f"10c: {len(served)} ok, {chk.calls} calls, "
+                           f"{eng.batches_run} batches, launches {counts}")
+    log(f"[10c overload] {session.net.name}, service time {delay:.4f} s "
+        f"(10a's bare batch-2 median) on a FakeClock, {n} requests offered "
+        f"at {rate:.1f}/s = 2x: {rep.summary()}; every request one "
+        f"terminal outcome, {len(served)} ok answers bitwise the unloaded "
+        f"ones, {chk.calls} dispatches each ran the kernels (launches "
+        f"{counts}); {wall:.1f} s of wall clock | {card}")
+
+
+def serve_phases(batch, card: str, paths: dict, mk_net, cp_net) -> None:
+    """Phase 10 (module doc): the point-cloud serving engine on phase 4's
+    two scenes and two more (seed 1), ``mk_net`` (10a, 10c) and
+    ``cp_net`` (10b) with the weights of phases 4 and 4b (seed 0)."""
+    import torch
+    from repro_torch.data import scenes
+    from repro_torch.serve import compile_network
+    more = scenes.scene_batch(seed=1, batch=2, kind="outdoor",
+                              extent=SERVE_EXTENT, overlap=0.5)
+    coords = [sc.coords for sc in list(batch) + list(more)]
+    log(f"[inputs serve] 4 requests: phase 4's scenes and 2 of seed 1, "
+        f"{[len(c) for c in coords]} voxels")
+
+    # 10a: MinkUNet-42
+    rng = np.random.default_rng(1)
+    clouds = [(c, rng.normal(size=(len(c), 4)).astype(np.float32))
+              for c in coords]
+    session = compile_network(mk_net, batch[0].layout, batch=2, seed=0,
+                              device=DEV)
+    expected = expected_launches(mk_net.specs)
+    r = engine_phase("10a", session, clouds, expected, card, paths,
+                     "minkunet42 engine (10a)")
+
+    # 10c: 2x overload on the same session
+    overload_phase(session, clouds, r["refs"], r["bare_s"], expected, card)
+    del session
+    torch.cuda.empty_cache()
+
+    # 10b: CenterPoint-Large
+    rng = np.random.default_rng(1)
+    clouds = [(c, rng.normal(size=(len(c), 5)).astype(np.float32))
+              for c in coords]
+    cps = compile_network(cp_net, batch[0].layout, batch=2, seed=0,
+                          device=DEV)
+    expected = expected_launches(cp_net.specs)
+    r = engine_phase("10b", cps, clouds, expected, card, paths,
+                     "centerpoint_large engine (10b)")
+    lossy_net = dataclasses.replace(cp_net, specs=tuple(
+        dataclasses.replace(s, ws_capacity=LOSSY_CAPACITY)
+        for s in cp_net.specs))
+    lossy_phase(cps, lossy_net, clouds, r["refs"], card)
+    del cps
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     tick = PhaseClock()
@@ -2747,6 +3154,11 @@ def main() -> int:
     del lbatch, tst, tlab, stp, labp, tnet, plain_tnet
     torch.cuda.empty_cache()
     tick("9 guarded training and checkpoints")
+    # -- 10. the point-cloud serving engine -----------------------------------
+    serve_phases(batch, card, paths,
+                 pc.minkunet42(in_channels=4, n_classes=20),
+                 pc.centerpoint_large())
+    tick("10 serving engine")
     lm_phases(results, paths, card)
     tick("7 yi-9b serving")
 
