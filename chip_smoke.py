@@ -9,7 +9,11 @@ Run from the repository root with no arguments::
 It needs one CUDA device and ``nvcc``, imports nothing of JAX or of the
 JAX package, and exits nonzero (printing no result) when there is no card
 or when it is not run from a checkout of the repository. Phases, each
-printing its lines; any failed check raises and the exit code is nonzero:
+printing its lines; any failed check raises and the exit code is nonzero.
+The sessions and the LM engine of phases 3-9 and 7/7b/7c run eagerly
+(``cuda_graphs=False``), so that every launch goes through its wrapper,
+where the ``Recorder`` and the launch counts see it; phases 10 and 11 run
+the default, one CUDA graph per key:
 
 1. device: torch version, card name and ``nvidia-smi`` power limit; TF32
    off (the port sets it on import);
@@ -20,7 +24,9 @@ MinkUNet-42 (OS dataflow):
 3. kernels vs plain versions on the card, at the shapes of the main path:
    every launch of one batch-of-2 forward is recorded and re-run through
    the kernel and its plain PyTorch version — superwindow maps and
-   overflow counters equal (each search timed on the card with the
+   overflow counters equal, and each launch of the overflow repair kernel
+   (on a copy of the map the search gave) equal to its plain version
+   (each search and repair timed on the card with the
    host's enqueue hidden, as the search kernels take less time than their
    wrappers' host code, and through the wrapper, each with its GB/s over
    the bound's bytes: the words at their size, the output rows and
@@ -79,7 +85,8 @@ CenterPoint-Large (hybrid dataflow, t = 3, K = 5), same scenes:
    ``zdelta_cuda_window`` plan of the same coordinates, every launch equal
    to its plain version and every map to the superwindow engine's; ms
    per call, the searches' device ms against their bound, repaired cells
-   per layer;
+   per layer, and every repair launch of the window plan (int64 words,
+   thousands of flagged cells) equal to its plain version;
 5b. the plain path (engine "zdelta", backends "torch"): maps equal, logits
    within ``1e-3 * max|logits|``, no kernel launched.
 
@@ -196,6 +203,33 @@ over ``compile_network(..., batch=2)`` sessions with the weights of phases
    outcome, every ``ok`` answer bitwise the unloaded one, every dispatch
    the real kernels; ``LoadReport.summary()``.
 
+Phase 10's sessions are graph sessions and its references the
+single-scene calls of an eager session on the same weights, so the
+bisection of 10a/10b captures the single-scene key (bucket 131,072) in
+the middle of serving and 10b's lossy session captures one key per
+escalation level; ``CallCheck`` holds every call to its launches: one
+forward's per body run, ``WARMUP_RUNS + 1`` runs for each key a
+call captures and none for a replay, and one replay per escalation level.
+
+One CUDA graph per key (phase 11, after 10; phase 4's scenes, weights from
+seed 0, each network as an eager session and a graph session on the same
+weights):
+
+11a. MinkUNet-42, 11b. CenterPoint-Large, 11c. CenterPoint-Large under
+   phase 8a's measure tuning (its windows overflow at batch 2): for
+   scene 0 alone and the batch of 2, the capture's launches (one forward
+   per body run), seconds and the memory it reserved, and the replay
+   bitwise the eager call (logits, words, count, health); the keys
+   replayed out of capture order, bitwise, launching nothing through the
+   wrappers; ``GRAPH_PAIRS`` batch-2 calls of each in turns (ms per call,
+   medians and IQRs, pairs won); one profiled call of each (device idle
+   share); 11c also holds every repair launch of an eager tuned call
+   against its plain version (the flagged cells re-searched);
+11d. (after 7c) yi-9b's decode step: an engine with the decode graph and
+   an eager one over the same weights and four requests, ``DECODE_PAIRS``
+   steps of each in turns after the capture: greedy tokens equal, ms per
+   step and tokens/s, one profiled replayed step.
+
 yi-9b LM serving (48 layers, d_model 4096, 32 heads, GQA kv 4, head dim
 128, bf16; random weights from a seeded generator on the card):
 
@@ -261,6 +295,9 @@ REPLACES = {
 PORT_ONLY = {
     "dw_gather_gemm": ("src/repro_torch/csrc/dw_gather_gemm.cu",
                        "src/repro/core/dataflow.py:282"),
+    # the JAX package repairs overflowed window cells in XLA, behind lax.cond
+    "zdelta_repair": ("src/repro_torch/csrc/zdelta_repair.cu",
+                      "src/repro/core/network_plan.py:149"),
 }
 TRAIN_STEPS = 5
 SPIKE_WARM_STEPS = 10           # phase 9b's clean commits before the spike
@@ -270,6 +307,8 @@ LM_SLOTS, LM_CACHE, LM_MAX_NEW = 4, 4096, 16
 LM_LONG = (1024, 2000)          # long prompts: multi-tile causal work
 SERVE_EXTENT = (1024, 1024, 40)  # phase 10's two extra scenes (seed 1)
 SERVE_OVERLOAD_REQUESTS = 24    # 10c's offered requests
+GRAPH_PAIRS = 10                # phase 11's timed graph/eager call pairs
+DECODE_PAIRS = 12               # 11d's timed graph/eager decode-step pairs
 DEV = "cuda"
 
 
@@ -378,7 +417,9 @@ class Recorder:
                         (zdelta_window, "zdelta_window_cuda",
                          "zdelta_window_search"),
                         (ops, "dw_gather_gemm", "dw_gather_gemm"),
-                        (layers, "flash_attention", "flash_attention")]
+                        (layers, "flash_attention", "flash_attention"),
+                        (zdelta_window, "zdelta_repair_cuda",
+                         "zdelta_repair")]
         if names is not None:
             self.targets = [t for t in self.targets if t[2] in names]
         self.calls = {name: [] for _, _, name in self.targets}
@@ -454,6 +495,56 @@ def search_rates(r: dict) -> str:
             f"the bound's rate; half is {2 * r['bound_ms']:.3f} ms); through "
             f"the wrapper {r['wrapper_ms']:.3f} ms, "
             f"{r['gbytes'] / r['wrapper_ms'] * 1e3:.0f} GB/s")
+
+
+def check_repair(search_calls, repair_calls, kind: str) -> dict:
+    """Overflow-repair launches, each paired with the search launch before
+    it (``kind`` "superwindow" or "window"): the search is re-run on its
+    recorded arguments for the map as it was before the repair (the
+    repair writes it in place) and must give the recorded counters; then
+    the repair kernel, on a copy, must equal its plain version exactly, in
+    every cell. Per forward: ``ms`` (device time, the host's enqueue
+    hidden, as for the searches), ``wrapper_ms``, plain and bound ms; the
+    bound's bytes are the counters read once and, per flagged cell, its
+    128 output words read and its 128 x K map entries written once.
+    ``flagged`` counts the flagged cells."""
+    import torch
+    from repro_torch.kernels import zdelta_window as zw
+    search = getattr(zw, f"zdelta_{kind}_cuda")
+    if len(search_calls) != len(repair_calls):
+        raise RuntimeError(f"{len(repair_calls)} repair launches for "
+                           f"{len(search_calls)} {kind} searches")
+    t_k = t_q = t_p = b_tot = nbytes = 0.0
+    flagged = 0
+    for i, ((sa, skw), (a, kw)) in enumerate(zip(search_calls,
+                                                 repair_calls)):
+        arr, out2d, anchors, zstep, _, ovf = a
+        m0, ovf0 = search(*sa, **skw)
+        if not torch.equal(ovf0, ovf):
+            raise RuntimeError(f"repair launch {i}: its counters are not "
+                               f"the {kind} search's")
+        mk = zw.zdelta_repair_cuda(arr, out2d, anchors, zstep, m0.clone(),
+                                   ovf, **kw)
+        mp = zw.zdelta_repair_torch(arr, out2d, anchors, zstep, m0, ovf,
+                                    **kw)
+        if not torch.equal(mk, mp):
+            raise RuntimeError(f"repair launch {i}: the map differs from the "
+                               "plain version's")
+        t_k += cuda_ms(lambda: zw.zdelta_repair_cuda(
+            arr, out2d, anchors, zstep, mk, ovf, **kw), 3)
+        t_q += queued_ms(lambda: zw.zdelta_repair_cuda(
+            arr, out2d, anchors, zstep, mk, ovf, **kw), 5)
+        t_p += cuda_ms(lambda: zw.zdelta_repair_torch(
+            arr, out2d, anchors, zstep, m0, ovf, **kw), 2)
+        cells = int((ovf > 0).sum())
+        flagged += cells
+        nb = 4 * ovf.numel() + cells * 128 * (arr.element_size()
+                                              + 4 * kw["K"])
+        nbytes += nb
+        b_tot += bound_ms(nb, 0)[0]
+    return dict(max_abs_err=0.0, ms=t_q, wrapper_ms=t_k, plain_ms=t_p,
+                bound_ms=b_tot, bound_by="bytes", library_ms=None,
+                gbytes=nbytes / 1e9, flagged=flagged)
 
 
 def os_f64(F, m, W):
@@ -1156,12 +1247,12 @@ def guard_phases(tnet, plain_tnet, lbatch, tst, tlab, expected: dict,
     # -- 9a. guarded against plain, clean batches --------------------------
     reset_launch_counts()
     reset_search_calls()
-    sg = compile_network(tnet, layout, batch=2, seed=0)
+    sg = compile_network(tnet, layout, batch=2, seed=0, cuda_graphs=False)
     n_params = sum(p.numel() for p in sg.params.parameters())
     log(f"[9 memory] {n_params:,} parameters: a staged guarded update "
         f"holds {3 * n_params * 4 / 2**20:.1f} MiB beside them (new "
         "parameters and both moments)")
-    sp = compile_network(tnet, layout, batch=2, seed=0)
+    sp = compile_network(tnet, layout, batch=2, seed=0, cuda_graphs=False)
     guard = GuardConfig(spike_window=6, spike_factor=1.8, spike_min_history=4)
     tg = sg.compile_train(guard=guard)
     if not isinstance(tg, GuardedPointCloudTrainer):
@@ -1278,7 +1369,7 @@ def guard_phases(tnet, plain_tnet, lbatch, tst, tlab, expected: dict,
 
     # -- 9c. checkpoints: cadence, kill and resume, corruption, rollback ---
     with tempfile.TemporaryDirectory() as d:
-        sc = compile_network(tnet, layout, batch=2, seed=0)
+        sc = compile_network(tnet, layout, batch=2, seed=0, cuda_graphs=False)
         mgr = CheckpointManager(d, keep=3, async_save=True,
                                 metrics=sc.metrics)
         tc = sc.compile_train(guard=GuardConfig(ckpt_every=2), ckpt=mgr)
@@ -1311,7 +1402,7 @@ def guard_phases(tnet, plain_tnet, lbatch, tst, tlab, expected: dict,
             f"ms mean over {h['ckpt/save']['count']} writes | {card}")
 
         # kill at step 6 and resume in a fresh session
-        sr = compile_network(tnet, layout, batch=2, seed=0)
+        sr = compile_network(tnet, layout, batch=2, seed=0, cuda_graphs=False)
         tr = sr.compile_train(guard=True, ckpt=d)
         t0 = time.perf_counter()
         restored = tr.resume()
@@ -1514,7 +1605,7 @@ def plain_path(session, net_plain, st, out_kernel, label: str) -> float:
     from repro_torch.serve import compile_network
     plain = compile_network(net_plain, session.layout, batch=2,
                             params=session.params, engine="zdelta",
-                            segment_backend="torch")
+                            segment_backend="torch", cuda_graphs=False)
     plan_k = session.plan(st)
     plan_p = plain.plan(st)
     for s in net_plain.specs:
@@ -1563,7 +1654,8 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
                .astype(np.float32)) for sc in batch]
     sizes = [len(c) for c, _ in clouds]
     net = pc.minkunet42(in_channels=4, n_classes=20)
-    session = compile_network(net, batch[0].layout, batch=2, seed=0)
+    session = compile_network(net, batch[0].layout, batch=2, seed=0,
+                              cuda_graphs=False)
     st1 = SparseTensor.from_point_clouds(clouds[:1], session.layout)
     st2 = SparseTensor.from_point_clouds(clouds, session.layout)
     if not (session.layout.dtype == st1.packed.dtype == st2.packed.dtype
@@ -1597,6 +1689,7 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
 
     expected = {k: 0 for k in launch_counts()}
     expected.update({"zdelta_superwindow_search": 42,
+                     "zdelta_repair": 42,
                      "spconv_gather_gemm": 42, "segment_sum": 42})
     outb, hb, times, counts = drive(session, (("scene0", st1),
                                               ("batch2", st2)),
@@ -1607,7 +1700,8 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
     torch.cuda.empty_cache()
 
     win = compile_network(net, session.layout, batch=2,
-                          params=session.params, engine="zdelta_cuda_window")
+                          params=session.params, engine="zdelta_cuda_window",
+                          cuda_graphs=False)
     reset_launch_counts()
     plan_w = win.plan(st2)
     torch.cuda.synchronize()
@@ -1626,7 +1720,7 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
                                        for k, v in plan_w.stats.items()))
     del plan_w, plan_s
     torch.cuda.empty_cache()
-    with Recorder(names=("zdelta_window_search",)) as rec:
+    with Recorder(names=("zdelta_window_search", "zdelta_repair")) as rec:
         win.plan(st2)
     v_calls = rec.calls["zdelta_window_search"]
     r = check_search(v_calls, "window")
@@ -1636,6 +1730,17 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
         f"{search_rates(r)} | {card}")
     paths["zdelta_window_search"]["minkunet42 int64 plan (4e)"] = dict(
         launches=wcount, **per_forward(r))
+    r = check_repair(v_calls, rec.calls["zdelta_repair"], "window")
+    flagged, gbytes = r.pop("flagged"), r.pop("gbytes")
+    paths["zdelta_repair"]["minkunet42 int64 window plan (4e)"] = dict(
+        launches=len(rec.calls["zdelta_repair"]), flagged=flagged,
+        **per_forward(r))
+    log(f"[4e int64 repair] {len(rec.calls['zdelta_repair'])} repair "
+        f"launches of the window plan on int64 words equal to the plain "
+        f"version, {flagged} flagged cells re-searched; per plan device "
+        f"{r['ms']:.4f} ms, through the wrapper {r['wrapper_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+        f"({gbytes * 1e3:.2f} MB) | {card}")
     del rec, v_calls, session, win, st1, st2
     torch.cuda.empty_cache()
 
@@ -1648,6 +1753,7 @@ def expected_launches(specs) -> dict:
     from repro_torch.kernels import launch_counts
     exp = {k: 0 for k in launch_counts()}
     exp["zdelta_superwindow_search"] = exp["segment_sum"] = len(specs)
+    exp["zdelta_repair"] = len(specs)
     for s in specs:
         if s.dataflow == "hybrid":
             dense, sparse = l1_partition(s.K, s.offset_stride, s.t)
@@ -1678,9 +1784,10 @@ def log_tuning(label: str, session) -> None:
         raise RuntimeError(f"{label}: tuned layers {bad} off the kernels")
 
 
-def tuner_phases(batch, kind: str, card: str, cp_untuned_ms: float) -> None:
+def tuner_phases(batch, kind: str, card: str, cp_untuned_ms: float) -> dict:
     """Phase 8: the §5.4 tuner on the card and the paper's mapping
-    baselines, on phase 4's scenes (module doc)."""
+    baselines, on phase 4's scenes (module doc). Returns 8a's measure
+    results by layer (phase 11c serves them)."""
     import torch
     from repro_torch.core.network_plan import (build_network_plan,
                                                sequential_plan_fns)
@@ -1712,14 +1819,14 @@ def tuner_phases(batch, kind: str, card: str, cp_untuned_ms: float) -> None:
     t_phase = time.perf_counter()
     clouds = clouds_of(5)
     cp = pc.centerpoint_large()
-    base = compile_network(cp, layout, batch=2, seed=0)
+    base = compile_network(cp, layout, batch=2, seed=0, cuda_graphs=False)
     st1 = SparseTensor.from_point_clouds(clouds[:1], base.layout)
     st2 = SparseTensor.from_point_clouds(clouds, base.layout)
     tuned = {}
     for mode in ("cost_model", "measure"):
         tuned[mode] = compile_network(cp, layout, batch=2,
                                       params=base.params, tuner=mode,
-                                      tune_sample=st1)
+                                      tune_sample=st1, cuda_graphs=False)
         log_tuning(f"8a cp {mode}", tuned[mode])
     meas = tuned["measure"]
     log(f"[8a cp measure] segment engine {meas.segment.backend} "
@@ -1741,7 +1848,7 @@ def tuner_phases(batch, kind: str, card: str, cp_untuned_ms: float) -> None:
             for k, vs in turns.items()) + f" | {kind} | {card}")
     plain_path(meas, plain_net(meas.net), st2, outb, "8a plain path")
     again = compile_network(cp, layout, batch=2, params=base.params,
-                            tuner=meas.tune_report.results)
+                            tuner=meas.tune_report.results, cuda_graphs=False)
     if again.net.specs != meas.net.specs:
         raise RuntimeError("8a: the mapping form gave other specs")
     outm = again(st2)
@@ -1751,6 +1858,7 @@ def tuner_phases(batch, kind: str, card: str, cp_untuned_ms: float) -> None:
     log(f"[8a cp mapping] rebuilt from tune_report.results: same specs, "
         f"logits bitwise equal; phase 8a "
         f"{time.perf_counter() - t_phase:.1f} s")
+    results = meas.tune_report.results
     del base, tuned, meas, again, outb, outm, st1, st2
     torch.cuda.empty_cache()
 
@@ -1761,7 +1869,7 @@ def tuner_phases(batch, kind: str, card: str, cp_untuned_ms: float) -> None:
     st1 = SparseTensor.from_point_clouds(clouds[:1], layout.with_batch(2))
     st2 = SparseTensor.from_point_clouds(clouds, layout.with_batch(2))
     mk = compile_network(net, layout, batch=2, seed=0, tuner="cost_model",
-                         tune_sample=st1)
+                         tune_sample=st1, cuda_graphs=False)
     log_tuning("8b mk cost_model", mk)
     sub = [s for s in mk.net.specs if s.submanifold]
     log(f"[8b mk symmetry] half-search chosen on "
@@ -1829,6 +1937,7 @@ def tuner_phases(batch, kind: str, card: str, cp_untuned_ms: float) -> None:
         + f" | {kind} | {card}; phase {time.perf_counter() - t_phase:.1f} s")
     del mk, ref, planner, st1, st2, stp
     torch.cuda.empty_cache()
+    return results
 
 
 def attention_bound(q, k, causal: bool) -> tuple:
@@ -2046,7 +2155,10 @@ def lm_phases(results: dict, paths: dict, card: str) -> None:
         f"in {time.perf_counter() - t0:.1f} s; prompts "
         f"{[len(p_) for p_ in prompts]} tokens, {LM_MAX_NEW} greedy tokens "
         f"each, {LM_SLOTS} slots, cache {LM_CACHE}")
-    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS, cache_len=LM_CACHE)
+    # eager: the per-decode-step checks wrap transformer.decode_step, which a
+    # replay does not call (11d times the decode graph)
+    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS, cache_len=LM_CACHE,
+                      cuda_graphs=False)
     for p_ in (prompts[0], prompts[-1]):      # warm-up, outside the counts
         tf.prefill(params, cfg, {"tokens": torch.as_tensor(p_[None],
                                                            device=DEV)},
@@ -2172,7 +2284,12 @@ def lm_phases(results: dict, paths: dict, card: str) -> None:
         f"{agree(lk, lp)}/{len(lk)}, plain/fp32 {agree(lp, lf)}/{len(lk)}, "
         f"kernel/served {int((lk[:len(served)].argmax(-1) == served).sum())}"
         f"/{len(served)} | {card}")
-    del eng, params, lk, lk32, lp, lf
+    del eng, lk, lk32, lp, lf
+    torch.cuda.empty_cache()
+
+    # -- 11d. the decode step as one CUDA graph ---------------------------------
+    decode_graph_phase(cfg, params, prompts, card)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -2181,34 +2298,50 @@ def lm_phases(results: dict, paths: dict, card: str) -> None:
 class CallCheck:
     """Shadows a session's ``run_with_health`` for the ``with`` block:
     every call that reaches the session must launch each kernel as
-    ``expected`` says, times the escalation levels it planned (host counts
-    taken at enqueue, so this adds no sync). ``calls`` counts the calls
-    and ``totals`` sums their launches."""
+    ``expected`` says per run of the plan+forward body (host counts taken
+    at enqueue, so this adds no sync). An eager session runs the body once
+    per escalation level; a graph session runs it ``WARMUP_RUNS + 1``
+    times for each key it captures and replays once per level, launching
+    nothing through the wrappers. ``calls`` counts the calls,
+    ``body_runs`` the body's runs, ``captures`` the keys captured."""
 
     def __init__(self, session, expected: dict, label: str):
         self.session = session
         self.expected = expected
         self.label = label
-        self.calls = 0
-        self.totals = {k: 0 for k in expected}
+        self.calls = self.body_runs = self.captures = 0
 
     def __enter__(self):
+        from repro_torch.serve.graphs import WARMUP_RUNS
         inner = self.session.run_with_health
+        reg = self.session.metrics
 
         def call(st, **kw):
             from repro_torch.kernels import launch_counts
             before = launch_counts()
+            caps = reg.counter("session_graph_captures").value
+            reps = reg.counter("session_graph_replays").value
             out, health = inner(st, **kw)
             after = launch_counts()
+            caps = reg.counter("session_graph_captures").value - caps
+            reps = reg.counter("session_graph_replays").value - reps
+            levels = health.replans + 1
+            if self.session.cuda_graphs:
+                runs = caps * (WARMUP_RUNS + 1)
+                if reps != levels:
+                    raise RuntimeError(f"{self.label} call {self.calls}: "
+                                       f"{reps} replays for {levels} "
+                                       "escalation levels")
+            else:
+                runs = levels
             grew = {k: after[k] - before[k] for k in after}
-            want = {k: v * (health.replans + 1)
-                    for k, v in self.expected.items()}
+            want = {k: v * runs for k, v in self.expected.items()}
             if grew != want:
                 raise RuntimeError(f"{self.label} call {self.calls}: "
                                    f"launches {grew}, expected {want}")
             self.calls += 1
-            for k, v in grew.items():
-                self.totals[k] += v
+            self.body_runs += runs
+            self.captures += caps
             return out, health
 
         self.session.run_with_health = call
@@ -2267,13 +2400,14 @@ def hist_line(reg, name: str) -> str:
             f"mean {h.sum / max(h.count, 1) * 1e3:.2f} ms over {h.count}")
 
 
-def engine_phase(label: str, session, clouds, expected: dict, card: str,
-                 paths: dict, path: str) -> dict:
-    """10a / 10b on one session (module doc): a clean run, a poisoned run
-    and pack-ahead through the engine, each answer against the bare
-    session's single-scene call; the engine timed against the bare
-    batch-2 call; one profiled engine step. Returns the reference answers
-    and the bare batch-2 call's median seconds."""
+def engine_phase(label: str, session, bare, clouds, expected: dict,
+                 card: str, paths: dict, path: str) -> dict:
+    """10a / 10b on one graph session (module doc): a clean run, a
+    poisoned run and pack-ahead through the engine, each answer against
+    the single-scene call of ``bare`` (an eager session on the same
+    weights); the engine timed against the graph session's bare batch-2
+    call; one profiled engine step. Returns the reference answers and the
+    bare batch-2 call's median seconds."""
     import torch
     from repro_torch.core.sparse_tensor import SparseTensor
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2283,7 +2417,7 @@ def engine_phase(label: str, session, clouds, expected: dict, card: str,
                                    poison_features)
     from repro_torch.serve.engine import host_answers
     name = session.net.name
-    refs = [bare_answer(session, c) for c in clouds]
+    refs = [bare_answer(bare, c) for c in clouds]
     per_call = {k: v for k, v in expected.items() if v}
 
     # clean run: two batches of 2
@@ -2293,16 +2427,20 @@ def engine_phase(label: str, session, clouds, expected: dict, card: str,
         reqs, _ = serve_requests(eng, clouds)
     counts = launch_counts()
     check_answers(reqs, refs, f"{label} clean")
-    if not (eng.batches_run == chk.calls == 2
-            and all(counts[k] == 2 * v for k, v in expected.items())):
+    if not (eng.batches_run == chk.calls == 2 and chk.captures
+            and all(counts[k] == chk.body_runs * v
+                    for k, v in expected.items())):
         raise RuntimeError(f"{label} clean: {eng.batches_run} batches, "
-                           f"{chk.calls} calls, launches {counts}")
+                           f"{chk.calls} calls, {chk.captures} captures, "
+                           f"launches {counts}")
     for k, v in per_call.items():
         paths.setdefault(k, {})[path] = dict(launches=counts[k])
     log(f"[{label} clean] {name}: {len(reqs)} requests "
-        f"{[len(c) for c, _ in clouds]} voxels, 2 batches of 2: all ok, "
-        f"each bitwise the bare single-scene call (logits and voxels); "
-        f"launches {per_call} per batch, run {counts}")
+        f"{[len(c) for c, _ in clouds]} voxels, 2 batches of 2 through the "
+        f"graph session: all ok, each bitwise the eager session's "
+        f"single-scene call (logits and voxels); {chk.captures} key(s) "
+        f"captured ({chk.body_runs} body runs of {per_call}), the rest "
+        f"replayed; run {counts}")
 
     # poisoned: request 1 carries a poison_features marker
     poisoned = [(c, f.copy()) for c, f in clouds]
@@ -2311,19 +2449,25 @@ def engine_phase(label: str, session, clouds, expected: dict, card: str,
     with CallCheck(session, expected, f"{label} poisoned") as chk:
         eng_p = PointCloudServeEngine(FaultySession(
             session, poison=feature_poison()))
+        keys_before = session.compile_count
         reqs_p, _ = serve_requests(eng_p, poisoned)
     counts = launch_counts()
     outcomes = [r.outcome for r in reqs_p]
     if outcomes != ["ok", "quarantined", "ok", "ok"]:
         raise RuntimeError(f"{label} poisoned: outcomes {outcomes}")
     check_answers(reqs_p, refs, f"{label} poisoned", skip=(1,))
-    if not all(counts[k] == chk.calls * v for k, v in expected.items()):
+    if not (chk.captures and all(counts[k] == chk.body_runs * v
+                                 for k, v in expected.items())):
         raise RuntimeError(f"{label} poisoned: launches {counts} over "
-                           f"{chk.calls} session calls")
+                           f"{chk.calls} session calls, {chk.captures} "
+                           "captures")
     log(f"[{label} poisoned] request 1 quarantined by bisection "
         f"({reqs_p[1].error.split(' (')[0]}); requests 0, 2, 3 bitwise the "
-        f"clean run (request 0 alone at its own bucket); {chk.calls} "
-        f"session calls reached the card; counters {eng_p.counters}")
+        f"eager session's (request 0 alone at bucket "
+        f"{reqs_p[0].health.bucket}, a key captured mid-serving: "
+        f"compile_count {keys_before} -> {session.compile_count}); "
+        f"{chk.calls} session calls reached the card; counters "
+        f"{eng_p.counters}")
 
     # under the dispatch watchdog: the session runs on the watchdog's thread
     with CallCheck(session, expected, f"{label} watchdog") as chk:
@@ -2334,8 +2478,8 @@ def engine_phase(label: str, session, clouds, expected: dict, card: str,
         raise RuntimeError(f"{label} watchdog: {chk.calls} calls, "
                            f"{eng_w.dispatch_timeouts} timeouts")
     log(f"[{label} watchdog] dispatch_timeout=60 s: the session called "
-        f"from the watchdog's thread on the card, answers bitwise, "
-        f"{chk.calls} calls each with the path's launches, {ms_w:.1f} ms")
+        f"from the watchdog's thread on the card (its graphs replayed "
+        f"there), answers bitwise, {chk.calls} calls, {ms_w:.1f} ms")
 
     # serial and pack-ahead over 8 requests, in turns
     eight = clouds * 2
@@ -2433,8 +2577,9 @@ def lossy_phase(cps, lossy_net, clouds, refs, card: str) -> None:
     check_answers(reqs, refs[:2], "10b lossy")
     log(f"[10b escalation] ws_capacity {LOSSY_CAPACITY} on every layer, "
         f"requests 0 and 1 in one batch: {h.summary()}, engine "
-        f"overflow_replans {eng.overflow_replans}; answers bitwise the "
-        f"lossless session's; {ms:.1f} ms | {card}")
+        f"overflow_replans {eng.overflow_replans}, keys captured "
+        f"{lossy.compile_count} (one per escalation level); answers bitwise "
+        f"the lossless eager session's; {ms:.1f} ms | {card}")
     ladder = DegradationLadder(LadderConfig(max_rung=2,
                                             deescalate_after=float("inf")))
     ladder.rung = 2
@@ -2495,7 +2640,7 @@ def overload_phase(session, clouds, refs, delay: float, expected: dict,
     check_answers(reqs, refs, "10c",
                   skip=set(range(n)) - set(served))
     if not (served and chk.calls == eng.batches_run
-            and all(counts[k] == chk.calls * v
+            and all(counts[k] == chk.body_runs * v
                     for k, v in expected.items())):
         raise RuntimeError(f"10c: {len(served)} ok, {chk.calls} calls, "
                            f"{eng.batches_run} batches, launches {counts}")
@@ -2503,8 +2648,9 @@ def overload_phase(session, clouds, refs, delay: float, expected: dict,
         f"(10a's bare batch-2 median) on a FakeClock, {n} requests offered "
         f"at {rate:.1f}/s = 2x: {rep.summary()}; every request one "
         f"terminal outcome, {len(served)} ok answers bitwise the unloaded "
-        f"ones, {chk.calls} dispatches each ran the kernels (launches "
-        f"{counts}); {wall:.1f} s of wall clock | {card}")
+        f"ones, {chk.calls} dispatches each replayed the kernels' graphs "
+        f"({chk.captures} key(s) captured here, launches {counts}); "
+        f"{wall:.1f} s of wall clock | {card}")
 
 
 def serve_phases(batch, card: str, paths: dict, mk_net, cp_net) -> None:
@@ -2526,13 +2672,16 @@ def serve_phases(batch, card: str, paths: dict, mk_net, cp_net) -> None:
               for c in coords]
     session = compile_network(mk_net, batch[0].layout, batch=2, seed=0,
                               device=DEV)
+    bare = compile_network(mk_net, batch[0].layout, batch=2,
+                           params=session.params, device=DEV,
+                           cuda_graphs=False)
     expected = expected_launches(mk_net.specs)
-    r = engine_phase("10a", session, clouds, expected, card, paths,
+    r = engine_phase("10a", session, bare, clouds, expected, card, paths,
                      "minkunet42 engine (10a)")
 
     # 10c: 2x overload on the same session
     overload_phase(session, clouds, r["refs"], r["bare_s"], expected, card)
-    del session
+    del session, bare
     torch.cuda.empty_cache()
 
     # 10b: CenterPoint-Large
@@ -2541,14 +2690,198 @@ def serve_phases(batch, card: str, paths: dict, mk_net, cp_net) -> None:
               for c in coords]
     cps = compile_network(cp_net, batch[0].layout, batch=2, seed=0,
                           device=DEV)
+    bare = compile_network(cp_net, batch[0].layout, batch=2,
+                           params=cps.params, device=DEV, cuda_graphs=False)
     expected = expected_launches(cp_net.specs)
-    r = engine_phase("10b", cps, clouds, expected, card, paths,
+    r = engine_phase("10b", cps, bare, clouds, expected, card, paths,
                      "centerpoint_large engine (10b)")
     lossy_net = dataclasses.replace(cp_net, specs=tuple(
         dataclasses.replace(s, ws_capacity=LOSSY_CAPACITY)
         for s in cp_net.specs))
     lossy_phase(cps, lossy_net, clouds, r["refs"], card)
-    del cps
+    del cps, bare
+    torch.cuda.empty_cache()
+
+
+# -- phase 11: one CUDA graph per key -----------------------------------------
+
+def same_call(a, b) -> bool:
+    """Two session outputs bitwise equal: logits, words and count."""
+    import torch
+    return (torch.equal(a.features, b.features)
+            and torch.equal(a.packed, b.packed)
+            and torch.equal(a.count, b.count))
+
+
+def graph_case(label: str, net, layout, clouds, card: str, paths: dict,
+               tuner=None) -> None:
+    """11a-c (module doc) on one network: an eager session
+    (``cuda_graphs=False``) and a graph session on the same weights; each
+    key's capture (its launches, seconds and memory), every replay bitwise
+    the eager call, keys replayed out of capture order, ms per batch-2 call
+    in turns, both calls profiled."""
+    import torch
+    from repro_torch.core.sparse_tensor import SparseTensor
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import compile_network
+    from repro_torch.serve.graphs import WARMUP_RUNS
+    e = compile_network(net, layout, batch=2, seed=0, tuner=tuner,
+                        cuda_graphs=False)
+    g = compile_network(e.net, layout, batch=2, params=e.params)
+    st1 = SparseTensor.from_point_clouds(clouds[:1], e.layout)
+    st2 = SparseTensor.from_point_clouds(clouds, e.layout)
+    expected = expected_launches(e.net.specs)
+    want = {k: v * (WARMUP_RUNS + 1) for k, v in expected.items()}
+    reg = g.metrics
+    for name, st in (("scene0", st1), ("batch2", st2)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, h = g.run_with_health(st)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        grown = torch.cuda.memory_reserved() - mem0
+        counts = launch_counts()
+        if counts != want:
+            raise RuntimeError(f"{label} {name}: capture launches {counts}, "
+                               f"expected {want}")
+        ref, href = e.run_with_health(st)
+        if not (same_call(out, ref) and h == href):
+            raise RuntimeError(f"{label} {name}: the replay is not bitwise "
+                               "the eager call")
+        log(f"[{label} capture {name}] key (bucket {h.bucket}, escalation "
+            f"{h.escalation}): warm-up + capture "
+            f"{reg.gauge('session_graph_capture_seconds').value:.2f} s, "
+            f"first call {first:.1f} ms; launches {WARMUP_RUNS + 1} x "
+            f"{ {k: v for k, v in expected.items() if v} }; memory reserved "
+            f"+{grown / 2**30:.2f} GiB (process "
+            f"{reg.gauge('session_graph_memory_reserved').value / 2**30:.2f}"
+            f" GiB); replay bitwise the eager call (logits, words, count), "
+            f"overflowed cells {sum(h.window_overflow_cells.values())} | "
+            f"{card}")
+    for st in (st2, st1, st2):          # out of capture order
+        ref = e(st)
+        reset_launch_counts()
+        out = g(st)
+        if any(launch_counts().values()) or not same_call(out, ref):
+            raise RuntimeError(f"{label}: an out-of-order replay launched "
+                               "through the wrappers or differs")
+    if g.compile_count != 2:
+        raise RuntimeError(f"{label}: compile_count {g.compile_count} != 2")
+    times = {"eager": [], "graph": []}
+    for i in range(GRAPH_PAIRS):
+        for mode in (("eager", "graph") if i % 2 == 0
+                     else ("graph", "eager")):
+            sess = e if mode == "eager" else g
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess(st2)
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    med = {m: float(np.median(v)) for m, v in times.items()}
+    wins = sum(gm < em for em, gm in zip(times["eager"], times["graph"]))
+    log(f"[{label} times] {net.name} batch 2, {GRAPH_PAIRS} pairs in turns "
+        f"(order alternating): graph replay median {med['graph']:.2f} ms "
+        f"(IQR {np.percentile(times['graph'], 25):.2f}-"
+        f"{np.percentile(times['graph'], 75):.2f}), eager median "
+        f"{med['eager']:.2f} ms (IQR {np.percentile(times['eager'], 25):.2f}"
+        f"-{np.percentile(times['eager'], 75):.2f}); graph faster in {wins} "
+        f"of {GRAPH_PAIRS} pairs; compile_count {g.compile_count} | {card}")
+    profile_line(label, lambda: g(st2), med["graph"], card,
+                 what="batch2 graph replay")
+    profile_line(f"{label} eager", lambda: e(st2), med["eager"], card,
+                 what="batch2 eager call")
+    if tuner is not None:
+        with Recorder(names=("zdelta_superwindow_search",
+                             "zdelta_repair")) as rec:
+            e(st2)
+        torch.cuda.synchronize()
+        r = check_repair(rec.calls["zdelta_superwindow_search"],
+                         rec.calls["zdelta_repair"], "superwindow")
+        flagged, gbytes = r.pop("flagged"), r.pop("gbytes")
+        if not flagged:
+            raise RuntimeError(f"{label}: the tuned session flagged no cell")
+        paths["zdelta_repair"][f"{net.name} tuned ({label})"] = dict(
+            launches=len(rec.calls["zdelta_repair"]), flagged=flagged,
+            **per_forward(r))
+        log(f"[{label} repair] eager tuned batch-2 call: "
+            f"{len(rec.calls['zdelta_repair'])} repair launches equal to "
+            f"the plain version, {flagged} flagged cells re-searched; per "
+            f"forward device {r['ms']:.4f} ms, through the wrapper "
+            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({gbytes * 1e3:.2f} MB) | {card}")
+    del e, g
+    torch.cuda.empty_cache()
+
+
+def graph_phases(batch, card: str, paths: dict, tuned) -> None:
+    """Phase 11 (module doc): 11a MinkUNet-42, 11b CenterPoint-Large,
+    11c CenterPoint-Large under phase 8a's measure tuning (``tuned``, its
+    results by layer), on phase 4's scenes."""
+    from repro_torch.models import pointcloud as pc
+    layout = batch[0].layout
+
+    def clouds_of(channels):
+        rng = np.random.default_rng(1)
+        return [(sc.coords, rng.normal(size=(len(sc.coords), channels))
+                 .astype(np.float32)) for sc in batch]
+
+    graph_case("11a", pc.minkunet42(in_channels=4, n_classes=20), layout,
+               clouds_of(4), card, paths)
+    graph_case("11b", pc.centerpoint_large(), layout, clouds_of(5), card,
+               paths)
+    graph_case("11c", pc.centerpoint_large(), layout, clouds_of(5), card,
+               paths, tuner=tuned)
+
+
+def decode_graph_phase(cfg, params, prompts, card: str) -> None:
+    """11d (module doc): the LM decode step as one CUDA graph against the
+    eager step, on two engines over the same weights and the same four
+    requests, stepped in turns."""
+    import torch
+    from repro_torch.serve import Request, ServeEngine
+    engines, reqs = {}, {}
+    for mode in ("eager", "graph"):
+        engines[mode] = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                                    cache_len=LM_CACHE,
+                                    cuda_graphs=mode == "graph")
+        reqs[mode] = [Request(prompt=p_, max_new=10 ** 6)
+                      for p_ in prompts[:LM_SLOTS]]
+        for r in reqs[mode]:
+            engines[mode].submit(r)
+
+    def step_ms(mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[mode].step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    first = {mode: step_ms(mode) for mode in ("graph", "eager")}
+    times = {"eager": [], "graph": []}
+    for i in range(DECODE_PAIRS):
+        for mode in (("eager", "graph") if i % 2 == 0
+                     else ("graph", "eager")):
+            times[mode].append(step_ms(mode))
+    outs = {mode: [r.out for r in rs] for mode, rs in reqs.items()}
+    if outs["graph"] != outs["eager"]:
+        raise RuntimeError("11d: the decode graph's greedy tokens differ "
+                           "from the eager step's")
+    med = {m: float(np.median(v)) for m, v in times.items()}
+    wins = sum(gm < em for em, gm in zip(times["eager"], times["graph"]))
+    log(f"[11d decode graph] {cfg.name}, {LM_SLOTS} slots, cache "
+        f"{LM_CACHE}: first graph step (warm-up + capture + replay) "
+        f"{first['graph']:.1f} ms; {DECODE_PAIRS} pairs in turns: graph "
+        f"median {med['graph']:.2f} ms per step = "
+        f"{LM_SLOTS / med['graph'] * 1e3:.1f} tokens/s, eager median "
+        f"{med['eager']:.2f} ms = {LM_SLOTS / med['eager'] * 1e3:.1f} "
+        f"tokens/s; graph faster in {wins} of {DECODE_PAIRS}; "
+        f"{len(outs['graph'][0])} greedy tokens per request equal | {card}")
+    profile_line("11d", lambda: engines["graph"].step(), med["graph"], card,
+                 what=f"one decode step replayed ({LM_SLOTS} slots)")
+    del engines, reqs
     torch.cuda.empty_cache()
 
 
@@ -2611,7 +2944,8 @@ def main() -> int:
                .astype(np.float32)) for sc in batch]
     sizes = [len(c) for c, _ in clouds]
     net = pc.minkunet42(in_channels=4, n_classes=20)
-    session = compile_network(net, batch[0].layout, batch=2, seed=0)
+    session = compile_network(net, batch[0].layout, batch=2, seed=0,
+                              cuda_graphs=False)
     st1 = SparseTensor.from_point_clouds(clouds[:1], session.layout)
     st2 = SparseTensor.from_point_clouds(clouds, session.layout)
     log(f"[inputs] 2 outdoor scenes {sizes} voxels, layout {session.layout}, "
@@ -2641,6 +2975,14 @@ def main() -> int:
     log(f"[3 superwindow] {len(z)} launches equal; per forward device "
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.4f} ms; {search_rates(r)} | {card}")
+    r = check_repair(z, rec.calls["zdelta_repair"], "superwindow")
+    r.pop("gbytes")
+    results["zdelta_repair"] = r
+    log(f"[3 repair] {len(z)} launches equal to the plain version, "
+        f"{r.pop('flagged')} flagged cells; per forward device "
+        f"{r['ms']:.4f} ms, through the wrapper {r['wrapper_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms | "
+        f"{card}")
 
     # OS implicit GEMM: fp32 within 1e-5 * max(1, max|ref|)
     o = rec.calls["spconv_gather_gemm"]
@@ -2694,14 +3036,16 @@ def main() -> int:
     # -- 4. main path --------------------------------------------------------
     expected = {k: 0 for k in launch_counts()}
     expected.update({"zdelta_superwindow_search": 42,
+                     "zdelta_repair": 42,
                      "spconv_gather_gemm": 42, "segment_sum": 42})
     outb, hb, times, counts = drive(session, (("scene0", st1),
                                               ("batch2", st2)),
                                     expected, "4 main path", kind, card)
     for k in ("zdelta_superwindow_search", "spconv_gather_gemm",
-              "segment_sum"):
+              "segment_sum", "zdelta_repair"):
         paths[k] = {"minkunet42": dict(launches=counts[k],
                                        **per_forward(results[k]))}
+    results["zdelta_repair"]["launches"] = counts["zdelta_repair"]
     profile_line("4", lambda: session(st2), times["batch2"][1], card)
 
     tick("4 MinkUNet-42 main path")
@@ -2719,7 +3063,8 @@ def main() -> int:
     clouds = [(sc.coords, rng.normal(size=(len(sc.coords), 5))
                .astype(np.float32)) for sc in batch]
     cp = pc.centerpoint_large()
-    cps = compile_network(cp, batch[0].layout, batch=2, seed=0)
+    cps = compile_network(cp, batch[0].layout, batch=2, seed=0,
+                          cuda_graphs=False)
     st1 = SparseTensor.from_point_clouds(clouds[:1], cps.layout)
     st2 = SparseTensor.from_point_clouds(clouds, cps.layout)
     log(f"[inputs cp] {cp.name}: {len(cp.specs)} layers, dataflow "
@@ -2829,7 +3174,8 @@ def main() -> int:
     expected = {k: 0 for k in launch_counts()}
     n_os = sum(1 for s in cp.specs
                if l1_partition(s.K, s.offset_stride, s.t)[0].size)
-    expected.update({"zdelta_superwindow_search": 20, "segment_sum": 20,
+    expected.update({"zdelta_superwindow_search": 20,
+                     "zdelta_repair": 20, "segment_sum": 20,
                      "spconv_gather_gemm": n_os, "ws_scatter_gemm": 20})
     outb, hb, times, counts = drive(cps, (("scene0", st1), ("batch2", st2)),
                                     expected, "4b main path", kind, card)
@@ -2847,7 +3193,8 @@ def main() -> int:
     # -- 4c. escalation -----------------------------------------------------
     lossy_net = dataclasses.replace(cp, specs=tuple(
         dataclasses.replace(s, ws_capacity=LOSSY_CAPACITY) for s in cp.specs))
-    esc = compile_network(lossy_net, cps.layout, batch=2, params=cps.params)
+    esc = compile_network(lossy_net, cps.layout, batch=2, params=cps.params,
+                          cuda_graphs=False)
     _, h0 = esc.run_with_health(st2, max_replans=0)
     drops = {k: v for k, v in h0.ws_dropped_pairs.items() if v}
     if not drops:
@@ -2877,7 +3224,7 @@ def main() -> int:
     tick("4c escalation")
     # -- 4d. per-group window engine -----------------------------------------
     win = compile_network(cp, cps.layout, batch=2, params=cps.params,
-                          engine="zdelta_cuda_window")
+                          engine="zdelta_cuda_window", cuda_graphs=False)
     reset_launch_counts()
     plan_w = win.plan(st2)
     torch.cuda.synchronize()
@@ -2925,7 +3272,7 @@ def main() -> int:
 
     tick("4e int64 words")
     # -- 8. the tuner and the paper's baselines --------------------------------
-    tuner_phases(batch, kind, card, cp_untuned_ms)
+    tuned = tuner_phases(batch, kind, card, cp_untuned_ms)
 
     tick("8 tuner and baselines")
     # == MinkUNet-42 training ================================================
@@ -2937,7 +3284,8 @@ def main() -> int:
                                 labels=True, n_classes=20)
     tnet = pc.minkunet42(in_channels=4, n_classes=20)
     plain_tnet = pc.minkunet42(in_channels=4, n_classes=20, backend="torch")
-    s6 = compile_network(tnet, lbatch[0].layout, batch=2, seed=0)
+    s6 = compile_network(tnet, lbatch[0].layout, batch=2, seed=0,
+                         cuda_graphs=False)
     tst, tlab = labeled_batch(lbatch, s6.layout)
     bucket = s6._bucket(tst.capacity)
     stp = tst.pad_to(bucket)
@@ -3042,12 +3390,14 @@ def main() -> int:
     tick("inputs train, 6 training kernels")
     # -- 6b. the training main path ------------------------------------------
     reset_search_calls()
-    sess = compile_network(tnet, lbatch[0].layout, batch=2, seed=0)
+    sess = compile_network(tnet, lbatch[0].layout, batch=2, seed=0,
+                           cuda_graphs=False)
     sess.plan(tst)
     plan_searches = search_call_count()
     trainer = sess.compile_train()
     expected = {k: 0 for k in launch_counts()}
     expected.update({"zdelta_superwindow_search": n_l,
+                     "zdelta_repair": n_l,
                      "spconv_gather_gemm": 2 * n_l - 1,
                      "segment_sum": 3 * n_l + 1,
                      "dw_gather_gemm": n_l + 1})
@@ -3122,10 +3472,12 @@ def main() -> int:
     tick("6c gradients")
     # -- 6d. WS backward at full width ---------------------------------------
     wnet = pc.minkunet42(in_channels=4, n_classes=20, dataflow="ws")
-    wsess = compile_network(wnet, lbatch[0].layout, batch=2, seed=0)
+    wsess = compile_network(wnet, lbatch[0].layout, batch=2, seed=0,
+                            cuda_graphs=False)
     wtrainer = wsess.compile_train()
     expected = {k: 0 for k in launch_counts()}
     expected.update({"zdelta_superwindow_search": n_l,
+                     "zdelta_repair": n_l,
                      "ws_scatter_gemm": 2 * n_l - 1,
                      "segment_sum": 3 * n_l + 1,
                      "dw_gather_gemm": n_l + 1})
@@ -3159,8 +3511,11 @@ def main() -> int:
                  pc.minkunet42(in_channels=4, n_classes=20),
                  pc.centerpoint_large())
     tick("10 serving engine")
+    # -- 11. one CUDA graph per key ---------------------------------------------
+    graph_phases(batch, card, paths, tuned)
+    tick("11a-c graphs")
     lm_phases(results, paths, card)
-    tick("7 yi-9b serving")
+    tick("7 yi-9b serving, 11d decode graph")
 
     # -- result ----------------------------------------------------------------
     table = []

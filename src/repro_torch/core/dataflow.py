@@ -52,6 +52,7 @@ from ..kernels import ops as kops
 # version; re-exported here, where the reference defines it
 from ..kernels.dw_gather_gemm import chunked_rowdot  # noqa: F401
 from .kernel_map import KernelMap, l1_partition, transpose_kernel_map
+from .packing import device_constant
 
 
 def _mask_rows(x: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -319,8 +320,7 @@ def _take(x: torch.Tensor, idx: np.ndarray, dim: int) -> torch.Tensor:
     so every element receives one add and the result is exact."""
     if idx.size == x.shape[dim] and (idx == np.arange(idx.size)).all():
         return x
-    return x.index_select(dim, torch.as_tensor(idx, dtype=torch.long,
-                                               device=x.device))
+    return x.index_select(dim, device_constant(idx, torch.long, x.device))
 
 
 def hybrid(features: torch.Tensor, kmap: KernelMap, weights: torch.Tensor,
@@ -344,8 +344,8 @@ def hybrid(features: torch.Tensor, kmap: KernelMap, weights: torch.Tensor,
         # the WS half reads its columns of the map in place
         every = (sparse_idx.size == kmap.m.shape[1]
                  and (sparse_idx == np.arange(sparse_idx.size)).all())
-        cols = None if every else torch.as_tensor(
-            sparse_idx, dtype=torch.int32, device=kmap.m.device)
+        cols = None if every else device_constant(sparse_idx, torch.int32,
+                                                  kmap.m.device)
         out = out + weight_stationary(
             features, kmap.m, _take(weights, sparse_idx, 0),
             capacity=ws_capacity, backend=backend, bm=bm, bn=bn,

@@ -21,8 +21,10 @@ Engines:
   half-search.
 
 On both kernel engines, cells whose queries ran past their window are
-repaired with the exact ``"zdelta"`` search, so the map is exact either
-way; ``NetworkPlan.stats`` counts the repaired cells per layer. A layer's
+repaired with the exact ``"zdelta"`` search, on the card by the repair
+kernel and with no host read, so the map is exact either way and the plan
+never waits on the card; ``NetworkPlan.stats`` counts the repaired cells
+per layer. A layer's
 window is ``spec.window`` (0: the engine's default), held to the largest
 window the kernel can stage for the word type
 (``kernels.zdelta_window.max_window``).
@@ -92,10 +94,12 @@ def _kernel_map_search(inputs: CoordSet, outputs: CoordSet,
                        backend: str = "auto"):
     """Superwindow (or per-group window) search with the per-cell overflow
     repair: cells whose queries ran past their window are recomputed by
-    :func:`zdelta_search`. Outputs are PAD-padded to a multiple of
-    ``PLAN_BM`` so the kernel runs full tiles; the map is sliced back.
-    Returns ``(map, overflowed cells)``."""
-    from ..kernels.zdelta_window import (max_window,
+    the exact z-delta search (``kernels.zdelta_window.zdelta_repair``: on
+    the card a kernel that skips the cells that did not overflow, on the
+    CPU its plain version), with no host read. Outputs are PAD-padded to a
+    multiple of ``PLAN_BM`` so the kernel runs full tiles; the map is
+    sliced back. Returns ``(map, overflowed cells)``."""
+    from ..kernels.zdelta_window import (max_window, zdelta_repair,
                                          zdelta_superwindow_search,
                                          zdelta_window_search)
 
@@ -120,14 +124,9 @@ def _kernel_map_search(inputs: CoordSet, outputs: CoordSet,
     else:
         m, ovf = zdelta_window_search(inputs, out_padded, anchors, zstep,
                                       K=K, W=W, bm=bm, backend=backend)
-    m = m[:mcap]
-    bad_cells = (ovf > 0).sum(dtype=torch.int32)
-    if int(bad_cells):          # the map is exact either way (module doc)
-        m_x = zdelta_search(inputs, outputs, anchors, zstep, K=K)
-        bad = (ovf > 0).repeat_interleave(bm, dim=0).repeat_interleave(
-            K, dim=1)[:mcap]
-        m = torch.where(bad, m_x, m)
-    return m, bad_cells
+    m = zdelta_repair(inputs, out_padded, anchors, zstep, m, ovf, K=K, bm=bm,
+                      backend=backend)
+    return m[:mcap], (ovf > 0).sum(dtype=torch.int32)
 
 
 def _layer_map(inputs: CoordSet, outputs: CoordSet, s: SpConvSpec,

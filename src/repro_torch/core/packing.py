@@ -11,6 +11,7 @@ wrap in two's complement on the CPU and the GPU, as XLA's do.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -133,10 +134,35 @@ def pack(coords: torch.Tensor, layout: BitLayout,
 def pack_offsets(offsets, layout: BitLayout,
                  device: torch.device | str | None = None) -> torch.Tensor:
     """Pack signed weight offsets so ``pack(q) + pack_offsets(d) ==
-    pack(q + d)`` (borrows cancel per field)."""
-    o = torch.as_tensor(np.asarray(offsets), device=device).to(layout.dtype)
-    return ((o[..., 0] << layout.shift_x) + (o[..., 1] << layout.shift_y)
-            + (o[..., 2] << layout.shift_z))
+    pack(q + d)`` (borrows cancel per field). Packed on the host and kept
+    on ``device`` once per (offsets, layout, device)
+    (:func:`device_constant`): read-only, and no host-to-device copy after
+    the first call."""
+    o = np.asarray(offsets).astype(np.int64)
+    packed = ((o[..., 0] << layout.shift_x) + (o[..., 1] << layout.shift_y)
+              + (o[..., 2] << layout.shift_z))
+    # the narrowing cast wraps, as the word type's own adds would
+    word = np.int64 if layout.dtype == torch.int64 else np.int32
+    return device_constant(packed.astype(word), layout.dtype,
+                           device or "cpu")
+
+
+def device_constant(values: np.ndarray, dtype: torch.dtype,
+                    device: torch.device | str) -> torch.Tensor:
+    """``values`` (host integers, e.g. an offset index set) as a ``dtype``
+    tensor on ``device``, built once per (values, dtype, device) and shared
+    by every caller: read-only, and no host-to-device copy after the first
+    call (a CUDA-graph capture may make none, ``serve.session``)."""
+    v = np.ascontiguousarray(values)
+    return _constant(v.tobytes(), v.dtype.str, v.shape, dtype,
+                     torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(raw: bytes, np_dtype: str, shape: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    v = np.frombuffer(raw, dtype=np_dtype).reshape(shape)
+    return torch.as_tensor(v.copy(), device=device).to(dtype)
 
 
 def unpack(packed: torch.Tensor, layout: BitLayout

@@ -10,7 +10,8 @@ strictly between ``a + r·s`` and ``a + (r+1)·s`` for inputs of stride s.
 
 The hand-written CUDA form (one shared window per 128-row tile) is
 ``kernels.zdelta_window.zdelta_superwindow_search``; this module is the
-exact reference the plan repairs window overflows with.
+exact reference its overflow repair (``kernels.zdelta_window.zdelta_repair``)
+reproduces.
 """
 from __future__ import annotations
 
@@ -68,10 +69,20 @@ def zdelta_search(inputs: CoordSet, outputs: CoordSet,
     G = K² for a full search; the §5.4 half-search passes the first
     ``symmetry_anchor_count(K)`` anchors. PAD output rows are −1."""
     _count_search()
-    arr = inputs.packed
+    return zdelta_search_words(inputs.packed, outputs.packed, packed_anchors,
+                               zstep, K=K)
+
+
+def zdelta_search_words(arr: torch.Tensor, out_words: torch.Tensor,
+                        packed_anchors: torch.Tensor, zstep: int, *,
+                        K: int) -> torch.Tensor:
+    """:func:`zdelta_search` over the sorted input words ``arr`` and the
+    output words, not counted as a search: the windowed searches' overflow
+    repair (``kernels.zdelta_window.zdelta_repair_torch``) runs it as part
+    of theirs."""
     n = arr.shape[0]
     pad = pad_value(arr.dtype)
-    q0 = outputs.packed[:, None] + packed_anchors[None, :]   # wraps on PAD
+    q0 = out_words[:, None] + packed_anchors[None, :]   # wraps on PAD
     pos = torch.searchsorted(arr, q0, side="left", out_int32=True)
     cols = []
     cursor = pos
@@ -82,8 +93,8 @@ def zdelta_search(inputs: CoordSet, outputs: CoordSet,
         cols.append(torch.where(hit, cursor, -1))
         cursor = cursor + hit.to(torch.int32)
         query = query + zstep
-    m = torch.stack(cols, dim=-1).reshape(outputs.packed.shape[0], -1)
-    valid_row = (outputs.packed != pad)[:, None]
+    m = torch.stack(cols, dim=-1).reshape(out_words.shape[0], -1)
+    valid_row = (out_words != pad)[:, None]
     return torch.where(valid_row, m, -1).to(torch.int32)
 
 

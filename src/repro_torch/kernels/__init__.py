@@ -3,7 +3,10 @@ plain PyTorch version and a launch counter on its wrapper:
 
   zdelta_window      — superwindow and per-group window z-delta
                        kernel-map searches (csrc/zdelta_superwindow.cu,
-                       csrc/zdelta_window.cu)
+                       csrc/zdelta_window.cu) and the exact repair of
+                       their overflowed cells; the repair is port-only,
+                       the JAX package runs it in XLA
+                       (csrc/zdelta_repair.cu)
   spconv_gather_gemm — output-stationary implicit GEMM, gather fused in
                        (csrc/spconv_gather_gemm.cu)
   ws_scatter_gemm    — weight-stationary pair GEMM + ordered merge
@@ -38,6 +41,7 @@ LAUNCHERS = {
     "masked_group_gemm": masked_group_gemm.masked_group_gemm,
     "dw_gather_gemm": dw_gather_gemm.dw_gather_gemm,
     "flash_attention": flash_attention.flash_attention,
+    "zdelta_repair": zdelta_window.zdelta_repair_cuda,
 }
 
 

@@ -65,8 +65,9 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk = min(kv_chunk or Skv, Skv)
     if Skv % chunk:
         chunk = Skv
-    q_pos = torch.as_tensor(q_offset, device=dev) + torch.arange(Sq,
-                                                                 device=dev)
+    # an int offset is added on the card: no host-to-device copy, which a
+    # CUDA-graph capture of the decode step could not hold
+    q_pos = torch.arange(Sq, device=dev) + q_offset
     qg = q.reshape(B, Sq, KV, G, D).float()
     m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)

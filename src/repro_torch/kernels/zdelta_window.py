@@ -24,12 +24,15 @@ with ``csrc/zdelta_window.cu``. Phase A (torch): one ``searchsorted`` per
 (row, member) query's match is the first position equal to it in the
 cell's W-word window. Counters as above, per (tile, group).
 
-The plan repairs overflowed cells with the exact ``core.zdelta`` search.
-On the H100 both kernels are bound by bytes (the map); their design notes
-are in the sources. The plain versions (:func:`zdelta_superwindow_torch`,
+``zdelta_repair`` re-searches the cells whose counter is nonzero with the
+exact ``core.zdelta`` search, in place, on the card
+(``csrc/zdelta_repair.cu``, port-only: the JAX package runs this repair in
+XLA behind ``lax.cond``), so no host read decides whether a plan needs it.
+On the H100 the three kernels are bound by bytes (the searches by the map,
+the repair by the flagged cells); their design notes are in the sources. The plain versions (:func:`zdelta_superwindow_torch`,
 :func:`zdelta_window_torch`) are vectorised over tiles, take the same
 arguments as the kernels' wrappers, and reproduce their maps and counters
-exactly.
+exactly; :func:`zdelta_repair_torch` is the repair's.
 """
 from __future__ import annotations
 
@@ -45,9 +48,11 @@ from ..core.voxel import CoordSet, pad_value
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (arr, n, outp, n_tiles, anchors, G, zstep, K, W, nbits, [starts,]
-#  m_out, ovf_out, stream)
+#  m_out, ovf_out, stream); the repair: (arr, n, outp, n_tiles, anchors, G,
+#  zstep, K, ovf, m, stream)
 _SIG = {"superwindow": [_P, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P],
-        "window": [_P, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P]}
+        "window": [_P, _I, _P, _I, _P, _I, _L, _I, _I, _I, _P, _P, _P, _P],
+        "repair": [_P, _I, _P, _I, _P, _I, _L, _I, _P, _P, _P]}
 _WORDS = {torch.int32: "i32", torch.int64: "i64"}
 _fns: dict = {}
 MAX_GROUPS = 128   # kMaxGroups in the superwindow source
@@ -316,3 +321,73 @@ def zdelta_window_search(inputs: CoordSet, outputs: CoordSet,
         return zdelta_window_cuda(arr, out2d, anchors, starts, zstep, K=K,
                                   W=W)
     return zdelta_window_torch(arr, out2d, anchors, starts, zstep, K=K, W=W)
+
+
+# ---------------------------------------------------------------------------
+# the overflow repair: overflowed (tile, group) cells re-searched exactly
+# ---------------------------------------------------------------------------
+
+def zdelta_repair_torch(arr: torch.Tensor, out2d: torch.Tensor,
+                        anchors: torch.Tensor, zstep: int, m: torch.Tensor,
+                        ovf: torch.Tensor, *, K: int) -> torch.Tensor:
+    """Plain version of the repair: the map ``m`` [n_tiles·bm, G·K] with
+    the entries of every (tile, group) cell whose counter ``ovf``
+    [n_tiles, G] is nonzero replaced by the exact z-delta search's; a new
+    tensor (the kernel writes ``m`` in place)."""
+    from ..core.zdelta import zdelta_search_words
+    bm = out2d.shape[1]
+    exact = zdelta_search_words(arr, out2d.reshape(-1), anchors, zstep, K=K)
+    bad = (ovf > 0).repeat_interleave(bm, dim=0).repeat_interleave(K, dim=1)
+    return torch.where(bad, exact, m)
+
+
+def zdelta_repair_cuda(arr: torch.Tensor, out2d: torch.Tensor,
+                       anchors: torch.Tensor, zstep: int, m: torch.Tensor,
+                       ovf: torch.Tensor, *, K: int) -> torch.Tensor:
+    """Launch the CUDA repair kernel on CUDA int32 or int64 words: repairs
+    ``m`` in place and returns it; same result as
+    :func:`zdelta_repair_torch`."""
+    fn = _launcher("repair", arr, out2d)
+    n_tiles, bm = out2d.shape
+    G = anchors.shape[0]
+    if (m.dtype != torch.int32 or not m.is_contiguous()
+            or tuple(m.shape) != (n_tiles * bm, G * K)):
+        raise ValueError(f"the repair takes the search's contiguous int32 map "
+                         f"[{n_tiles * bm}, {G * K}], got {m.dtype} "
+                         f"{tuple(m.shape)}")
+    if ovf.dtype != torch.int32 or tuple(ovf.shape) != (n_tiles, G):
+        raise ValueError(f"the repair takes int32 counters [{n_tiles}, {G}], "
+                         f"got {ovf.dtype} {tuple(ovf.shape)}")
+    arr = arr.contiguous()
+    out2d = out2d.contiguous()
+    anchors = anchors.to(arr.dtype).contiguous()
+    ovf = ovf.contiguous()
+    stream = torch.cuda.current_stream(arr.device).cuda_stream
+    err = fn(arr.data_ptr(), arr.shape[0], out2d.data_ptr(), n_tiles,
+             anchors.data_ptr(), G, int(zstep), K, ovf.data_ptr(),
+             m.data_ptr(), stream)
+    zdelta_repair_cuda.launches += 1
+    _build.check(err, "zdelta_repair")
+    return m
+
+
+zdelta_repair_cuda.launches = 0
+
+
+def zdelta_repair(inputs: CoordSet, outputs: CoordSet,
+                  packed_anchors: torch.Tensor, zstep: int, m: torch.Tensor,
+                  ovf: torch.Tensor, *, K: int, bm: int = 128,
+                  backend: str = "auto") -> torch.Tensor:
+    """The map of a windowed search (``m`` [M, G·K], ``ovf`` [M/bm, G] as
+    either search returns them, ``outputs`` the words it searched) with
+    every overflowed cell re-searched exactly: on the card in place by the
+    kernel, on the CPU by the plain version. Either way no host read."""
+    arr = inputs.packed
+    mcap = outputs.packed.shape[0]
+    if mcap % bm:
+        raise ValueError(f"output capacity {mcap} is not a multiple of {bm}")
+    out2d = outputs.packed.reshape(mcap // bm, bm)
+    anchors = packed_anchors.to(device=arr.device, dtype=arr.dtype)
+    if resolve_backend(backend, arr):
+        return zdelta_repair_cuda(arr, out2d, anchors, zstep, m, ovf, K=K)
+    return zdelta_repair_torch(arr, out2d, anchors, zstep, m, ovf, K=K)

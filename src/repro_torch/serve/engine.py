@@ -112,7 +112,10 @@ On the card
   (:func:`host_answers`), not scene by scene through ``unbatch()``.
 * The dispatch watchdog's thread enters the session's CUDA device (a new
   thread starts on device 0). An abandoned call's kernels stay queued on
-  the card, and the next dispatch waits behind them.
+  the card, and the next dispatch waits behind them; on a graph session
+  (one CUDA graph per key, ``serve.session``) it also waits on the
+  session's lock, which the abandoned call, or its capture, holds until
+  it ends.
 * Which CUDA faults are transient: ``torch.cuda.OutOfMemoryError`` is the
   counterpart of XLA's ``RESOURCE_EXHAUSTED`` and is retried. Every other
   CUDA error (an illegal address poisons the context) is non-transient:
@@ -180,6 +183,7 @@ from ..models import transformer as tf
 from ..models.common import ModelConfig
 from ..obs import CounterView, MetricsRegistry, span
 from .faults import TransientError
+from .graphs import capture
 from .scheduler import (AdmissionConfig, AdmissionController, BreakerConfig,
                         BucketScheduler, CircuitBreaker, DegradationLadder,
                         DispatchTimeoutError, FifoScheduler, LadderConfig)
@@ -828,11 +832,24 @@ class Request:
 
 class ServeEngine:
     """Slot engine over ``params`` (on their device). ``backend`` is the
-    attention backend of the prefills (``kernels.ops.resolve_backend``)."""
+    attention backend of the prefills (``kernels.ops.resolve_backend``).
+
+    The decode step reads its tokens and positions from static buffers on
+    the device and, on the card, is one CUDA graph captured at the first
+    step for this engine's ``batch_slots`` and ``cache_len`` (the
+    reference jits it once): a step copies the tokens and positions in,
+    replays, and reads the greedy tokens once. The warm-up before the
+    capture runs the step itself, which is harmless: a step writes each
+    slot's key and value at that slot's position, and running it twice
+    writes the same rows with the same values. The graph reads
+    ``params`` and the caches at their addresses; both stay in place
+    (prefills merge into the caches with in-place writes).
+    ``cuda_graphs=False`` runs the step eagerly; off the card it always
+    runs eagerly. Prefill stays eager."""
 
     def __init__(self, cfg: ModelConfig, params: dict, batch_slots: int = 8,
                  cache_len: int = 512, seed: int = 0, *,
-                 backend: str = "auto"):
+                 backend: str = "auto", cuda_graphs: bool = True):
         self.cfg = cfg
         self.params = params
         self.B = batch_slots
@@ -845,6 +862,13 @@ class ServeEngine:
         self.free = list(range(batch_slots))
         self.active: dict[int, Request] = {}
         self.generator = torch.Generator().manual_seed(seed)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._tokens = torch.zeros((batch_slots, 1), dtype=torch.int32,
+                                   device=self.device)
+        self._pos = torch.zeros((batch_slots,), dtype=torch.int32,
+                                device=self.device)
+        self._graph = None
+        self._outputs = ()
 
     # -- slot management ------------------------------------------------
 
@@ -877,6 +901,28 @@ class ServeEngine:
 
     # -- decode ------------------------------------------------------------
 
+    @torch.no_grad()
+    def _decode_body(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One decode step over the static token and position buffers:
+        ``(logits [B, vocab], greedy tokens [B])``, the caches written in
+        place. No host read and no host copy: what the graph captures."""
+        logits, _ = tf.decode_step(self.params, self.cfg, self.state,
+                                   {"tokens": self._tokens}, self._pos)
+        lg = logits[:, 0]
+        return lg, lg.argmax(-1)
+
+    def _decode(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decode step: eager, or the replay of the engine's graph
+        (class doc), captured on first use. Its outputs are the graph's own
+        buffers, valid until the next step."""
+        if not self.cuda_graphs:
+            return self._decode_body()
+        if self._graph is None:
+            self._graph, self._outputs = capture(self._decode_body,
+                                                 self.device)
+        self._graph.replay()
+        return self._outputs
+
     def step(self) -> None:
         """One decode step for all slots (the free ones padded)."""
         if not self.active:
@@ -885,11 +931,10 @@ class ServeEngine:
         for slot, req in self.active.items():
             toks[slot, 0] = req.out[-1]
         # per-slot positions (continuous batching: slots at different depths)
-        logits, self.state = tf.decode_step(
-            self.params, self.cfg, self.state, {"tokens": torch.as_tensor(toks)},
-            torch.as_tensor(self.pos.copy()))
-        lg = logits[:, 0]
-        greedy = lg.argmax(-1).tolist()
+        self._tokens.copy_(torch.from_numpy(toks))
+        self._pos.copy_(torch.from_numpy(self.pos))
+        lg, greedy = self._decode()
+        greedy = greedy.tolist()
         for slot, req in list(self.active.items()):
             tok = (greedy[slot] if req.temperature <= 0
                    else self._sample(lg[slot], req))

@@ -8,14 +8,38 @@ feature pass; the hot path is one call::
     out = session(SparseTensor.from_point_clouds(clouds, session.layout))
     per_scene = out.unbatch()
 
-The session runs eagerly: each call pads its input to a power-of-two
-capacity bucket, builds the plan (default engine ``"zdelta_cuda"``, so the
-superwindow search kernel runs on the card) and runs the forward pass
+Each call pads its input to a power-of-two capacity bucket, builds the
+plan (default engine ``"zdelta_cuda"``, so the superwindow search kernel
+runs on the card, and its overflow repair too) and runs the forward pass
 (per layer the OS and/or WS kernel as its dataflow says, the segment-sum
-kernel per BN). ``compile_count``
-counts the distinct (bucket, escalation) keys run so far, the counterpart
-of the reference's one jitted executable per key; capturing a CUDA graph
-per bucket is later work (ROADMAP Queue 1).
+kernel per BN).
+
+One CUDA graph per key, the counterpart of the reference's one jitted
+executable per (capacity bucket, escalation level): on a ``"cuda"``
+session the first call of a key copies its input into static buffers,
+runs the plan+forward body once on a side stream (warm-up: the kernel
+library's build, shared-memory attributes, cuBLAS handles and every
+device constant the body reads) and captures it; every call of the key,
+that one included, copies its input into the buffers, replays the graph,
+reads the stacked health counters once and clones the logits, words and
+count out of the graph's memory. The body makes no host read, has no host
+branch on data and copies nothing from the host, so the capture holds the
+whole call. ``compile_count`` is the number of graphs captured (one per
+key, as the reference's jit cache). ``cuda_graphs=False`` runs every call
+eagerly (the counterpart of ``jax.disable_jit()``: each launch then goes
+through its Python wrapper, where a launch count can see it); a ``"cpu"``
+session always does. There is no fallback: a capture or replay that
+fails raises.
+
+The graphs of one session share one memory pool. That is safe in any
+replay order because a call holds the session's lock from its input copy
+to its clones: the only memory of one graph that outlives its replay is
+its outputs, copied out before any other graph of the session replays,
+and the static inputs live outside the pool. A graph reads the parameters
+at their addresses, so updates must be in place (the trainers'
+``copy_``, checkpoint restore); assigning ``session.params`` drops every
+graph. A capture abandoned by the serving engine's watchdog finishes under
+the lock, and a key enters the session only once its capture succeeded.
 :meth:`SpiraSession.compile_train` returns the trainer that updates the
 session's parameters in place (``train.pointcloud``).
 
@@ -44,6 +68,7 @@ of a lossless run: every kernel on the path is zero-extension invariant.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import zlib
 from typing import Dict, Mapping, Optional, Tuple, Union
@@ -52,13 +77,14 @@ import torch
 
 from ..core.kernel_map import l1_partition
 from ..core.network_plan import NetworkPlan, build_network_plan
-from ..core.packing import BitLayout
+from ..core.packing import BitLayout, device_constant
 from ..core.sparse_tensor import SparseTensor, ensure_sparse_tensor
 from ..core.spconv import SpConvSpec
 from ..core.tuner import (H100_COSTS, CostConstants, LayerTuneResult,
                           SegmentTuneResult, apply_tuning, device_backends,
                           tune_layer_cost_model, tune_layer_measure,
                           tune_segment_backend_measure)
+from ..core.voxel import pad_value
 from ..core.zdelta import symmetry_anchor_count, zdelta_offsets
 from ..kernels.segsum import SegmentSpec
 from ..kernels.zdelta_window import max_window
@@ -67,6 +93,7 @@ from ..models.pointcloud import (PointCloudModel, PointCloudNet,
                                  pointcloud_forward)
 from ..obs import MetricsRegistry, span
 from .bucketing import bucket_capacity
+from .graphs import capture
 
 TunerArg = Union[None, str, Mapping[str, LayerTuneResult]]
 
@@ -120,6 +147,18 @@ class TuneReport:
 
 
 @dataclasses.dataclass
+class _KeyGraph:
+    """One key's CUDA graph, its static input buffers (allocated outside
+    the graph's memory pool) and the body's outputs (inside it): logits,
+    output words, output count, stacked counters."""
+
+    graph: Optional["torch.cuda.CUDAGraph"]
+    packed: torch.Tensor
+    features: torch.Tensor
+    outputs: Tuple[torch.Tensor, ...] = ()
+
+
+@dataclasses.dataclass
 class SpiraSession:
     """Point-cloud pipeline ``session(st) -> st`` of logits on the net's
     output-level coordinates. Built by :func:`compile_network`."""
@@ -136,14 +175,37 @@ class SpiraSession:
     metrics: Optional[MetricsRegistry] = None
     device: torch.device | str = "cuda"
     tune_report: Optional[TuneReport] = None
+    cuda_graphs: bool = True
 
     def __post_init__(self):
         if self.metrics is None:
             self.metrics = MetricsRegistry()
         self.device = torch.device(self.device)
+        if self._graphs and self.engine == "hash":
+            raise ValueError("engine 'hash' probes in a host loop that ends "
+                             "on the data, which a CUDA graph cannot "
+                             "capture; pass cuda_graphs=False")
         self.params = self.params.to(self.device)
-        self._keys_run: set = set()
+        self._lock = threading.Lock()
+        self._drop_keys()
         self.last_health: Optional[HealthReport] = None
+
+    def __setattr__(self, name, value):
+        # a graph reads the parameters at their addresses: new tensors drop
+        # every key (the trainers' in-place updates keep them)
+        if name == "params" and "_keys" in self.__dict__:
+            self._drop_keys()
+        super().__setattr__(name, value)
+
+    def _drop_keys(self) -> None:
+        # key (bucket, escalation, features dtype) -> its graph, or None
+        # where the session runs eagerly
+        self._keys: Dict[tuple, Optional[_KeyGraph]] = {}
+        self._pool = None
+
+    @property
+    def _graphs(self) -> bool:
+        return self.cuda_graphs and self.device.type == "cuda"
 
     def _escalated_net(self, esc: int) -> PointCloudNet:
         """The network with every lossy ``ws_capacity`` scaled ``2^esc``."""
@@ -155,9 +217,29 @@ class SpiraSession:
             for s in self.net.conv_specs())
         return dataclasses.replace(self.net, specs=specs)
 
-    def _run(self, esc: int, packed: torch.Tensor, feats: torch.Tensor):
-        """Plan + forward at one escalation level; returns the logits, the
-        output level's coordinates and the health counters."""
+    @staticmethod
+    def _lossy(specs) -> list:
+        """``(name, capacity, sparse columns or None)`` of every layer that
+        can drop WS pairs: WS or hybrid with a ``ws_capacity``; of a hybrid
+        layer only its sparse (WS) columns, and none when it has none."""
+        out = []
+        for s in specs:
+            if not s.ws_capacity or s.dataflow not in ("ws", "hybrid"):
+                continue
+            cols = None
+            if s.dataflow == "hybrid":
+                _, cols = l1_partition(s.K, s.offset_stride, s.t)
+                if cols.size == 0:
+                    continue
+            out.append((s.name, s.ws_capacity, cols))
+        return out
+
+    def _body(self, esc: int, packed: torch.Tensor, feats: torch.Tensor):
+        """Plan + forward at one escalation level: the logits, the output
+        level's words and count, and one int64 tensor stacking every lossy
+        layer's dropped pairs, then every layer's overflowed window cells
+        (:meth:`_health_counters` names them). No host read, no host
+        branch on data, no host-to-device copy: what a graph captures."""
         net = self._escalated_net(esc)
         specs = net.conv_specs()
         plan = build_network_plan(packed, specs=specs, layout=self.layout,
@@ -166,24 +248,77 @@ class SpiraSession:
         logits = pointcloud_forward(self.params, net, plan, feats,
                                     layout=self.layout, segment=self.segment)
         out = plan.coords[specs[-1].m_out]
-        # per lossy WS layer the pairs beyond capacity, stacked on the card
-        # and read with one sync
-        names, dropped = [], []
-        for s in specs:
-            if not s.ws_capacity or s.dataflow not in ("ws", "hybrid"):
-                continue
-            pairs = (plan.kmaps[s.name].m >= 0).sum(dim=0)
-            if s.dataflow == "hybrid":
-                _, cols = l1_partition(s.K, s.offset_stride, s.t)
-                if cols.size == 0:
-                    continue
-                pairs = pairs[torch.as_tensor(cols, device=pairs.device)
-                              .long()]
-            names.append(s.name)
-            dropped.append((pairs - s.ws_capacity).clamp(min=0).sum())
-        drops = (dict(zip(names, torch.stack(dropped).tolist()))
-                 if names else {})
-        return logits, out.packed, out.count, drops, plan.stats
+        counters = []
+        for name, cap, cols in self._lossy(specs):
+            pairs = (plan.kmaps[name].m >= 0).sum(dim=0)
+            if cols is not None:
+                pairs = pairs[device_constant(cols, torch.long,
+                                              pairs.device)]
+            counters.append((pairs - cap).clamp(min=0).sum())
+        counters += [plan.stats[s.name].to(torch.int64) for s in specs]
+        return logits, out.packed, out.count, torch.stack(counters)
+
+    def _health_counters(self, esc: int, values: list):
+        """The body's counters, read to the host, as ``(dropped pairs by
+        lossy layer, overflowed cells by layer)``."""
+        specs = self._escalated_net(esc).conv_specs()
+        names = [name for name, _, _ in self._lossy(specs)]
+        return (dict(zip(names, values[:len(names)])),
+                dict(zip([s.name for s in specs], values[len(names):])))
+
+    def _load(self, g: _KeyGraph, st: SparseTensor) -> None:
+        """Copy ``st`` into a key's static buffers, PAD words and zero
+        features past its rows (what ``pad_to`` gives)."""
+        cap = st.capacity
+        g.packed[:cap].copy_(st.packed)
+        g.packed[cap:].fill_(pad_value(g.packed.dtype))
+        g.features[:cap].copy_(st.features)
+        g.features[cap:].zero_()
+
+    def _capture(self, key: tuple, esc: int, st: SparseTensor) -> _KeyGraph:
+        """Warm up and capture one key's graph with ``st`` loaded
+        (``serve.graphs.capture``); the key enters the session only if the
+        capture succeeds. The registry's gauges keep the last capture's
+        seconds (warm-up included) and the memory reserved after it."""
+        bucket, dev = key[0], self.device
+        reg = self.metrics
+        t0 = reg.clock()
+        g = _KeyGraph(None,
+                      torch.empty((bucket,), dtype=st.packed.dtype,
+                                  device=dev),
+                      torch.empty((bucket, st.channels),
+                                  dtype=st.features.dtype, device=dev))
+        self._load(g, st)
+        g.graph, g.outputs = capture(
+            lambda: self._body(esc, g.packed, g.features), dev,
+            pool=self._pool)
+        if self._pool is None:
+            self._pool = g.graph.pool()
+        self._keys[key] = g
+        reg.counter("session_graph_captures").inc()
+        reg.gauge("session_graph_capture_seconds").set(reg.clock() - t0)
+        reg.gauge("session_graph_memory_reserved").set(
+            torch.cuda.memory_reserved(dev))
+        return g
+
+    def _run(self, bucket: int, esc: int, st: SparseTensor):
+        """One key on ``st`` (already on the device when eager): the
+        outputs (logits, words, count; a graph's own buffers when
+        replayed) and the counters, read to the host once."""
+        key = (bucket, esc, st.features.dtype)
+        if not self._graphs:
+            self._keys.setdefault(key, None)
+            stp = st.pad_to(bucket)
+            *outs, counters = self._body(esc, stp.packed, stp.features)
+            return outs, counters.tolist()
+        g = self._keys.get(key)
+        if g is None:
+            g = self._capture(key, esc, st)
+        else:
+            self._load(g, st)
+        g.graph.replay()
+        self.metrics.counter("session_graph_replays").inc()
+        return g.outputs[:3], g.outputs[3].tolist()
 
     # -- hot path ---------------------------------------------------------
 
@@ -206,27 +341,29 @@ class SpiraSession:
             raise ValueError(
                 f"SparseTensor has {st.channels} feature channels; "
                 f"{self.net.name} expects {self.net.in_channels}.")
-        st = st.to(self.device)
+        if not self._graphs:
+            st = st.to(self.device)
         base = self._bucket(st.capacity)
         budget = (self.max_overflow_replans if max_replans is None
                   else min(max_replans, self.max_overflow_replans))
         esc = replans = 0
-        while True:
-            bucket = self._esc_bucket(base, esc)
-            stp = st.pad_to(bucket)
-            self._keys_run.add((bucket, esc))
-            with span("session/call" if esc == 0 else "session/replan",
-                      self.metrics):
-                logits, out_packed, out_count, dropped, ovf = self._run(
-                    esc, stp.packed, stp.features)
-            if sum(dropped.values()) == 0 or esc >= budget:
-                break
-            esc += 1
-            replans += 1
+        with self._lock:
+            while True:
+                bucket = self._esc_bucket(base, esc)
+                with span("session/call" if esc == 0 else "session/replan",
+                          self.metrics):
+                    outs, counters = self._run(bucket, esc, st)
+                dropped, ovf = self._health_counters(esc, counters)
+                if sum(dropped.values()) == 0 or esc >= budget:
+                    break
+                esc += 1
+                replans += 1
+            if self._graphs:
+                outs = [t.clone() for t in outs]
+        logits, out_packed, out_count = outs
         health = HealthReport(
             bucket=bucket, escalation=esc, replans=replans,
-            ws_dropped_pairs=dropped,
-            window_overflow_cells={k: int(v) for k, v in ovf.items()})
+            ws_dropped_pairs=dropped, window_overflow_cells=ovf)
         self.last_health = health
         self._record_health(health)
         out = SparseTensor(features=logits, packed=out_packed,
@@ -317,9 +454,10 @@ class SpiraSession:
 
     @property
     def compile_count(self) -> int:
-        """Distinct (capacity bucket, escalation level) keys run so far;
-        without overflow traffic, one per bucket."""
-        return len(self._keys_run)
+        """Keys run so far, one per (capacity bucket, escalation level) as
+        the reference's compiled executables: on a graph session the graphs
+        captured. Without overflow traffic, one per bucket."""
+        return len(self._keys)
 
     def __repr__(self):
         return (f"SpiraSession({self.net.name}, engine={self.engine!r}, "
@@ -346,6 +484,7 @@ def compile_network(
     dtype=torch.float32,
     metrics: Optional[MetricsRegistry] = None,
     device="cuda",
+    cuda_graphs: bool = True,
 ) -> SpiraSession:
     """Build a :class:`SpiraSession` on ``device`` (the card unless the
     caller asks for "cpu").
@@ -376,6 +515,8 @@ def compile_network(
       specs live on ``session.net``, the raw results on
       ``session.tune_report``.
     * ``segment_backend`` — backend of the BN segment sums.
+    * ``cuda_graphs`` — on the card, one CUDA graph per key (module doc);
+      False runs every call eagerly. A CPU session always runs eagerly.
     """
     if (1 << layout.bb) < batch:
         layout = layout.with_batch(batch)
@@ -407,7 +548,7 @@ def compile_network(
                            segment=seg_spec,
                            max_overflow_replans=max_overflow_replans,
                            metrics=metrics, device=device,
-                           tune_report=report)
+                           tune_report=report, cuda_graphs=cuda_graphs)
     if report is not None:
         session.metrics.gauge("tuner_windows_limited").set(
             len(report.windows_limited))

@@ -274,7 +274,9 @@ def test_session_batch_equals_single_on_card(dev):
     clouds = [(sc.coords, rng.normal(size=(len(sc.coords), 4))
                .astype(np.float32)) for sc in batch]
     net = pc.minkunet42(width=(16, 16, 32, 32))
-    s = compile_network(net, batch[0].layout, batch=2, device=dev)
+    # eager: every launch goes through its wrapper's count
+    s = compile_network(net, batch[0].layout, batch=2, device=dev,
+                        cuda_graphs=False)
     reset_launch_counts()
     out_b = s(SparseTensor.from_point_clouds(clouds, s.layout, device=dev))
     assert launch_counts() == {"zdelta_superwindow_search": 42,
@@ -282,7 +284,7 @@ def test_session_batch_equals_single_on_card(dev):
                                "ws_scatter_gemm": 0,
                                "zdelta_window_search": 0,
                                "masked_group_gemm": 0, "dw_gather_gemm": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "zdelta_repair": 42}
     for i, cloud in enumerate(clouds):
         o1 = s(SparseTensor.from_point_clouds([cloud], s.layout,
                                               device=dev)).unbatch()[0]
@@ -293,7 +295,7 @@ def test_session_batch_equals_single_on_card(dev):
                                           backend="torch"),
                             batch[0].layout, batch=2, params=s.params,
                             engine="zdelta", segment_backend="torch",
-                            device=dev)
+                            device=dev, cuda_graphs=False)
     ref = plain(SparseTensor.from_point_clouds(clouds, s.layout, device=dev))
     n = int(ref.count)
     scale = float(ref.features[:n].abs().max())
@@ -561,7 +563,8 @@ def test_centerpoint_session_on_card(dev):
     clouds = [(sc.coords, rng.normal(size=(len(sc.coords), 5))
                .astype(np.float32)) for sc in batch]
     net = pc.centerpoint_large(width=(16, 16, 32, 32))
-    s = compile_network(net, batch[0].layout, batch=2, device=dev)
+    s = compile_network(net, batch[0].layout, batch=2, device=dev,
+                        cuda_graphs=False)
     reset_launch_counts()
     out_b = s(SparseTensor.from_point_clouds(clouds, s.layout, device=dev))
     counts = launch_counts()
@@ -569,7 +572,7 @@ def test_centerpoint_session_on_card(dev):
                       "spconv_gather_gemm": 17, "segment_sum": 20,
                       "ws_scatter_gemm": 20, "zdelta_window_search": 0,
                       "masked_group_gemm": 0, "dw_gather_gemm": 0,
-                      "flash_attention": 0}
+                      "flash_attention": 0, "zdelta_repair": 20}
     for i, cloud in enumerate(clouds):
         o1 = s(SparseTensor.from_point_clouds([cloud], s.layout,
                                               device=dev)).unbatch()[0]
@@ -580,7 +583,7 @@ def test_centerpoint_session_on_card(dev):
                                                  backend="torch"),
                             batch[0].layout, batch=2, params=s.params,
                             engine="zdelta", segment_backend="torch",
-                            device=dev)
+                            device=dev, cuda_graphs=False)
     ref = plain(SparseTensor.from_point_clouds(clouds, s.layout, device=dev))
     n = int(ref.count)
     scale = float(ref.features[:n].abs().max())
@@ -1382,3 +1385,169 @@ def test_guarded_update_syncs_no_more_than_plain(dev):
         torch.cuda.set_sync_debug_mode("default")
     for a, b in zip(named.values(), tnamed.values()):
         assert torch.equal(a, b)
+
+
+# -- the overflow repair and one CUDA graph per key ----------------------------
+
+from repro_torch.kernels.zdelta_window import zdelta_repair  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("search", list(SEARCHES))
+@pytest.mark.parametrize("m_in,m_out", [(0, 0), (0, 1)])
+def test_repair_kernel_equals_plain(dev, dtype, search, m_in, m_out):
+    """A 256-word superwindow overflows on the fine level: the repair
+    kernel, in place, equals its plain version in every cell (the
+    overflowed ones re-searched, the others kept), and both equal the exact
+    search. One launch."""
+    layout, cs = _words(dev, dtype)
+    K, anchors, zstep = _anchors(layout, search, m_in, m_out, dev)
+    m, ovf = zdelta_superwindow_search(cs[m_in], cs[m_out], anchors, zstep,
+                                       K=K, W=256, backend="cuda")
+    assert int((ovf > 0).sum()) > 0
+    reset_launch_counts()
+    got = zdelta_repair(cs[m_in], cs[m_out], anchors, zstep, m.clone(), ovf,
+                        K=K, backend="cuda")
+    assert launch_counts()["zdelta_repair"] == 1
+    ref = zdelta_repair(cs[m_in], cs[m_out], anchors, zstep, m, ovf, K=K,
+                        backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got, zdelta.zdelta_search(cs[m_in], cs[m_out],
+                                                 anchors, zstep, K=K))
+
+
+def _graph_case(dev, name, **kw):
+    """A graph session of a narrow ``name`` net, an eager one with the same
+    weights, and a one-scene and a two-scene input (two buckets)."""
+    batch = scenes.scene_batch(seed=3, batch=2, kind="outdoor",
+                               extent=(160, 160, 32), overlap=0.5)
+    channels = 4 if name == "minkunet42" else 5
+    rng = np.random.default_rng(1)
+    clouds = [(sc.coords, rng.normal(size=(len(sc.coords), channels))
+               .astype(np.float32)) for sc in batch]
+    net = pc.NETWORKS[name](width=(16, 16, 32, 32))
+    g = compile_network(net, batch[0].layout, batch=2, device=dev, **kw)
+    e = compile_network(g.net, batch[0].layout, batch=2, params=g.params,
+                        device=dev, cuda_graphs=False)
+    a = SparseTensor.from_point_clouds(clouds[:1], g.layout, device=dev)
+    b = SparseTensor.from_point_clouds(clouds, g.layout, device=dev)
+    return g, e, a, b
+
+
+def _same_out(x, y):
+    return (torch.equal(x.features, y.features)
+            and torch.equal(x.packed, y.packed)
+            and torch.equal(x.count, y.count))
+
+
+@pytest.mark.parametrize("name", ["minkunet42", "centerpoint_large"])
+def test_graph_replay_equals_eager_out_of_order(dev, name):
+    """Two keys captured A then B and replayed B, A, B: every replay bitwise
+    the eager session's call, A's first result untouched by the later
+    replays (results never alias the graphs' memory), one graph per key,
+    and no kernel launched by a replay."""
+    g, e, a, b = _graph_case(dev, name)
+    first = g(a)
+    kept = first.features.clone()
+    assert _same_out(g(b), e(b)) and _same_out(first, e(a))
+    for st in (b, a, b):
+        want = e(st)
+        reset_launch_counts()
+        got = g(st)
+        assert not any(launch_counts().values())
+        assert _same_out(got, want)
+    assert torch.equal(first.features, kept)
+    assert g.compile_count == 2
+    assert g.metrics.counter("session_graph_captures").value == 2
+    assert g.metrics.counter("session_graph_replays").value == 5
+
+
+def test_overflowing_windows_served_from_the_graph(dev):
+    """CenterPoint with every window held to 256 words: the plan overflows
+    and repairs cells on the card inside the graph, and the replay is
+    bitwise the eager call, with the same overflow counts."""
+    from repro_torch.core.tuner import LayerTuneResult
+    net = pc.centerpoint_large(width=(16, 16, 32, 32))
+    small = LayerTuneResult(t_best=3, backend="cuda", bm=0, bn=0,
+                            window=256, per_config={}, mode="measure")
+    g, e, _, b = _graph_case(dev, "centerpoint_large",
+                             tuner={s.name: small for s in net.specs})
+    out, health = g.run_with_health(b)
+    ref, ref_h = e.run_with_health(b)
+    assert sum(health.window_overflow_cells.values()) > 0
+    assert health == ref_h and _same_out(out, ref)
+    assert _same_out(g(b), ref)
+
+
+def test_trainer_step_then_replay_serves_new_weights(dev):
+    """The trainer updates the parameters in place, so the captured graph
+    serves the new weights at once, bitwise as an eager session on the
+    same tensors; reassigning ``params`` drops the key."""
+    from repro_torch.train import labeled_batch
+    batch = scenes.scene_batch(seed=3, batch=2, kind="outdoor",
+                               extent=(160, 160, 32), overlap=0.5,
+                               labels=True, n_classes=8)
+    net = pc.minkunet42(width=(16, 16, 32, 32), n_classes=8)
+    s = compile_network(net, batch[0].layout, batch=2, device=dev)
+    e = compile_network(net, batch[0].layout, batch=2, params=s.params,
+                        device=dev, cuda_graphs=False)
+    st, lab = labeled_batch(batch, s.layout, device=dev)
+    before = s(st).features.clone()
+    s.compile_train().step(st, lab)
+    after = s(st)
+    assert s.compile_count == 1
+    assert _same_out(after, e(st))
+    assert not torch.equal(after.features, before)
+    s.params = pc.init_pointcloud(net, seed=4, device=dev)
+    assert s.compile_count == 0
+
+
+def test_session_and_decode_bodies_do_not_sync(dev):
+    """After one call (the library, cuBLAS and every device constant
+    built), the session body of both networks and the LM decode body run
+    under the sync debug mode "error": nothing waits on the card and
+    nothing is copied from the host, as a capture needs."""
+    bodies = []
+    for name in ("minkunet42", "centerpoint_large"):
+        _, e, _, b = _graph_case(dev, name)
+        e(b)
+        stp = b.pad_to(e._bucket(b.capacity))
+        bodies.append(lambda e=e, stp=stp: e._body(0, stp.packed,
+                                                    stp.features))
+    cfg = _tiny_lm("bfloat16")
+    eng = ServeEngine(cfg, lm.init_params(cfg, 0, device=dev),
+                      batch_slots=2, cache_len=96, cuda_graphs=False)
+    eng.submit(Request(prompt=np.arange(9, dtype=np.int32), max_new=4))
+    eng.step()
+    bodies.append(eng._decode_body)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            outs = [fn() for fn in bodies]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(o[0].float()).all()) for o in outs)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_graph_tokens_equal_eager(dev, dtype):
+    """The slot engine's decode graph (captured at the first step, replayed
+    every step) gives the eager step's greedy tokens, more requests than
+    slots."""
+    cfg = _tiny_lm(dtype)
+    params = lm.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (7, 70, 12)]
+    outs, engines = {}, {}
+    for graphs in (True, False):
+        reqs = [Request(prompt=p, max_new=6) for p in prompts]
+        engines[graphs] = ServeEngine(cfg, params, batch_slots=2,
+                                      cache_len=96, cuda_graphs=graphs)
+        engines[graphs].run(list(reqs))
+        outs[graphs] = [r.out for r in reqs]
+    assert outs[True] == outs[False]
+    assert engines[True]._graph is not None and engines[False]._graph is None
