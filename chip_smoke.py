@@ -10,10 +10,11 @@ It needs one CUDA device and ``nvcc``, imports nothing of JAX or of the
 JAX package, and exits nonzero (printing no result) when there is no card
 or when it is not run from a checkout of the repository. Phases, each
 printing its lines; any failed check raises and the exit code is nonzero.
-The sessions and the LM engine of phases 3-9 and 7/7b/7c run eagerly
-(``cuda_graphs=False``), so that every launch goes through its wrapper,
-where the ``Recorder`` and the launch counts see it; phases 10 and 11 run
-the default, one CUDA graph per key:
+The sessions and the LM engines of phases 3-9, 7/7b/7c and the main paths
+of 12a-c run eagerly (``cuda_graphs=False``), so that every launch goes
+through its wrapper, where the ``Recorder`` and the launch counts see it;
+phases 10, 11 and the graph engines of 12a-c run the default, one CUDA
+graph per key:
 
 1. device: torch version, card name and ``nvidia-smi`` power limit; TF32
    off (the port sets it on import);
@@ -42,7 +43,9 @@ MinkUNet-42 (OS dataflow):
    events beside its plain version, its bound and the library yardstick
    (for the segment sum ``torch.segment_reduce``, here, at CenterPoint's
    and at the training step's launches, with the device time of each of
-   its three passes);
+   its three passes; for the OS kernel, here and at CenterPoint's
+   launches, one ``torch.einsum`` over the gathered, pre-masked ``[M, Kd,
+   Cin]`` tensor, the gather not timed);
 4. main path: MinkUNet-42 at full width through ``compile_network`` ->
    ``SpiraSession`` on two outdoor LiDAR-sized scenes — scene 0 alone,
    then the batch of 2, each twice — checking finite logits, batched
@@ -252,6 +255,48 @@ yi-9b LM serving (48 layers, d_model 4096, 32 heads, GQA kv 4, head dim
    bf16 path than that path is from the same weights run in fp32 (both
    distances printed, and the kernel path's distance in fp32); greedy
    agreement printed, not gated (random-init logits have near-ties).
+
+Every LM architecture the reference configures (phase 12, after 11d; the
+yi-9b weights and every graph pool freed first, the memory still reserved
+checked against what the phase needs; weights random from seed 0 on the
+card in ``cfg.dtype``, bf16; ``LM_SLOTS`` slots, cache ``LM_CACHE``):
+
+12a. qwen3-moe-30b-a3b at full width and depth (48 layers, d_model 2048,
+   128 experts top-8 of d_ff 768, GQA kv 4, head dim 128; 30.5 B
+   parameters): the main path as 7b on an eager engine, 8 prompts drawn as
+   ``launch/serve.py`` draws them plus one of 2,000 tokens, 16 greedy
+   tokens each (finite logits; 48 flash launches per prefill and none per
+   decode step), every prefill launch against its plain version as in 7;
+   then a graph engine and an eager engine over the same weights and the
+   first four prompts, 16 decode steps in turns: greedy tokens, the
+   step's logits after every step and every state leaf after the last
+   bitwise equal; ms per step and tokens/s of each, one profiled replayed
+   step; the plain path's (``backend="torch"``) relative L2 from the
+   kernel path on the 2,000-token prefill, printed, not gated (an fp32
+   copy does not fit);
+12b. jamba-1.5-large at full width (d_model 8192, 64 heads, kv 8, 16
+   experts top-2 of d_ff 24,576, d_state 16, expand 2), depth cut to
+   positions 3 and 4 of its period of 8, ``(mamba, dense)`` then
+   ``(attn, moe)``, repeat 1: 2 of 72 sub-layers, 11.9 B parameters; the
+   checks of 12a on 4 drawn prompts plus one of 2,048 tokens (one flash
+   launch per prefill); the graph engine bitwise the eager one over all
+   16 steps (the recurrent state restored after the capture's warm-up);
+   one 2,048-token prefill with the Mamba block's and the Mamba scan's
+   spans on the card (CUDA events around each call), then profiled;
+12c. xlstm-350m at full width and depth (24 layers, 7 mLSTM : 1 sLSTM),
+   the checks of 12b on 4 drawn prompts plus one of 1,024 tokens; it has
+   no attention, so it launches no kernel (its lines say so); the mLSTM
+   and sLSTM blocks' spans of one 1,024-token prefill;
+12d. musicgen-medium at full width and depth (48 layers, d_model 1536,
+   24 heads of 64) on embedding inputs: a prefill of 1,024 seeded random
+   frame embeddings, then 16 decode steps fed with embeddings; 48 flash
+   launches in the prefill and none per step, each held against its
+   plain version; the plain path's logits beside it (relative L2, not
+   gated).
+
+Phase 12's flash launches join the kernel table's flash row (its
+launches and times are summed over 7b and 12; its paths list each arch's
+prompt lengths).
 
 After each phase a ``[seconds]`` line gives its seconds and the run's so
 far. The second-to-last lines are the kernel table as JSON and the raw
@@ -581,18 +626,21 @@ def os_tile_ops(m, cin: int, cout: int) -> tuple:
 
 
 def check_os(calls, rel: float = 0.0, label: str = "3 os",
-             names=None) -> dict:
+             names=None, library: bool = False) -> dict:
     """OS launches: fp32 within ``1e-5 * max(1, max|ref|)``, or within
     ``rel * max|ref|`` when ``rel`` is given (gradients, whose scale is far
     below 1). Every fp32 launch is also held against the same gather-GEMM
     in float64: the kernel's max|error| must stay within ``max(4 * the
     plain version's, 1e-6 * max|ref|)`` (one line per launch). Tile ops and
     useful ops are summed by layer group (``names``: the layer of each
-    launch; else the launch's shape)."""
+    launch; else the launch's shape). With ``library``, each launch's
+    function is also timed as one ``torch.einsum`` over the gathered,
+    pre-masked ``[M, Kd, Cin]`` tensor (the library yardstick, as phase 6
+    times the masked grouped GEMM's; the gather is not timed)."""
     import torch
     from repro_torch.kernels.spconv_gather_gemm import (
         spconv_gather_gemm, spconv_gather_gemm_torch)
-    err = t_k = t_p = b_tot = ops_tot = bytes_tot = 0.0
+    err = t_k = t_p = t_l = b_tot = ops_tot = bytes_tot = 0.0
     f64_worst = 0.0
     groups: dict = {}
     for i, (a, kw) in enumerate(calls):
@@ -625,6 +673,11 @@ def check_os(calls, rel: float = 0.0, label: str = "3 os",
         err = max(err, d)
         t_k += cuda_ms(lambda: spconv_gather_gemm(F, m, W), 3)
         t_p += cuda_ms(lambda: spconv_gather_gemm_torch(F, m, W), 2)
+        if library:
+            pre = F[m.clamp(min=0).long()] * (m >= 0)[..., None].to(F.dtype)
+            t_l += cuda_ms(lambda: torch.einsum("mkc,kcd->md", pre, W), 2)
+            del pre
+            torch.cuda.empty_cache()
         nnz = int((m >= 0).sum())
         ops = 2.0 * nnz * F.shape[1] * W.shape[2]
         nb = 4 * (F.numel() + m.numel() + W.numel() + got.numel())
@@ -640,7 +693,8 @@ def check_os(calls, rel: float = 0.0, label: str = "3 os",
         g[2] += tile
         g[3] += packed
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_tot,
-                bound_by=bound_ms(bytes_tot, ops_tot)[1], library_ms=None,
+                bound_by=bound_ms(bytes_tot, ops_tot)[1],
+                library_ms=t_l if library else None,
                 gflop=ops_tot / 1e9, f64_worst=f64_worst, groups=groups)
 
 
@@ -1578,9 +1632,10 @@ def drive(session, inputs, expected: dict, label: str, kind: str,
 
 
 def profile_line(label: str, fn, steady: float, card: str,
-                 what: str = "batch2") -> None:
+                 what: str = "batch2") -> dict:
     """One call under the profiler: the device's busy and idle share of
-    the unprofiled ``steady`` ms, and the top device entries by name."""
+    the unprofiled ``steady`` ms, and the top device entries by name;
+    returns the device ms by name."""
     wall, dev_ms = profile_call(fn)
     busy = sum(dev_ms.values())
     if busy > 0:
@@ -1594,6 +1649,7 @@ def profile_line(label: str, fn, steady: float, card: str,
     else:
         log(f"[{label} profile] device time not measured: the profiler saw "
             "no device events")
+    return dev_ms
 
 
 def plain_path(session, net_plain, st, out_kernel, label: str) -> float:
@@ -2026,7 +2082,7 @@ def check_flash(calls) -> dict:
     return dict(max_abs_err=err, bound_by=by, **tot, by_len=by_len)
 
 
-def lm_serve(eng, reqs) -> tuple:
+def lm_serve(eng, reqs, label: str = "7b") -> tuple:
     """The LM main path: ``eng.run(reqs)`` with the launch counters set to 0
     just before and read just after, and ``transformer.prefill`` /
     ``decode_step`` wrapped to time each call (synchronised), count its
@@ -2047,7 +2103,7 @@ def lm_serve(eng, reqs) -> tuple:
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) * 1e3
             if not bool(torch.isfinite(logits).all()):
-                raise RuntimeError(f"7b: non-finite logits from {kind}")
+                raise RuntimeError(f"{label}: non-finite logits from {kind}")
             n = a[2]["tokens"].shape[1] if kind == "prefill" else 1
             calls[kind].append(
                 (n, dt, launch_counts()["flash_attention"] - before))
@@ -2885,6 +2941,426 @@ def decode_graph_phase(cfg, params, prompts, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 12: every LM architecture the reference configures ----------------
+
+ARCH_RUNS = {                     # arch: (drawn prompts, long prompt)
+    "qwen3-moe-30b-a3b": (8, 2000),
+    "jamba-1.5-large-398b": (4, 2048),
+    "xlstm-350m": (4, 1024),
+}
+JAMBA_CUT = (3, 4)                # 12b: positions of jamba's period of 8
+MUSICGEN_FRAMES = 1024
+
+
+class BlockTimer:
+    """Wraps module functions for the ``with`` block: each call's span on
+    the card between two CUDA events (host gaps inside it included), summed
+    by label in :meth:`ms`."""
+
+    def __init__(self, targets):
+        self.targets = targets            # (module, attribute, label)
+
+    def __enter__(self):
+        import torch
+        self.events = {label: [] for _, _, label in self.targets}
+        self.saved = []
+        for mod, attr, label in self.targets:
+            orig = getattr(mod, attr)
+            self.saved.append((mod, attr, orig))
+
+            def wrapped(*a, _orig=orig, _label=label, **kw):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = _orig(*a, **kw)
+                ev[1].record()
+                self.events[_label].append(ev)
+                return out
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self.saved:
+            setattr(mod, attr, orig)
+        return False
+
+    def ms(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        return {label: sum(a.elapsed_time(b) for a, b in ev)
+                for label, ev in self.events.items()}
+
+
+def n_attn_layers(cfg) -> int:
+    return sum(sb.repeat for sb in cfg.superblocks
+               for kind, _ in sb.blocks if kind == "attn")
+
+
+def free_card(label: str, need_gib: float) -> None:
+    """Collect, empty the allocator's cache and check that what stays
+    reserved leaves ``need_gib`` free."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res = torch.cuda.memory_reserved() / 2**30
+    alloc = torch.cuda.memory_allocated() / 2**30
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    log(f"[{label} memory] before the phase: reserved {res:.2f} GiB, "
+        f"allocated {alloc:.2f} GiB of {total:.1f} GiB; the phase needs "
+        f"~{need_gib:.0f} GiB")
+    if res + need_gib > total:
+        raise RuntimeError(f"{label}: {res:.2f} GiB still reserved, "
+                           f"{need_gib:.0f} GiB needed of {total:.1f}")
+
+
+def add_flash(results: dict, paths: dict, label: str, cfg, f_calls,
+              launches: int, card: str) -> None:
+    """Every recorded prefill launch of ``label``'s main path against the
+    plain version (``check_flash``), logged by prompt length; its sums added
+    to the kernel table's flash row and its lengths to the row's paths."""
+    r = check_flash(f_calls)
+    by_len, gflop = r.pop("by_len"), r.pop("gflop")
+    log(f"[{label} flash] {cfg.name}: {len(f_calls)} prefill launches "
+        f"within 2e-2 relative of the plain version (max|diff| "
+        f"{r['max_abs_err']:.3e}); over the run kernel {r['ms']:.3f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}; {gflop:.1f} "
+        f"GFLOP, {gflop / r['ms']:.2f} TFLOP/s) | {card}")
+    for n, rr in sorted(by_len.items()):
+        log(f"[{label} flash S={n}] per prefill ({rr['launches']} "
+            f"launches): kernel {rr['ms'] * rr['launches']:.3f} ms, plain "
+            f"{rr['plain_ms'] * rr['launches']:.3f} ms, SDPA "
+            f"{rr['library_ms'] * rr['launches']:.3f} ms, bound "
+            f"{rr['bound_ms'] * rr['launches']:.4f} ms ({rr['bound_by']}), "
+            f"{rr['gflop'] / rr['ms']:.2f} TFLOP/s")
+        paths["flash_attention"][f"{cfg.name} prefill S={n}"] = {
+            "launches": rr["launches"],
+            **{k: rr[k] * rr["launches"]
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    row = results["flash_attention"]
+    row["launches"] += launches
+    row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        row[k] += r[k]
+    if r["bound_by"] == "operations":
+        row["bound_by"] = "operations"
+
+
+def arch_main_path(label: str, cfg, params, prompts, card: str,
+                   results: dict, paths: dict) -> dict:
+    """12a-c's main path (module doc) on an eager engine; returns the ms
+    per prefill by prompt length."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine
+    n_attn = n_attn_layers(cfg)
+    reqs = [Request(prompt=p_, max_new=LM_MAX_NEW) for p_ in prompts]
+    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS, cache_len=LM_CACHE,
+                      cuda_graphs=False)
+    for p_ in (prompts[0], prompts[-1]):      # warm-up, outside the counts
+        tf.prefill(params, cfg, {"tokens": torch.as_tensor(p_[None],
+                                                           device=DEV)},
+                   LM_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(names=("flash_attention",)) as rec:
+        wall, counts, calls = lm_serve(eng, reqs, label)
+    pre, dec = calls["prefill"], calls["decode"]
+    others = {k_: v_ for k_, v_ in counts.items()
+              if v_ and k_ != "flash_attention"}
+    if others or counts["flash_attention"] != n_attn * len(reqs):
+        raise RuntimeError(f"{label}: launches {counts}, expected "
+                           f"{n_attn * len(reqs)} flash_attention only")
+    bad = [c for c in pre if c[2] != n_attn] + [c for c in dec if c[2]]
+    if bad or len(pre) != len(reqs):
+        raise RuntimeError(f"{label}: per-call flash launches {bad} (want "
+                           f"{n_attn} per prefill, 0 per decode step)")
+    if not all(len(r.out) == LM_MAX_NEW and r.done
+               and all(0 <= t < cfg.vocab for t in r.out) for r in reqs):
+        raise RuntimeError(f"{label}: a request did not finish with "
+                           f"{LM_MAX_NEW} tokens in the vocabulary")
+    n_tok = sum(len(r.out) for r in reqs)
+    dec_ms = [c[1] for c in dec]
+    pre_ms = {n: ms for n, ms, _ in pre}
+    kernels = (f"{n_attn} flash_attention per prefill, 0 per decode step"
+               if n_attn else "no attention layer: no kernel launched")
+    log(f"[{label} main path] {cfg.name}, eager ServeEngine(batch_slots="
+        f"{LM_SLOTS}, cache_len={LM_CACHE}): {len(reqs)} requests, {n_tok} "
+        f"tokens in {wall * 1e3:.1f} ms = {n_tok / wall:.1f} tokens/s; "
+        f"launches {counts} ({kernels}, over {len(dec)} decode steps); "
+        f"logits finite | {card} | peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"[{label} main path] ms per prefill by prompt length: "
+        + ", ".join(f"{n}: {ms:.2f}" for n, ms in sorted(pre_ms.items())))
+    log(f"[{label} main path] ms per eager decode step ({LM_SLOTS} slots): "
+        f"median {float(np.median(dec_ms)):.2f}, first {dec_ms[0]:.2f}, min "
+        f"{min(dec_ms):.2f}, max {max(dec_ms):.2f}")
+    f_calls = rec.calls["flash_attention"]
+    del rec, eng, reqs
+    if f_calls:
+        add_flash(results, paths, label, cfg, f_calls,
+                  counts["flash_attention"], card)
+    del f_calls
+    torch.cuda.empty_cache()
+    return pre_ms
+
+
+def arch_graph_phase(label: str, cfg, params, prompts, card: str) -> None:
+    """An engine with the decode graph and an eager one over the same
+    weights and the first ``LM_SLOTS`` prompts, ``LM_MAX_NEW`` decode steps
+    in turns (alternating order): greedy tokens, the step's logits after
+    every step and every state leaf after the last, bitwise equal. The
+    graph's first step (warm-up, capture with the recurrent state restored,
+    replay) is left out of the medians."""
+    import torch
+    from repro_torch.serve import Request, ServeEngine
+    engines, reqs, logits = {}, {}, {}
+    for mode in ("eager", "graph"):
+        eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                          cache_len=LM_CACHE, cuda_graphs=mode == "graph")
+        reqs[mode] = [Request(prompt=p_, max_new=10 ** 6)
+                      for p_ in prompts[:LM_SLOTS]]
+        for r in reqs[mode]:
+            eng.submit(r)
+        store = logits[mode] = []
+
+        def tapped(inner=eng._decode, store=store):
+            lg, greedy = inner()
+            store.append(lg.clone())
+            return lg, greedy
+        eng._decode = tapped
+        engines[mode] = eng
+
+    def step_ms(mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[mode].step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    times = {"eager": [], "graph": []}
+    for i in range(LM_MAX_NEW):
+        for mode in (("graph", "eager") if i % 2 == 0
+                     else ("eager", "graph")):
+            times[mode].append(step_ms(mode))
+    outs = {mode: [r.out for r in rs] for mode, rs in reqs.items()}
+    if outs["graph"] != outs["eager"]:
+        raise RuntimeError(f"{label}: the decode graph's greedy tokens "
+                           "differ from the eager step's")
+    diff = [i for i, (a, b) in enumerate(zip(logits["graph"],
+                                             logits["eager"]))
+            if not torch.equal(a, b)]
+    leaves = [(a, b) for sb in engines["graph"].state
+              for bk in engines["graph"].state[sb]
+              for a, b in zip(engines["graph"].state[sb][bk].values(),
+                              engines["eager"].state[sb][bk].values())]
+    if diff or not all(torch.equal(a, b) for a, b in leaves):
+        raise RuntimeError(f"{label}: graph logits differ from the eager "
+                           f"step's at steps {diff}, or a state leaf does")
+    med = {m: float(np.median(v[1:])) for m, v in times.items()}
+    wins = sum(g < e for e, g in zip(times["eager"][1:], times["graph"][1:]))
+    log(f"[{label} decode graph] {cfg.name}, {LM_SLOTS} slots, cache "
+        f"{LM_CACHE}: first graph step (warm-up + capture + restore + "
+        f"replay) {times['graph'][0]:.1f} ms; {LM_MAX_NEW - 1} steps in "
+        f"turns: graph median {med['graph']:.2f} ms per step = "
+        f"{LM_SLOTS / med['graph'] * 1e3:.1f} tokens/s, eager median "
+        f"{med['eager']:.2f} ms = {LM_SLOTS / med['eager'] * 1e3:.1f} "
+        f"tokens/s; graph faster in {wins} of {LM_MAX_NEW - 1}; greedy "
+        f"tokens and logits of all {LM_MAX_NEW} steps bitwise equal, and "
+        f"all {len(leaves)} state leaves after them | {card}")
+    profile_line(label, lambda: engines["graph"].step(), med["graph"], card,
+                 what=f"one decode step replayed ({LM_SLOTS} slots)")
+    del engines, reqs, logits, leaves
+    torch.cuda.empty_cache()
+
+
+def arch_phases(results: dict, paths: dict, card: str, tick) -> None:
+    """Phase 12 (module doc): qwen3-moe, jamba cut to two sub-layers,
+    xlstm and musicgen on the card, weights random from seed 0; ``tick``
+    (a ``PhaseClock``) after each."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import jamba_1_5_large_398b as jamba
+    from repro_torch.models import mamba, xlstm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import SuperBlock
+
+    def drawn(cfg, n_drawn, n_long):
+        rng = np.random.default_rng(0)
+        ps = [rng.integers(0, cfg.vocab, (int(rng.integers(4, 48)),))
+              .astype(np.int32) for _ in range(n_drawn)]
+        return ps + [rng.integers(0, cfg.vocab, (n_long,)).astype(np.int32)]
+
+    def build(label, cfg, note=""):
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, 0, device=DEV)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        blocks = [f"{sb.repeat} x {[f'{k}+{f}' for k, f in sb.blocks]}"
+                  for sb in cfg.superblocks]
+        log(f"[{label} inputs] {cfg.name}{note}: {cfg.n_layers} sub-layers "
+            f"{blocks}, d_model {cfg.d_model}, {cfg.n_heads} heads (kv "
+            f"{cfg.n_kv}, head dim {cfg.head_dim}), experts {cfg.n_experts} "
+            f"top-{cfg.top_k} (d_ff {cfg.d_ff_expert}), d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab}, {cfg.dtype}; {n / 1e9:.2f} B random "
+            f"parameters from seed 0 on the card in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        return params
+
+    def long_prefill(label, cfg, params, prompt, targets, kernel=None):
+        tok = torch.as_tensor(prompt[None], device=DEV)
+        tf.prefill(params, cfg, {"tokens": tok}, LM_CACHE)
+        torch.cuda.synchronize()
+        with BlockTimer(targets) as bt:
+            t0 = time.perf_counter()
+            tf.prefill(params, cfg, {"tokens": tok}, LM_CACHE)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        spans = bt.ms()
+        log(f"[{label} prefill blocks] one {len(prompt)}-token prefill "
+            f"{ms:.1f} ms; spans on the card (CUDA events around each "
+            f"call, summed over layers): "
+            + ", ".join(f"{k} {v:.1f} ms ({v / ms:.1%})"
+                        for k, v in spans.items()) + f" | {card}")
+        dev_ms = profile_line(label, lambda: tf.prefill(
+            params, cfg, {"tokens": tok}, LM_CACHE), ms, card,
+            what=f"one {len(prompt)}-token prefill")
+        if kernel and dev_ms:
+            own = sum(v for k, v in dev_ms.items() if kernel[1] in k)
+            log(f"[{label} profile] {kernel[0]} ({kernel[1]} kernels) "
+                f"{own:.2f} ms of the device's {sum(dev_ms.values()):.2f} "
+                f"ms busy ({own / sum(dev_ms.values()):.1%})")
+
+    # -- 12a. qwen3-moe-30b-a3b, full width and depth --------------------------
+    cfg = configs.get_config("qwen3-moe-30b-a3b")
+    free_card("12a", 68)
+    params = build("12a", cfg)
+    prompts = drawn(cfg, *ARCH_RUNS[cfg.name])
+    pre_ms = arch_main_path("12a", cfg, params, prompts, card, results,
+                            paths)
+    arch_graph_phase("12a", cfg, params, prompts, card)
+    tok = torch.as_tensor(prompts[-1][None], device=DEV)
+    lk, _ = tf.prefill(params, cfg, {"tokens": tok}, LM_CACHE)
+    lp, _ = tf.prefill(params, cfg, {"tokens": tok}, LM_CACHE,
+                       backend="torch")
+    log(f"[12a plain path] {len(prompts[-1])}-token prefill on the plain "
+        f"path (backend=\"torch\", bf16; an fp32 copy does not fit): "
+        f"relative L2 of the kernel path's logits from it "
+        f"{rel_l2({0: lk.float()}, {0: lp.float()}):.3e}, max|diff| / "
+        f"max|logits| {rel_max(lk.float(), lp.float()):.3e}, argmax "
+        f"{'equal' if int(lk.argmax()) == int(lp.argmax()) else 'differs'} "
+        f"(not gated: the per-launch checks carry the kernel); kernel path "
+        f"prefill {pre_ms[len(prompts[-1])]:.1f} ms | {card}")
+    del params, lk, lp, tok
+    tick("12a qwen3-moe-30b-a3b")
+
+    # -- 12b. jamba-1.5-large at full width, two sub-layers --------------------
+    full = configs.get_config("jamba-1.5-large-398b")
+    period = jamba._blocks()
+    cfg = dataclasses.replace(full, name=f"{full.name} (2 sub-layers)",
+                              superblocks=(SuperBlock(blocks=tuple(
+                                  period[i] for i in JAMBA_CUT), repeat=1),))
+    free_card("12b", 30)
+    params = build("12b", cfg, note=f" cut to period positions {JAMBA_CUT} "
+                   f"{[period[i] for i in JAMBA_CUT]}, repeat 1 (2 of "
+                   f"{full.n_layers} sub-layers)")
+    prompts = drawn(cfg, *ARCH_RUNS[full.name])
+    arch_main_path("12b", cfg, params, prompts, card, results, paths)
+    arch_graph_phase("12b", cfg, params, prompts, card)
+    long_prefill("12b", cfg, params, prompts[-1],
+                 [(mamba, "mamba_fwd", "Mamba block"),
+                  (mamba, "_scan", "Mamba scan")],
+                 kernel=("the Mamba scan's recurrence", "addcmul"))
+    del params
+    tick("12b jamba-1.5-large, two sub-layers")
+
+    # -- 12c. xlstm-350m, full width and depth ----------------------------------
+    cfg = configs.get_config("xlstm-350m")
+    free_card("12c", 4)
+    params = build("12c", cfg)
+    prompts = drawn(cfg, *ARCH_RUNS[cfg.name])
+    arch_main_path("12c", cfg, params, prompts, card, results, paths)
+    arch_graph_phase("12c", cfg, params, prompts, card)
+    long_prefill("12c", cfg, params, prompts[-1],
+                 [(xlstm, "mlstm_fwd", "mLSTM blocks"),
+                  (xlstm, "slstm_fwd", "sLSTM blocks")])
+    del params
+    tick("12c xlstm-350m")
+
+    # -- 12d. musicgen-medium on frame embeddings --------------------------------
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cfg = configs.get_config("musicgen-medium")
+    free_card("12d", 8)
+    params = build("12d", cfg)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    frames = torch.randn((1, MUSICGEN_FRAMES, cfg.d_model), generator=gen,
+                         device=DEV)
+    steps = [torch.randn((1, 1, cfg.d_model), generator=gen, device=DEV)
+             for _ in range(LM_MAX_NEW)]
+    cache = MUSICGEN_FRAMES + LM_MAX_NEW
+
+    def run(backend):
+        """Prefill on the frames, then one decode step per step embedding:
+        the logit rows [1 + steps, vocab] fp32, prefill ms, step ms."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, st = tf.prefill(params, cfg, {"embeds": frames}, cache,
+                            backend=backend)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        rows, s_ms = [lg[0, -1].float()], []
+        for i, e in enumerate(steps):
+            t0 = time.perf_counter()
+            lg, st = tf.decode_step(params, cfg, st, {"embeds": e},
+                                    MUSICGEN_FRAMES + i)
+            torch.cuda.synchronize()
+            s_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(lg[0, -1].float())
+        return torch.stack(rows), p_ms, s_ms
+
+    tf.prefill(params, cfg, {"embeds": frames[:, :64]}, cache)   # warm-up
+    reset_launch_counts()
+    with Recorder(names=("flash_attention",)) as rec:
+        rows, p_ms, s_ms = run("auto")
+    counts = launch_counts()
+    n_attn = n_attn_layers(cfg)
+    others = {k_: v_ for k_, v_ in counts.items()
+              if v_ and k_ != "flash_attention"}
+    if others or counts["flash_attention"] != n_attn:
+        raise RuntimeError(f"12d: launches {counts}, expected {n_attn} "
+                           "flash_attention (the prefill's) only")
+    if not (tuple(rows.shape) == (LM_MAX_NEW + 1, cfg.vocab)
+            and bool(torch.isfinite(rows).all())):
+        raise RuntimeError("12d: logits not finite or of the wrong shape")
+    log(f"[12d main path] {cfg.name} on frame embeddings: prefill of "
+        f"{MUSICGEN_FRAMES} frames {p_ms:.1f} ms, then {LM_MAX_NEW} decode "
+        f"steps fed with embeddings, median {float(np.median(s_ms)):.2f} ms "
+        f"per step (first {s_ms[0]:.2f}); launches {counts} ({n_attn} "
+        f"flash_attention in the prefill, 0 per decode step); logits finite "
+        f"| {card}")
+    f_calls = rec.calls["flash_attention"]
+    del rec
+    add_flash(results, paths, "12d", cfg, f_calls, counts["flash_attention"],
+              card)
+    del f_calls
+    reset_launch_counts()
+    rows_p, pp_ms, _ = run("torch")
+    if any(launch_counts().values()):
+        raise RuntimeError(f"12d: the plain path launched kernels: "
+                           f"{launch_counts()}")
+    log(f"[12d plain path] the same frames and step embeddings on the "
+        f"plain path (backend=\"torch\"): relative L2 over the "
+        f"{len(rows)} logit rows {rel_l2({0: rows}, {0: rows_p}):.3e}, "
+        f"prefill row {rel_l2({0: rows[:1]}, {0: rows_p[:1]}):.3e}; argmax "
+        f"agreement {int((rows.argmax(-1) == rows_p.argmax(-1)).sum())}/"
+        f"{len(rows)} (not gated); plain prefill {pp_ms:.1f} ms | {card}")
+    del params, frames, steps, rows, rows_p
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     tick = PhaseClock()
@@ -2987,7 +3463,7 @@ def main() -> int:
     # OS implicit GEMM: fp32 within 1e-5 * max(1, max|ref|)
     o = rec.calls["spconv_gather_gemm"]
     names = [s.name for s in net.specs]
-    r = check_os(o, names=names)
+    r = check_os(o, names=names, library=True)
     gflop = r.pop("gflop")
     log_os_groups("3 os", r, card)
     r.pop("groups"), r.pop("f64_worst")
@@ -2995,8 +3471,9 @@ def main() -> int:
     log(f"[3 os] {len(o)} launches within 1e-5*max(1,|ref|) and the "
         f"float64 gate (max|diff| "
         f"{r['max_abs_err']:.3e}); per forward kernel {r['ms']:.3f} ms, "
-        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-        f"({gflop:.1f} GFLOP useful, "
+        f"plain {r['plain_ms']:.3f} ms, torch.einsum on the pre-masked "
+        f"gathered tensor {r['library_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful, "
         f"{gflop / r['ms']:.2f} TFLOP/s; at 3xTF32's 165 TFLOP/s "
         f"{gflop / 165:.3f} ms) | {card}")
     for name in ("stem0", "enc3_a", "dec0_up"):
@@ -3148,13 +3625,15 @@ def main() -> int:
     for kname, fn in (("zdelta_superwindow_search",
                        lambda c: check_search(c, "superwindow")),
                       ("spconv_gather_gemm",
-                       lambda c: check_os(c, label="3 cp os")),
+                       lambda c: check_os(c, label="3 cp os", library=True)),
                       ("segment_sum", check_segsum)):
         c = rec.calls[kname]
         r = fn(c)
+        lib = ""
         if kname == "spconv_gather_gemm":
             log_os_groups("3 cp os", r, card)
-        lib = ""
+            lib = (f", torch.einsum on the pre-masked gathered tensor "
+                   f"{r['library_ms']:.3f} ms")
         if kname == "segment_sum":
             log_segsum_passes("3 cp segment_sum", r, card)
             lib = (f", torch.segment_reduce {r['library_ms']:.3f} ms (max "
@@ -3516,6 +3995,9 @@ def main() -> int:
     tick("11a-c graphs")
     lm_phases(results, paths, card)
     tick("7 yi-9b serving, 11d decode graph")
+    # -- 12. every LM architecture the reference configures ------------------
+    arch_phases(results, paths, card, tick)
+    tick("12d musicgen-medium")
 
     # -- result ----------------------------------------------------------------
     table = []

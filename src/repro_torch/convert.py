@@ -23,7 +23,7 @@ import torch
 
 from .core.spconv import SpConv
 from .models.common import ModelConfig
-from .models.transformer import check_supported
+from .models.transformer import param_shapes
 from .models.pointcloud import PointCloudModel, PointCloudNet, jax_tree
 from .train.optimizer import OptState
 
@@ -101,32 +101,14 @@ def opt_state_to_jax(state: OptState, net: PointCloudNet) -> OptState:
                     step=np.asarray(state.step, np.int32))
 
 
-def _lm_shapes(cfg: ModelConfig) -> dict:
-    """The JAX LM tree's leaf shapes for ``cfg``, as a nested dict."""
-    dm, H, KV, D = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    shapes = {"embed": (cfg.vocab, dm), "final_norm": (dm,)}
-    if not cfg.tie_embeddings:
-        shapes["lm_head"] = (dm, cfg.vocab)
-    for si, sb in enumerate(cfg.superblocks):
-        R = sb.repeat
-        sbs = {}
-        for bi, (_, ffn) in enumerate(sb.blocks):
-            sbs[f"b{bi}"] = {"norm": (R, dm), "wq": (R, dm, H, D),
-                             "wk": (R, dm, KV, D), "wv": (R, dm, KV, D),
-                             "wo": (R, H, D, dm)}
-            if ffn == "dense":
-                sbs[f"f{bi}"] = {"norm": (R, dm), "wi": (R, dm, 2, cfg.d_ff),
-                                 "wo": (R, cfg.d_ff, dm)}
-        shapes[f"sb{si}"] = sbs
-    return shapes
-
-
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda",
                        dtype=None) -> dict:
     """The numpy form of a JAX LM parameter tree → the port's parameter
     dict on ``device`` in ``dtype`` (default ``cfg.dtype``), shapes checked.
-    bf16 leaves go through fp32, which holds them exactly."""
-    check_supported(cfg)
+    bf16 leaves go through fp32, which holds them exactly. Every block
+    and FFN kind converts (attention, Mamba, mLSTM, sLSTM; dense and MoE
+    with its shared expert); the shapes are the port's own init tree's
+    (``transformer.param_shapes``)."""
     dtype = dtype or cfg.param_dtype
 
     def load(node, shapes, path):
@@ -138,4 +120,4 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda",
                     for k, s in shapes.items()}
         return _tensor(node, shapes, path, device, dtype)
 
-    return load(tree, _lm_shapes(cfg), "")
+    return load(tree, param_shapes(cfg), "")

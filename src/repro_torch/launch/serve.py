@@ -3,8 +3,11 @@
   python -m repro_torch.launch.serve --arch yi-9b [--smoke] \
       [--device cuda|cpu] --requests 8 --slots 4 --cache-len 256 --max-new 16
 
-Random weights from seed 0; prompts of 4-47 random tokens drawn as the
-JAX launcher draws them. It runs on the card unless ``--device cpu``; the
+Every token architecture serves: dense, MoE (qwen3-moe, kimi-k2), the
+Jamba hybrid and xLSTM. Embedding-input archs (musicgen, pixtral) need a
+frontend driver and are refused, as the JAX launcher refuses them. Random
+weights from seed 0; prompts of 4-47 random tokens drawn as the JAX
+launcher draws them. It runs on the card unless ``--device cpu``; the
 full-sequence attention of every prefill runs the flash attention kernel
 there (head dims 64, 128 or 256: the smoke configs' narrow heads run on
 the CPU only).
@@ -37,6 +40,9 @@ def main(argv=None) -> None:
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
                          "CPU")
     cfg = configs.get_config(args.arch, smoke=args.smoke)
+    if cfg.embedding_inputs:
+        raise SystemExit("embedding-input archs need a frontend driver; use "
+                         "a token arch")
     params = tf.init_params(cfg, 0, device=args.device)
     eng = ServeEngine(cfg, params, batch_slots=args.slots,
                       cache_len=args.cache_len)

@@ -1,3 +1,3 @@
-"""Point-cloud networks on the Spira engine, and the dense LM substrate
-(``common``, ``layers``, ``transformer``)."""
-from . import common, layers, pointcloud, transformer
+"""Point-cloud networks on the Spira engine, and the LM substrate
+(``common``, ``layers``, ``moe``, ``mamba``, ``xlstm``, ``transformer``)."""
+from . import common, layers, mamba, moe, pointcloud, transformer, xlstm

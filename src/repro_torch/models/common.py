@@ -88,7 +88,6 @@ def dense_lm(name: str, n_layers: int, d_model: int, n_heads: int, n_kv: int,
 def moe_lm(name: str, n_layers: int, d_model: int, n_heads: int, n_kv: int,
            d_ff_expert: int, vocab: int, n_experts: int, top_k: int,
            head_dim: Optional[int] = None, **kw) -> ModelConfig:
-    """A MoE config (the port has no MoE layer yet: building one raises)."""
     return ModelConfig(
         name=name, d_model=d_model, n_heads=n_heads, n_kv=n_kv,
         head_dim=head_dim or d_model // n_heads, d_ff=0, vocab=vocab,
@@ -100,13 +99,23 @@ def moe_lm(name: str, n_layers: int, d_model: int, n_heads: int, n_kv: int,
 # parameter creation
 # ---------------------------------------------------------------------------
 
+DRAW_LIMIT = 1 << 28     # fp32 elements drawn at once (1 GiB)
+
+
+def _stacked(stack: int, shape) -> Tuple[int, ...]:
+    return ((stack,) if stack else ()) + tuple(shape)
+
+
 class ParamCtx:
     """Draws parameters from an explicit ``torch.Generator`` with the
     reference's distributions: normal · (1/√fan_in), fan_in = ``shape[-2]``
-    (``shape[-1]`` for vectors), or an explicit ``scale``; ``"zeros"`` for
-    norms. ``stack`` > 0 prepends a layer axis of that length (one draw per
-    layer, so the fp32 draw never holds more than one layer). The numbers
-    are not ``jax.random``'s: parity tests convert JAX parameters instead."""
+    (``shape[-1]`` for vectors), or an explicit ``scale``; ``"zeros"`` /
+    ``"ones"`` as the reference's inits. ``stack`` > 0 prepends a layer
+    axis of that length (one draw per layer, so the fp32 draw never holds
+    more than one layer; a layer of more than ``DRAW_LIMIT`` elements, such
+    as a stack of expert weights, is drawn in slices of at most that many
+    along its first axis). The numbers are not ``jax.random``'s: parity
+    tests convert JAX parameters instead."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype,
                  device, stack: int = 0):
@@ -117,17 +126,43 @@ class ParamCtx:
 
     def param(self, shape: Tuple[int, ...], init: str = "normal",
               scale: Optional[float] = None) -> torch.Tensor:
-        full = ((self.stack,) if self.stack else ()) + tuple(shape)
-        if init == "zeros":
-            return torch.zeros(full, dtype=self.dtype, device=self.device)
+        full = _stacked(self.stack, shape)
+        if init in ("zeros", "ones"):
+            fill = torch.zeros if init == "zeros" else torch.ones
+            return fill(full, dtype=self.dtype, device=self.device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         out = torch.empty(full, dtype=self.dtype, device=self.device)
         for part in (out if self.stack else (out,)):
-            part.copy_(torch.randn(tuple(shape), generator=self.generator,
-                                   dtype=torch.float32, device=self.device)
-                       * s)
+            rows = max(1, DRAW_LIMIT // max(1, part[0].numel()))
+            for piece in (part.split(rows) if part.numel() > DRAW_LIMIT
+                          else (part,)):
+                piece.copy_(torch.randn(tuple(piece.shape),
+                                        generator=self.generator,
+                                        dtype=torch.float32,
+                                        device=self.device) * s)
         return out
+
+    def const(self, value: torch.Tensor) -> torch.Tensor:
+        """A deterministic leaf (the same in every layer), in the ctx's
+        dtype on its device."""
+        v = value.to(device=self.device, dtype=self.dtype)
+        return v.expand(_stacked(self.stack, v.shape)).clone()
+
+
+class ShapeCtx:
+    """:class:`ParamCtx`'s interface returning each leaf's shape instead of
+    drawing it: the parameter tree's shapes from the init code itself."""
+
+    def __init__(self, stack: int = 0):
+        self.stack = stack
+
+    def param(self, shape, init: str = "normal", scale=None
+              ) -> Tuple[int, ...]:
+        return _stacked(self.stack, shape)
+
+    def const(self, value: torch.Tensor) -> Tuple[int, ...]:
+        return _stacked(self.stack, value.shape)
 
 
 # ---------------------------------------------------------------------------

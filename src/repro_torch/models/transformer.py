@@ -1,25 +1,26 @@
 """Model assembly: the decoder LM over superblocks.
 
-The port of ``repro/models/transformer.py`` for the dense ``("attn",
-"dense")`` stacks. Parameters keep the reference's tree: per-layer leaves
-stacked on a leading layer axis under ``"sb<i>"`` / ``"b<j>"`` /
-``"f<j>"``, so a JAX tree converts leaf for leaf
-(``convert.lm_params_from_jax``); the layers run in a Python loop over
-views of those stacks (PyTorch runs eagerly: no ``scan``).
+The port of ``repro/models/transformer.py``. Parameters keep the
+reference's tree: per-layer leaves stacked on a leading layer axis under
+``"sb<i>"`` / ``"b<j>"`` / ``"f<j>"``, so a JAX tree converts leaf for
+leaf (``convert.lm_params_from_jax``); the layers run in a Python loop
+over views of those stacks (PyTorch runs eagerly: no ``scan``). Every
+block kind of the reference runs: attention (``layers``), Mamba
+(``mamba``), mLSTM and sLSTM (``xlstm``), with dense or MoE (``moe``)
+FFNs; inputs are tokens, frame or patch embeddings (musicgen), or
+embeddings as a prefix of tokens (pixtral's image prefix).
 
 Entry points:
   init_params(...)      parameters from a seeded ``torch.Generator``
   forward(...)          full-sequence logits
-  init_decode_state     static-size per-layer KV caches
+  init_decode_state     static-size per-layer caches (KV, recurrent state)
   prefill(...)          populate caches from a prompt
   decode_step(...)      one-token serve step (caches updated in place)
 
 ``backend`` ("auto" | "torch" | "cuda") picks the flash attention kernel or
 its plain version for the full-sequence attention calls
-(``kernels.ops.resolve_backend``). Mamba, mLSTM and sLSTM blocks, MoE FFNs
-and embedding-input archs are not ported yet (ROADMAP Queue 1 item 7) and
-raise ``NotImplementedError``; so does the loss, which waits for LM
-training.
+(``kernels.ops.resolve_backend``). The loss waits for LM training (ROADMAP
+Queue 1 item 7.3) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,66 +28,121 @@ from typing import Dict, Iterator, Tuple
 
 import torch
 
-from . import layers
-from .common import ModelConfig, ParamCtx, rms_norm
+from . import layers, mamba, moe, xlstm
+from .common import ModelConfig, ParamCtx, ShapeCtx, rms_norm
 
-_TODO = "not ported yet (ROADMAP Queue 1 item 7)"
+BLOCK_INIT = {"attn": layers.attn_init, "mamba": mamba.mamba_init,
+              "mlstm": xlstm.mlstm_init, "slstm": xlstm.slstm_init}
+BLOCK_STEP = {"attn": layers.attn_step, "mamba": mamba.mamba_step,
+              "mlstm": xlstm.mlstm_step, "slstm": xlstm.slstm_step}
+FFN_INIT = {"dense": layers.ffn_init, "moe": moe.moe_init}
+FFN_FWD = {"dense": layers.ffn_fwd, "moe": moe.moe_fwd}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    if cfg.embedding_inputs:
-        raise NotImplementedError(f"{cfg.name}: embedding-input archs are "
-                                  + _TODO)
+    """Raise ``ValueError`` for a block or FFN kind the model does not
+    know (every config in ``configs.ARCHS`` passes)."""
     for sb in cfg.superblocks:
         for kind, ffn in sb.blocks:
-            if kind != "attn":
-                raise NotImplementedError(f"{cfg.name}: {kind} blocks are "
-                                          + _TODO)
-            if ffn not in ("dense", "none"):
-                raise NotImplementedError(f"{cfg.name}: {ffn} FFNs are "
-                                          + _TODO)
+            if kind not in BLOCK_INIT:
+                raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
+            if ffn not in FFN_INIT and ffn != "none":
+                raise ValueError(f"{cfg.name}: unknown FFN kind {ffn!r}")
+
+
+def _block_fwd(kind: str, p, cfg, x, positions, backend: str):
+    if kind == "attn":
+        return layers.attn_fwd(p, cfg, x, positions, backend=backend)
+    if kind == "mamba":
+        return mamba.mamba_fwd(p, cfg, x)
+    if kind == "mlstm":
+        return xlstm.mlstm_fwd(p, cfg, x)
+    if kind == "slstm":
+        return xlstm.slstm_fwd(p, cfg, x)
+    raise ValueError(kind)
+
+
+def _block_cache(kind: str, cfg, batch, cache_len, dtype, device) -> dict:
+    if kind == "attn":
+        return layers.attn_init_cache(cfg, batch, cache_len, dtype, device)
+    if kind == "mamba":
+        return mamba.mamba_init_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return xlstm.mlstm_init_cache(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return xlstm.slstm_init_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+def _recurrent_prefill(kind: str, p, cfg, x):
+    if kind == "mamba":
+        return mamba.mamba_prefill(p, cfg, x)
+    if kind == "mlstm":
+        return xlstm.mlstm_prefill(p, cfg, x)
+    if kind == "slstm":
+        return xlstm.slstm_prefill(p, cfg, x)
+    raise ValueError(kind)
 
 
 def _layers(params: dict, cfg: ModelConfig
-            ) -> Iterator[Tuple[str, int, str, dict, str, dict]]:
+            ) -> Iterator[Tuple[str, int, str, str, dict, str, dict]]:
     """Every sub-layer in order: (superblock key, layer index, block key,
-    attention params, FFN kind, FFN params), the params as views."""
+    block kind, block params, FFN kind, FFN params), the params as
+    views."""
     for si, sb in enumerate(cfg.superblocks):
         stack = params[f"sb{si}"]
         for r in range(sb.repeat):
-            for bi, (_, ffn) in enumerate(sb.blocks):
+            for bi, (kind, ffn) in enumerate(sb.blocks):
                 blk = {k: t[r] for k, t in stack[f"b{bi}"].items()}
                 fp = ({k: t[r] for k, t in stack[f"f{bi}"].items()}
-                      if ffn == "dense" else {})
-                yield f"sb{si}", r, f"b{bi}", blk, ffn, fp
+                      if ffn in FFN_FWD else {})
+                yield f"sb{si}", r, f"b{bi}", kind, blk, ffn, fp
+
+
+def _ffn(ffn: str, fp: dict, cfg: ModelConfig, x: torch.Tensor
+         ) -> torch.Tensor:
+    return FFN_FWD[ffn](fp, cfg, x) if ffn in FFN_FWD else x
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
-    """Random parameters on ``device`` from ``torch.Generator(seed)`` with
-    the reference's distributions (``ParamCtx``), in ``cfg.dtype``."""
+def _init_tree(cfg: ModelConfig, make_ctx) -> dict:
+    """The parameter tree, each leaf made by ``make_ctx(stack)``'s
+    ``param`` / ``const`` (drawn, or only its shape)."""
     check_supported(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    ctx = ParamCtx(gen, cfg.param_dtype, device)
-    params: Dict[str, object] = {
-        "embed": ctx.param((cfg.vocab, cfg.d_model), scale=0.02),
-        "final_norm": ctx.param((cfg.d_model,), init="zeros")}
+    ctx = make_ctx(0)
+    params: Dict[str, object] = {}
+    if not cfg.embedding_inputs:
+        params["embed"] = ctx.param((cfg.vocab, cfg.d_model), scale=0.02)
+    params["final_norm"] = ctx.param((cfg.d_model,), init="zeros")
     if not cfg.tie_embeddings:
         params["lm_head"] = ctx.param((cfg.d_model, cfg.vocab))
     for si, sb in enumerate(cfg.superblocks):
-        stacked = ParamCtx(gen, cfg.param_dtype, device, stack=sb.repeat)
+        stacked = make_ctx(sb.repeat)
         p = {}
-        for bi, (_, ffn) in enumerate(sb.blocks):
-            p[f"b{bi}"] = layers.attn_init(stacked, cfg)
-            if ffn == "dense":
-                p[f"f{bi}"] = layers.ffn_init(stacked, cfg)
+        for bi, (kind, ffn) in enumerate(sb.blocks):
+            p[f"b{bi}"] = BLOCK_INIT[kind](stacked, cfg)
+            if ffn in FFN_INIT:
+                p[f"f{bi}"] = FFN_INIT[ffn](stacked, cfg)
         params[f"sb{si}"] = p
     return params
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
+    """Random parameters on ``device`` from ``torch.Generator(seed)`` with
+    the reference's distributions (``ParamCtx``), in ``cfg.dtype``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return _init_tree(cfg, lambda stack: ParamCtx(gen, cfg.param_dtype,
+                                                  device, stack=stack))
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameter tree's leaf shapes (the JAX tree's), nothing
+    allocated."""
+    return _init_tree(cfg, ShapeCtx)
 
 
 # ---------------------------------------------------------------------------
@@ -95,12 +151,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 
 def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict
                   ) -> torch.Tensor:
-    """batch: ``{"tokens": [B, S]}`` (integer ids)."""
-    check_supported(cfg)
+    """batch: ``{"tokens": [B, S]}`` (integer ids) and/or ``{"embeds": [B,
+    Se, d_model]}`` (frames or patches of a stub frontend), cast to
+    ``cfg.dtype``; with both, the embeddings are the sequence's prefix."""
+    dev = params["final_norm"].device
+    parts = []
     if batch.get("embeds") is not None:
-        raise NotImplementedError("embedding inputs are " + _TODO)
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    return params["embed"].to(cfg.param_dtype)[tokens.long()]
+        parts.append(torch.as_tensor(batch["embeds"], device=dev)
+                     .to(cfg.param_dtype))
+    if batch.get("tokens") is not None:
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        parts.append(params["embed"].to(cfg.param_dtype)[tokens.long()])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor
@@ -120,15 +182,15 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     """Full-sequence logits ``[B, S, vocab]``."""
     x = _embed_inputs(params, cfg, batch)
     positions = _positions(x)
-    for _, _, _, bp, ffn, fp in _layers(params, cfg):
-        x = layers.attn_fwd(bp, cfg, x, positions, backend=backend)
-        if ffn == "dense":
-            x = layers.ffn_fwd(fp, cfg, x)
+    for _, _, _, kind, bp, ffn, fp in _layers(params, cfg):
+        x = _block_fwd(kind, bp, cfg, x, positions, backend)
+        x = _ffn(ffn, fp, cfg, x)
     return _logits(params, cfg, x)
 
 
 def loss_fn(*args, **kwargs):
-    raise NotImplementedError("the LM loss waits for LM training: " + _TODO)
+    raise NotImplementedError("the LM loss waits for LM training (ROADMAP "
+                              "Queue 1 item 7.3)")
 
 
 # ---------------------------------------------------------------------------
@@ -137,48 +199,68 @@ def loss_fn(*args, **kwargs):
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
                       device="cuda") -> dict:
-    """Zero KV caches, ``{"sb<i>": {"b<j>": {"k", "v"}}}`` with leaves
-    ``[repeat, batch, cache_len, n_kv, head_dim]`` in ``cfg.dtype``."""
+    """Zero caches, ``{"sb<i>": {"b<j>": {leaf: [repeat, batch, ...]}}}``:
+    attention's ``k`` / ``v`` ``[.., cache_len, n_kv, head_dim]`` in
+    ``cfg.dtype``, Mamba's ``conv`` / ``ssm``, mLSTM's ``C`` / ``n`` /
+    ``m`` and sLSTM's ``c`` / ``n`` / ``h`` / ``m`` (the reference's
+    dtypes)."""
     check_supported(cfg)
     state = {}
     for si, sb in enumerate(cfg.superblocks):
         state[f"sb{si}"] = {
             f"b{bi}": {k: torch.stack([t] * sb.repeat)
-                       for k, t in layers.attn_init_cache(
-                           cfg, batch, cache_len, cfg.param_dtype,
-                           device).items()}
-            for bi in range(len(sb.blocks))}
+                       for k, t in _block_cache(kind, cfg, batch, cache_len,
+                                                cfg.param_dtype,
+                                                device).items()}
+            for bi, (kind, _) in enumerate(sb.blocks)}
     return state
+
+
+def recurrent_leaves(cfg: ModelConfig, state: dict) -> list:
+    """The leaves of ``state`` that every decode step advances, whatever
+    its position: all but attention's KV caches (a step writes the KV row
+    at its position, and running it twice writes the same row)."""
+    return [t for si, sb in enumerate(cfg.superblocks)
+            for bi, (kind, _) in enumerate(sb.blocks) if kind != "attn"
+            for t in state[f"sb{si}"][f"b{bi}"].values()]
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, cache_len: int, *,
             backend: str = "auto") -> Tuple[torch.Tensor, dict]:
     """Run the prompt through the model: (logits of the last position
-    ``[B, 1, vocab]``, decode state with the prompt's KV cached)."""
+    ``[B, 1, vocab]``, decode state: the prompt's KV cached, each
+    recurrent block's final state). As in the reference, a Mamba block's
+    conv window holds the prompt's last ``mamba_conv - 1`` inputs, fewer
+    for a shorter prompt (a state no decode step takes)."""
     x = _embed_inputs(params, cfg, batch)
     positions = _positions(x)
-    state = init_decode_state(cfg, x.shape[0], cache_len, device=x.device)
-    for sk, r, bk, bp, ffn, fp in _layers(params, cfg):
-        x, cache = layers.attn_prefill(bp, cfg, x, positions, cache_len,
-                                       backend=backend)
-        for name, c in cache.items():
-            state[sk][bk][name][r] = c
-        if ffn == "dense":
-            x = layers.ffn_fwd(fp, cfg, x)
+    per_layer: Dict[Tuple[str, str], list] = {}
+    for sk, _, bk, kind, bp, ffn, fp in _layers(params, cfg):
+        if kind == "attn":
+            x, st = layers.attn_prefill(bp, cfg, x, positions, cache_len,
+                                        backend=backend)
+        else:
+            x, st = _recurrent_prefill(kind, bp, cfg, x)
+        per_layer.setdefault((sk, bk), []).append(st)
+        x = _ffn(ffn, fp, cfg, x)
+    state: Dict[str, dict] = {}
+    for (sk, bk), sts in per_layer.items():
+        state.setdefault(sk, {})[bk] = {
+            name: torch.stack([st[name] for st in sts]) for name in sts[0]}
     return _logits(params, cfg, x[:, -1:]), state
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict, batch: dict,
                 pos) -> Tuple[torch.Tensor, dict]:
-    """One token for the whole batch: ``batch = {"tokens": [B, 1]}``;
-    ``pos`` the count of already-cached tokens (scalar or per slot
-    ``[B]``). Writes the new keys and values into ``state`` in place and
-    returns (logits ``[B, 1, vocab]``, state)."""
+    """One token for the whole batch: ``batch = {"tokens": [B, 1]}`` or
+    ``{"embeds": [B, 1, d_model]}``; ``pos`` the count of already-cached
+    tokens (scalar or per slot ``[B]``). Writes every block's new state
+    into ``state`` in place and returns (logits ``[B, 1, vocab]``,
+    state)."""
     x = _embed_inputs(params, cfg, batch)
     pos = torch.as_tensor(pos, device=x.device)
-    for sk, r, bk, bp, ffn, fp in _layers(params, cfg):
+    for sk, r, bk, kind, bp, ffn, fp in _layers(params, cfg):
         cache = {k: t[r] for k, t in state[sk][bk].items()}
-        x, _ = layers.attn_step(bp, cfg, x, cache, pos)
-        if ffn == "dense":
-            x = layers.ffn_fwd(fp, cfg, x)
+        x, _ = BLOCK_STEP[kind](bp, cfg, x, cache, pos)
+        x = _ffn(ffn, fp, cfg, x)
     return _logits(params, cfg, x), state

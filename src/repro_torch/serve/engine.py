@@ -831,31 +831,40 @@ class Request:
 
 
 class ServeEngine:
-    """Slot engine over ``params`` (on their device). ``backend`` is the
-    attention backend of the prefills (``kernels.ops.resolve_backend``).
+    """Slot engine over ``params`` (on their device), for every token
+    architecture (attention, Mamba, mLSTM and sLSTM blocks; dense and MoE
+    FFNs). ``backend`` is the attention backend of the prefills
+    (``kernels.ops.resolve_backend``).
 
     The decode step reads its tokens and positions from static buffers on
     the device and, on the card, is one CUDA graph captured at the first
     step for this engine's ``batch_slots`` and ``cache_len`` (the
     reference jits it once): a step copies the tokens and positions in,
     replays, and reads the greedy tokens once. The warm-up before the
-    capture runs the step itself, which is harmless: a step writes each
-    slot's key and value at that slot's position, and running it twice
-    writes the same rows with the same values. The graph reads
-    ``params`` and the caches at their addresses; both stay in place
-    (prefills merge into the caches with in-place writes).
-    ``cuda_graphs=False`` runs the step eagerly; off the card it always
-    runs eagerly. Prefill stays eager."""
+    capture runs the step itself. For a KV cache that is harmless (a step
+    writes each slot's key and value at that slot's position, and running
+    it twice writes the same rows), but every run advances a recurrent
+    state by one token; so the recurrent leaves
+    (``transformer.recurrent_leaves``) are copied before the capture and
+    written back after it, and the first replay sees the state an eager
+    step would. The graph reads ``params`` and the caches at their
+    addresses; both stay in place (prefills merge into the caches with
+    in-place writes). ``cuda_graphs=False`` runs the step eagerly; off the
+    card it always runs eagerly. Prefill stays eager."""
 
     def __init__(self, cfg: ModelConfig, params: dict, batch_slots: int = 8,
                  cache_len: int = 512, seed: int = 0, *,
                  backend: str = "auto", cuda_graphs: bool = True):
+        if cfg.embedding_inputs:
+            raise ValueError(f"{cfg.name}: the slot engine serves token "
+                             "archs; embedding-input archs need a frontend "
+                             "driver")
         self.cfg = cfg
         self.params = params
         self.B = batch_slots
         self.cache_len = cache_len
         self.backend = backend
-        self.device = params["embed"].device
+        self.device = params["final_norm"].device
         self.state = tf.init_decode_state(cfg, batch_slots, cache_len,
                                           device=self.device)
         self.pos = np.zeros(batch_slots, np.int32)    # per-slot token count
@@ -873,11 +882,20 @@ class ServeEngine:
     # -- slot management ------------------------------------------------
 
     def _merge_state(self, slot: int, one_state: dict) -> None:
-        """Write a single-request prefill state into batch slot ``slot``."""
+        """Write a single-request prefill state into batch slot ``slot``.
+        A leaf of another shape raises (as the reference's merge does): a
+        prompt shorter than ``mamba_conv - 1`` tokens leaves a short conv
+        window."""
         for sk, blocks in self.state.items():
             for bk, leaves in blocks.items():
                 for name, leaf in leaves.items():
-                    leaf[:, slot] = one_state[sk][bk][name][:, 0]
+                    one = one_state[sk][bk][name][:, 0]
+                    if one.shape != leaf[:, slot].shape:
+                        raise ValueError(
+                            f"prefill state {sk}/{bk}/{name} of shape "
+                            f"{tuple(one.shape)} does not fit the slot's "
+                            f"{tuple(leaf[:, slot].shape)}")
+                    leaf[:, slot] = one
 
     def submit(self, req: Request) -> bool:
         if not self.free:
@@ -918,8 +936,13 @@ class ServeEngine:
         if not self.cuda_graphs:
             return self._decode_body()
         if self._graph is None:
+            leaves = tf.recurrent_leaves(self.cfg, self.state)
+            saved = [t.clone() for t in leaves]
             self._graph, self._outputs = capture(self._decode_body,
                                                  self.device)
+            for t, s in zip(leaves, saved):
+                t.copy_(s)
+            del saved
         self._graph.replay()
         return self._outputs
 

@@ -110,18 +110,6 @@ def test_configs_are_the_references(arch, smoke):
         == {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b",
-                                  "qwen3-moe-30b-a3b", "musicgen-medium"])
-def test_unported_archs_raise(arch):
-    tc = tconfigs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ttf.init_params(tc, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ttf.init_decode_state(tc, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ttf.loss_fn()
-
-
 def test_lm_params_from_jax_checks_shapes():
     jc, tc, jp, _ = _params("yi-9b")
     tree = jax.tree.map(np.asarray, jp)
