@@ -295,8 +295,45 @@ card in ``cfg.dtype``, bf16; ``LM_SLOTS`` slots, cache ``LM_CACHE``):
    gated).
 
 Phase 12's flash launches join the kernel table's flash row (its
-launches and times are summed over 7b and 12; its paths list each arch's
-prompt lengths).
+launches and times are summed over 7b, 12 and 13b; its paths list each
+arch's prompt lengths).
+
+LM training (phase 13, after 12d; autograd on inside it, bf16 unless
+said):
+
+13a. the attention backward kernels (``flash_attention_bwd``: dQ, then
+   dK/dV) at the main path's shape (B 4, S 2,048, 32 heads, KV 4, head
+   dim 128), at D 64 and 256, in fp32 and at a ragged S = 1,000, causal:
+   dq, dk, dv of each launch against the plain backward evaluated in
+   float64 (bf16 within 2e-2 of max|ref|, the forward's gate; fp32 within
+   ``BWD_FP32_GATE``), two launches bitwise equal, the forward's output
+   bitwise the same with and without its lse buffer; each timed with CUDA
+   events beside its bound (2.5x the forward's operations), the plain
+   version and the backward of ``scaled_dot_product_attention``
+   (``enable_gqa``, the library yardstick);
+13b. the main path: yi-9b at full width with the depth cut to
+   ``TRAIN_LM_LAYERS`` of 48 (3.29 B parameters: the bf16 weights and
+   gradients and the fp32 AdamW moments of all 48 layers, 106 GB, do not
+   fit one card), ``train.make_train_step`` with remat, seq 2,048 x batch
+   4 of ``data.tokens`` batches, the reference's AdamW defaults, 8 steps
+   with the launch counts set to 0 before and read after (per step 32
+   flash forward launches, 16 of them remat's recomputation, and 16
+   backward launches; nothing else): ms per step, tokens/s, the loss per
+   step (finite), peak memory, one profiled step; one more step recorded
+   and every launch of it held against its plain version (the forward's
+   output and lse, the backward against float64); then on a 2-layer,
+   512-token cut of the same width the step-0 gradients of the kernel
+   path against the plain path (``backend="torch"``): no farther in
+   relative L2 than the plain bf16 path is from the same weights in fp32;
+   whether two runs of the same 3 steps are bitwise equal (logged with
+   the first leaf that differs and its op, not gated);
+13c. on that cut: ``grad_accum=2`` against 1 (gradient norms within 2e-2)
+   and ``train(compress_grads=True)`` over 3 steps, the residual carried;
+13d. ``launch.train.main`` with ``--arch yi-9b --smoke --steps 3`` then
+   ``--steps 5 --resume`` against 5 straight steps (the smoke config's
+   heads widened to 64 for the kernels), and one training step at the
+   smoke config of every other token architecture: finite loss, every
+   leaf changed, the flash launches counted.
 
 After each phase a ``[seconds]`` line gives its seconds and the run's so
 far. The second-to-last lines are the kernel table as JSON and the raw
@@ -343,6 +380,9 @@ PORT_ONLY = {
     # the JAX package repairs overflowed window cells in XLA, behind lax.cond
     "zdelta_repair": ("src/repro_torch/csrc/zdelta_repair.cu",
                       "src/repro/core/network_plan.py:149"),
+    # the JAX package differentiates its attention (grouped_attention) in XLA
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:26"),
 }
 TRAIN_STEPS = 5
 SPIKE_WARM_STEPS = 10           # phase 9b's clean commits before the spike
@@ -463,6 +503,8 @@ class Recorder:
                          "zdelta_window_search"),
                         (ops, "dw_gather_gemm", "dw_gather_gemm"),
                         (layers, "flash_attention", "flash_attention"),
+                        (layers, "flash_attention_bwd",
+                         "flash_attention_bwd"),
                         (zdelta_window, "zdelta_repair_cuda",
                          "zdelta_repair")]
         if names is not None:
@@ -3361,6 +3403,567 @@ def arch_phases(results: dict, paths: dict, card: str, tick) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 13: LM training ------------------------------------------------------
+TRAIN_LM_LAYERS = 16              # 13b: yi-9b's depth cut (of 48): one card
+TRAIN_LM_SEQ, TRAIN_LM_BATCH, TRAIN_LM_STEPS = 2048, 4, 8
+TRAIN_CUT_LAYERS, TRAIN_CUT_SEQ = 2, 512   # 13b's gradient gate, 13c
+TRAIN_ARCHS = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b",
+               "xlstm-350m", "gemma-7b", "mistral-nemo-12b", "internlm2-20b",
+               "pixtral-12b")
+BWD_FP32_GATE = 1e-5              # the backward's fp32 float64 gate
+# 13a: (label, B, S, H, KV, D, dtype): the path's own shape first
+BWD_SHAPES = (("path", 4, 2048, 32, 4, 128, "bfloat16"),
+              ("D64", 1, 2048, 16, 4, 64, "bfloat16"),
+              ("D256", 1, 1024, 8, 2, 256, "bfloat16"),
+              ("fp32", 1, 1024, 8, 2, 128, "float32"),
+              ("ragged", 2, 1000, 8, 2, 128, "bfloat16"))
+
+
+def bwd_bound(q, k, causal: bool) -> tuple:
+    """(bound ms, operations, basis) of one attention backward: q, k, v,
+    the output and its gradient read once, the row log-sum-exp read once,
+    dq, dk, dv written once, over the HBM rate; 2.5x the forward's
+    operations (five products of its size against its two: S recomputed,
+    dP, dV, dQ, dK) over the tensor-core bf16 or the CUDA-core fp32
+    peak."""
+    import torch
+    B, Sq, H, D = q.shape
+    es = q.element_size()
+    nbytes = es * (3 * q.numel() + 2 * k.numel()) + 4 * B * H * Sq \
+        + es * (q.numel() + 2 * k.numel())
+    ops = 2.5 * 4.0 * B * H * Sq * k.shape[1] * D * (0.5 if causal else 1.0)
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return (tb, ops, "bytes") if tb >= to else (to, ops, "operations")
+
+
+def bwd_f64(q, k, v, out, do, causal: bool):
+    """The plain backward in float64 on the card, one batch element at a
+    time (its [KV, G, Sq, Skv] scores in float64 stay near 1 GiB)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_torch
+    parts = [flash_attention_bwd_torch(*(t[b:b + 1].double() for t in
+                                         (q, k, v, out, do)),
+                                       causal=causal, scale=1.0)
+             for b in range(q.shape[0])]
+    return [torch.cat([p[i] for p in parts]) for i in range(3)]
+
+
+def check_bwd_launch(a, kw, what: str) -> float:
+    """One recorded backward launch against the float64 plain backward
+    (bf16 within the forward's 2e-2 relative, fp32 within
+    ``BWD_FP32_GATE`` relative) and against a second launch (bitwise);
+    returns the worst max|diff| / max|ref|."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v, out, do, lse = a
+    got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise RuntimeError(f"{what}: two backward launches differ")
+    want = bwd_f64(q, k, v, out, do, kw["causal"])
+    gate = 2e-2 if q.dtype == torch.bfloat16 else BWD_FP32_GATE
+    worst = 0.0
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        d = float((x.double() - y).abs().max())
+        scale = max(float(y.abs().max()), 1e-30)
+        if not (bool(torch.isfinite(x).all()) and d <= gate * scale):
+            raise RuntimeError(f"{what} {name}: max|diff| {d:.3e} > "
+                               f"{gate} x {scale:.3e}")
+        worst = max(worst, d / scale)
+    return worst
+
+
+def sdpa_bwd_call(q, k, v, do, causal: bool):
+    """The backward of ``scaled_dot_product_attention`` (``enable_gqa``) on
+    the same tensors: one forward recorded, the backward replayed (the
+    library yardstick, timed here and never called by the port)."""
+    import torch
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        o = sdpa_call(qs, ks, vs, causal, 1.0)()
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (qs, ks, vs), dot,
+                                       retain_graph=True)
+
+
+def time_bwd(q, k, v, out, do, lse, causal: bool) -> dict:
+    """Kernel, plain version and SDPA-backward ms of one backward, and its
+    bound."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_torch)
+    b, ops, by = bwd_bound(q, k, causal)
+    kw = dict(causal=causal, scale=1.0)
+    return dict(
+        ms=cuda_ms(lambda: flash_attention_bwd(q, k, v, out, do, lse, **kw),
+                   5),
+        plain_ms=cuda_ms(lambda: flash_attention_bwd_torch(q, k, v, out, do,
+                                                           **kw), 2),
+        library_ms=cuda_ms(sdpa_bwd_call(q, k, v, do, causal), 5),
+        bound_ms=b, bound_by=by, gflop=ops / 1e9)
+
+
+def grads_of(params, cfg, batch, backend: str) -> dict:
+    """One loss → gradient through the training step's per-layer leaves
+    (``train.loop.step_leaves``), no update: {leaf path: gradient, a
+    stacked leaf's layers stacked back}."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.loop import step_leaves
+    tree, entries = step_leaves(params)
+    flat = [x for _, leaf in entries
+            for x in (leaf if isinstance(leaf, tuple) else (leaf,))]
+    with torch.enable_grad():
+        loss = tf.loss_fn(tree, cfg, batch, remat=True, backend=backend)
+        g = torch.autograd.grad(loss, flat, allow_unused=True,
+                                materialize_grads=True)
+    out, at = {}, 0
+    for path, leaf in entries:
+        n = len(leaf) if isinstance(leaf, tuple) else 1
+        out["/".join(path)] = (torch.stack(g[at:at + n])
+                               if isinstance(leaf, tuple) else g[at])
+        at += n
+    return out
+
+
+# the op behind a leaf whose gradient differs between two identical runs
+NONDETERMINISTIC_OP = {
+    "embed": "the embedding gather's backward (index_put_ with accumulate: "
+             "atomic adds into the [vocab, d_model] gradient)"}
+
+
+def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
+    """Phase 13 (module doc): the attention backward kernels against their
+    plain version (13a), yi-9b training at full width with the depth cut
+    to ``TRAIN_LM_LAYERS`` (13b), the rest of the loop on a 2-layer cut
+    (13c), the launcher and one step of every token architecture (13d);
+    fills the kernel table's ``flash_attention_bwd`` row and adds the
+    training forward launches to the flash row."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.tokens import DataConfig, batch_at, stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import SuperBlock
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_opt_state,
+                                   make_train_step, train)
+
+    # -- 13a. the backward kernels against the plain version ------------------
+    free_card("13a", 30)
+    row = dict(launches=0, max_abs_err=0.0)
+    for label, B, S, H, KV, D, dt in BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=DEV).manual_seed(13)
+        q = (torch.randn((B, S, H, D), generator=g, device=DEV)
+             / D ** 0.5).to(dtype)
+        k, v = (torch.randn((B, S, KV, D), generator=g, device=DEV)
+                .to(dtype) for _ in range(2))
+        do = torch.randn((B, S, H, D), generator=g, device=DEV).to(dtype)
+        out, lse = flash_attention(q, k, v, causal=True, scale=1.0,
+                                   return_lse=True)
+        if not torch.equal(out, flash_attention(q, k, v, causal=True,
+                                                scale=1.0)):
+            raise RuntimeError(f"13a {label}: the forward's output changed "
+                               "with the lse buffer")
+        worst = check_bwd_launch((q, k, v, out, do, lse),
+                                 dict(causal=True, scale=1.0),
+                                 f"13a {label}")
+        r = time_bwd(q, k, v, out, do, lse, True)
+        log(f"[13a bwd {label}] B={B} S={S} H={H} KV={KV} D={D} {dt} causal:"
+            f" dq/dk/dv within "
+            f"{'2e-2' if dtype == torch.bfloat16 else BWD_FP32_GATE} of "
+            f"max|ref| against the float64 plain backward (worst "
+            f"{worst:.3e} of max|ref|), two launches bitwise equal; kernel "
+            f"{r['ms']:.3f} ms ({r['gflop'] / r['ms']:.1f} TFLOP/s of the "
+            f"bound's {r['gflop']:.1f} GFLOP), bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, SDPA backward "
+            f"{r['library_ms']:.3f} ms | {card}")
+        if label == "path":
+            path_r = r
+        row["max_abs_err"] = max(row["max_abs_err"], worst)
+        del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    tick("13a attention backward kernels")
+
+    # -- 13b. yi-9b at full width, 16 of 48 layers -----------------------------
+    full = configs.get_config("yi-9b")
+    cfg = dataclasses.replace(
+        full, name=f"yi-9b ({TRAIN_LM_LAYERS} of {full.n_layers} layers)",
+        superblocks=(SuperBlock(blocks=(("attn", "dense"),),
+                                repeat=TRAIN_LM_LAYERS),))
+    free_card("13b", 60)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, 0, device=DEV)
+    opt = init_opt_state(params, AdamWConfig())
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    log(f"[13b inputs] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads (kv {cfg.n_kv}, head dim {cfg.head_dim}), d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}; {n_par / 1e9:.3f} B random "
+        f"parameters from seed 0 and fp32 AdamW moments on the card in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; depth "
+        f"cut from {full.n_layers} (all 48 layers' state, 106 GB, does not "
+        f"fit one card)")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_LM_SEQ,
+                      global_batch=TRAIN_LM_BATCH, seed=0)
+    tcfg = TrainConfig(remat=True, log_every=1, ckpt_every=10**9)
+    step = make_train_step(cfg, tcfg)
+    batches = [batch_at(dcfg, i) for i in range(TRAIN_LM_STEPS + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms, losses = [], []
+    for i in range(TRAIN_LM_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i])
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k_: 0 for k_ in counts}
+    want.update(flash_attention=2 * TRAIN_LM_LAYERS * TRAIN_LM_STEPS,
+                flash_attention_bwd=TRAIN_LM_LAYERS * TRAIN_LM_STEPS)
+    if counts != want:
+        raise RuntimeError(f"13b: launches {counts}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"13b: non-finite losses {losses}")
+    steady = float(np.median(ms[1:]))
+    tokens = TRAIN_LM_SEQ * TRAIN_LM_BATCH
+    log(f"[13b train] {cfg.name}, seq {TRAIN_LM_SEQ} x batch "
+        f"{TRAIN_LM_BATCH}, remat, AdamW defaults: {TRAIN_LM_STEPS} steps, "
+        f"ms per step " + ", ".join(f"{x:.1f}" for x in ms)
+        + f"; median of steps 2-{TRAIN_LM_STEPS} {steady:.1f} ms = "
+        f"{tokens / steady * 1e3:.0f} tokens/s; loss per step "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {counts} (per step {2 * TRAIN_LM_LAYERS} flash "
+        f"forward = {TRAIN_LM_LAYERS} + {TRAIN_LM_LAYERS} recomputed, "
+        f"{TRAIN_LM_LAYERS} backward) | peak mem {peak:.1f} GiB | {card}")
+    dev_ms = profile_line("13b", lambda: step(params, opt,
+                                              batches[TRAIN_LM_STEPS]),
+                          steady, card, what="one training step")
+    if dev_ms:
+        kinds = {"GEMMs (cuBLAS)": ("nvjet", "gemm", "cutlass", "sm90"),
+                 "flash backward": ("bwd_dq", "bwd_dkdv"),
+                 "flash forward": ("flash_mma", "flash_attention_kernel")}
+        by = {k_: sum(v_ for n_, v_ in dev_ms.items()
+                      if any(t_ in n_ for t_ in kinds[k_])) for k_ in kinds}
+        by["elementwise, copies, reductions"] = sum(dev_ms.values()) \
+            - sum(by.values())
+        log("[13b profile] device ms by kind: " + "; ".join(
+            f"{k_} {v_:.1f} ({v_ / sum(dev_ms.values()):.1%})"
+            for k_, v_ in by.items()))
+    with Recorder(names=("flash_attention", "flash_attention_bwd")) as rec:
+        step(params, opt, batches[TRAIN_LM_STEPS + 1])
+        torch.cuda.synchronize()
+    f_calls, b_calls = (rec.calls["flash_attention"],
+                        rec.calls["flash_attention_bwd"])
+    del rec
+    if len(f_calls) != 2 * TRAIN_LM_LAYERS or len(b_calls) != \
+            TRAIN_LM_LAYERS:
+        raise RuntimeError(f"13b: recorded {len(f_calls)} forward and "
+                           f"{len(b_calls)} backward launches in one step")
+    f_err = 0.0
+    for i, (a, kw) in enumerate(f_calls):
+        q, k, v = a
+        got, lse = flash_attention(q, k, v, **kw)
+        ref = flash_attention_torch(q, k, v, causal=True, scale=1.0)
+        f_err = max(f_err, attention_close(got, ref, f"13b forward {i}"))
+        B, Sq, H, D = q.shape
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()
+                         .repeat_interleave(H // k.shape[2], 2))
+        s = s.masked_fill(torch.ones((Sq, Sq), dtype=torch.bool, device=DEV)
+                          .tril().logical_not(), float("-inf"))
+        d = float((lse - torch.logsumexp(s, -1)).abs().max())
+        if not d <= 1e-3:
+            raise RuntimeError(f"13b forward {i}: lse max|diff| {d}")
+        del got, ref, s
+    b_err = max(check_bwd_launch(a, kw, f"13b backward {i}")
+                for i, (a, kw) in enumerate(b_calls))
+    log(f"[13b flash] one step's {len(f_calls)} forward launches within 2e-2"
+        f" relative of the plain version (max|diff| {f_err:.3e}, lse within"
+        f" 1e-3) and its {len(b_calls)} backward launches within 2e-2 of "
+        f"the float64 plain backward (worst {b_err:.3e} of max|ref|), each "
+        f"run twice bitwise")
+    fwd_ms = cuda_ms(lambda: flash_attention(*f_calls[0][0], **f_calls[0][1]),
+                     5)
+    fwd_r = time_attention(*f_calls[0][0], dict(causal=True, scale=1.0))
+    del f_calls, b_calls
+    row.update(launches=counts["flash_attention_bwd"],
+               max_abs_err=max(row["max_abs_err"], b_err),
+               **{k_: path_r[k_] * TRAIN_LM_LAYERS for k_ in
+                  ("ms", "plain_ms", "library_ms", "bound_ms")},
+               bound_by=path_r["bound_by"])
+    results["flash_attention_bwd"] = row
+    paths["flash_attention_bwd"] = {f"{cfg.name} train step": dict(
+        launches=TRAIN_LM_LAYERS, **{k_: row[k_] for k_ in
+                                     ("ms", "plain_ms", "library_ms",
+                                      "bound_ms")})}
+    flash = results["flash_attention"]
+    flash["launches"] += counts["flash_attention"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], f_err)
+    for k_ in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        flash[k_] += fwd_r[k_] * counts["flash_attention"]
+    paths["flash_attention"][f"{cfg.name} train step"] = dict(
+        launches=2 * TRAIN_LM_LAYERS, ms_with_lse=fwd_ms * 2 * TRAIN_LM_LAYERS,
+        **{k_: fwd_r[k_] * 2 * TRAIN_LM_LAYERS for k_ in
+           ("ms", "plain_ms", "library_ms", "bound_ms")})
+    log(f"[13b flash] per step: backward {row['ms']:.2f} ms over "
+        f"{TRAIN_LM_LAYERS} launches (bound {row['bound_ms']:.2f}, SDPA "
+        f"backward {row['library_ms']:.2f}); forward with the lse "
+        f"{fwd_ms * 2 * TRAIN_LM_LAYERS:.2f} ms over {2 * TRAIN_LM_LAYERS} "
+        f"launches; of a {steady:.1f} ms step | {card}")
+    del params, opt, step, batches
+    tick("13b yi-9b training, 16 layers")
+
+    # -- 13b/13c. a 2-layer, 512-token cut of the same width ------------------
+    cut = dataclasses.replace(
+        cfg, name=f"yi-9b ({TRAIN_CUT_LAYERS} layers)",
+        superblocks=(SuperBlock(blocks=(("attn", "dense"),),
+                                repeat=TRAIN_CUT_LAYERS),))
+    free_card("13c", 30)
+    p0 = tf.init_params(cut, 0, device=DEV)
+    cb = batch_at(DataConfig(vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ,
+                             global_batch=TRAIN_LM_BATCH, seed=1), 0)
+    gk = grads_of(p0, cut, cb, "auto")
+    reset_launch_counts()
+    gp = grads_of(p0, cut, cb, "torch")
+    if any(launch_counts().values()):
+        raise RuntimeError(f"13b: the plain path launched {launch_counts()}")
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    g32 = grads_of({k_: (v_.float() if torch.is_tensor(v_) else
+                         {b_: {n_: t_.float() for n_, t_ in d_.items()}
+                          for b_, d_ in v_.items()})
+                    for k_, v_ in p0.items()}, cut32, cb, "torch")
+    d_plain = rel_l2({k_: v_.float() for k_, v_ in gk.items()},
+                     {k_: v_.float() for k_, v_ in gp.items()})
+    d_own = rel_l2({k_: v_.float() for k_, v_ in gp.items()}, g32)
+    d_k32 = rel_l2({k_: v_.float() for k_, v_ in gk.items()}, g32)
+    k_w, worst = worst_tensor({k_: v_.float() for k_, v_ in gk.items()},
+                              {k_: v_.float() for k_, v_ in gp.items()})
+    if not (all(bool(torch.isfinite(x).all()) for x in gk.values())
+            and d_plain <= d_own):
+        raise RuntimeError(f"13b: kernel vs plain gradients {d_plain:.3e} "
+                           f"relative L2 > the plain bf16 path's own "
+                           f"distance from fp32 {d_own:.3e}")
+    log(f"[13b grads] step-0 gradients of {cut.name}, seq {TRAIN_CUT_SEQ} x"
+        f" {TRAIN_LM_BATCH}, kernel path vs plain path (backend=\"torch\", "
+        f"bf16): relative L2 over all leaves {d_plain:.3e} <= {d_own:.3e} = "
+        f"the plain bf16 path's own distance from the same weights in fp32;"
+        f" the kernel path's distance from fp32 {d_k32:.3e}; worst leaf "
+        f"{k_w} max|diff|/max|g| {worst:.2e} | {card}")
+    del gp
+    # fp32: the same weights through the fp32 kernels against the plain
+    # path, gated by the plain path's own movement under a 1e-6 weight
+    # perturbation (and 1e-4 at least)
+    p32 = {k_: (v_.float() if torch.is_tensor(v_) else
+                {b_: {n_: t_.float() for n_, t_ in d_.items()}
+                 for b_, d_ in v_.items()}) for k_, v_ in p0.items()}
+    gk32 = grads_of(p32, cut32, cb, "auto")
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    moved = {k_: (v_ * (1 + 1e-6 * torch.randn(v_.shape, generator=gen,
+                                                 device=DEV))
+                  if torch.is_tensor(v_) else
+                  {b_: {n_: t_ * (1 + 1e-6 * torch.randn(
+                      t_.shape, generator=gen, device=DEV))
+                      for n_, t_ in d_.items()} for b_, d_ in v_.items()})
+             for k_, v_ in p32.items()}
+    gm32 = grads_of(moved, cut32, cb, "torch")
+    d32, d32_self = rel_l2(gk32, g32), rel_l2(gm32, g32)
+    k32, w32 = worst_tensor(gk32, g32)
+    if not d32 <= max(1e-4, d32_self):
+        raise RuntimeError(f"13b: fp32 kernel vs plain gradients {d32:.3e} "
+                           f"relative L2 > max(1e-4, {d32_self:.3e})")
+    log(f"[13b grads fp32] the same weights in fp32 through the fp32 flash "
+        f"kernels against the plain path: relative L2 {d32:.3e} <= "
+        f"max(1e-4, {d32_self:.3e} = the plain path's own movement at "
+        f"weights moved 1e-6); worst leaf {k32} max|diff|/max|g| {w32:.2e} "
+        f"(bf16 gradients at random init are ill-conditioned: the plain "
+        f"bf16 path is {d_own:.2f} from fp32 in relative L2, as the "
+        f"reference's own bf16 gradients are on a small cut) | {card}")
+    del g32, gk32, gm32, p32, moved
+
+    # bitwise: the same 3 steps twice
+    def three(p):
+        o = init_opt_state(p, AdamWConfig())
+        st = make_train_step(cut, TrainConfig(remat=True))
+        for i in range(3):
+            p, o, _ = st(p, o, batch_at(DataConfig(
+                vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ,
+                global_batch=TRAIN_LM_BATCH, seed=2), i))
+        return p
+    ra = three(tf.init_params(cut, 0, device=DEV))
+    rb = three(tf.init_params(cut, 0, device=DEV))
+    la, lb = dict(_named(ra)), dict(_named(rb))
+    diff = [k_ for k_ in la if not torch.equal(la[k_], lb[k_])]
+    gk2 = grads_of(p0, cut, cb, "auto")
+    gdiff = [k_ for k_ in gk if not torch.equal(gk[k_], gk2[k_])]
+    if diff or gdiff:
+        first = (gdiff or diff)[0]
+        op = NONDETERMINISTIC_OP.get(first.split("/")[-1],
+                                     "not identified (cuBLAS or elementwise)")
+        log(f"[13b determinism] two runs of the same 3 steps are NOT bitwise"
+            f" equal: {len(diff)} of {len(la)} leaves differ after them; "
+            f"step-0 gradients differ in {gdiff[:4]}; first leaf {first}, "
+            f"op: {op} (logged, not gated)")
+    else:
+        log(f"[13b determinism] two runs of the same 3 steps are bitwise "
+            f"equal (all {len(la)} leaves), and so are two step-0 gradient "
+            f"evaluations")
+    deterministic = not (diff or gdiff)
+    del ra, rb, la, lb, gk, gk2
+
+    # -- 13c. grad_accum and compression on the cut ----------------------------
+    res = {}
+    for accum in (1, 2):
+        p = tf.init_params(cut, 0, device=DEV)
+        p, _, m = make_train_step(cut, TrainConfig(remat=True,
+                                                   grad_accum=accum))(
+            p, init_opt_state(p, AdamWConfig()), cb)
+        res[accum] = (float(m["grad_norm"]), dict(_named(p)))
+    d_norm = abs(res[2][0] - res[1][0]) / res[1][0]
+    d_upd = rel_l2({k_: (v_.float() - dict(_named(p0))[k_].float())
+                    for k_, v_ in res[2][1].items()},
+                   {k_: (v_.float() - dict(_named(p0))[k_].float())
+                    for k_, v_ in res[1][1].items()})
+    if not d_norm <= 2e-2:
+        raise RuntimeError(f"13c: grad_accum=2 grad norm {res[2][0]} vs "
+                           f"{res[1][0]}")
+    log(f"[13c grad_accum] {cut.name}: grad_accum=2 (two micro-batches of 2,"
+        f" gradients summed in fp32) against 1 on the same batch of "
+        f"{TRAIN_LM_BATCH}: grad norm {res[2][0]:.5e} vs {res[1][0]:.5e} "
+        f"(relative {d_norm:.2e}, gate 2e-2: bf16 gradients against fp32 "
+        f"sums), parameter updates' relative L2 {d_upd:.2e} (not gated)")
+    del res
+    lines = []
+    tcc = TrainConfig(remat=True, compress_grads=True, log_every=1,
+                      ckpt_every=10**9)
+    import repro_torch.train.loop as loop_mod
+    seen = []
+    real = loop_mod.compression.compress_tree
+
+    depth = [0]
+
+    def spy(g, r):                   # compress_tree recurses into subtrees
+        if depth[0] == 0:
+            seen.append(None if r is None else
+                        float(sum(float(x.float().abs().sum())
+                                  for x in _leaves(r))))
+        depth[0] += 1
+        try:
+            return real(g, r)
+        finally:
+            depth[0] -= 1
+    loop_mod.compression.compress_tree = spy
+    try:
+        pc, _, mc = train(cut, tcc, stream(DataConfig(
+            vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ,
+            global_batch=TRAIN_LM_BATCH, seed=3)), 3, params=tf.init_params(
+                cut, 0, device=DEV), log=lines.append)
+    finally:
+        loop_mod.compression.compress_tree = real
+    if not (seen[0] is None and all(s_ is not None and s_ > 0
+                                    for s_ in seen[1:])
+            and np.isfinite(float(mc["loss"]))):
+        raise RuntimeError(f"13c: compression residuals {seen}")
+    log(f"[13c compression] train(compress_grads=True) on {cut.name}, 3 "
+        f"steps: the residual carried into steps 1 and 2 (sum|r| "
+        f"{seen[1]:.4e}, {seen[2]:.4e}), none into step 0; "
+        + "; ".join(lines))
+    del pc, p0
+    tick("13b-c yi-9b 2-layer cut")
+
+    # -- 13d. the launcher and every token architecture ------------------------
+    saved = configs.get_config
+
+    def wide(arch, smoke=False):         # the kernels take heads of 64+
+        c = saved(arch, smoke)
+        return dataclasses.replace(c, head_dim=64) if smoke else c
+    configs.get_config = wide
+    try:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            import contextlib
+            import io
+            outs = []
+            for d, extra in (("/b", ["--steps", "3"]),
+                             ("/b", ["--steps", "5", "--resume"]),
+                             ("/a", ["--steps", "5"])):
+                buf = io.StringIO()
+                d = tmp + d
+                with contextlib.redirect_stdout(buf):
+                    launch_train.main(["--arch", "yi-9b", "--smoke",
+                                       "--seq-len", "64", "--global-batch",
+                                       "2", "--ckpt-dir", d] + extra)
+                outs.append(buf.getvalue())
+            if "resumed from step 2" not in outs[1]:
+                raise RuntimeError(f"13d: resume output {outs[1]!r}")
+            with np.load(f"{tmp}/a/ckpt_00000004.npz") as za, \
+                    np.load(f"{tmp}/b/ckpt_00000004.npz") as zb:
+                same = all(za[k_].tobytes() == zb[k_].tobytes()
+                           for k_ in za.files)
+        note = ("bitwise equal to 5 straight steps" if same else
+                "NOT bitwise equal to 5 straight steps" + (
+                    " (expected: 13b found the step nondeterministic)"
+                    if not deterministic else ""))
+        if same != deterministic and not same:
+            raise RuntimeError("13d: the resumed run differs though the "
+                               "step is deterministic")
+        log(f"[13d launcher] python -m repro_torch.launch.train --arch yi-9b"
+            f" --smoke (heads widened to 64) --steps 3, then --steps 5 "
+            f"--resume: {outs[1].strip().splitlines()[0]}; the step-4 "
+            f"checkpoint {note}; output: "
+            + " | ".join(o_.strip().replace("\n", "; ") for o_ in outs[:2]))
+        arch_lines = []
+        for arch in TRAIN_ARCHS:
+            c = wide(arch, True)
+            p = tf.init_params(c, 0, device=DEV)
+            before = {k_: v_.clone() for k_, v_ in _named(p)}
+            n_pre = configs.embed_prefix_len(arch, 64)
+            b = batch_at(DataConfig(vocab=c.vocab, seq_len=64,
+                                    global_batch=2, seed=0,
+                                    embed_dim=c.d_model if n_pre else 0,
+                                    embed_prefix=n_pre), 0)
+            reset_launch_counts()
+            p, _, m = make_train_step(c, TrainConfig(remat=True))(
+                p, init_opt_state(p, AdamWConfig()), b)
+            n = launch_counts()
+            same_ = [k_ for k_, v_ in _named(p)
+                     if torch.equal(v_, before[k_])]
+            if not np.isfinite(float(m["loss"])) or same_:
+                raise RuntimeError(f"13d {arch}: loss {float(m['loss'])}, "
+                                   f"unchanged leaves {same_}")
+            n_attn = n_attn_layers(c)
+            if (n["flash_attention"], n["flash_attention_bwd"]) != \
+                    (2 * n_attn, n_attn):
+                raise RuntimeError(f"13d {arch}: launches {n}")
+            arch_lines.append(f"{arch} loss {float(m['loss']):.4f}, "
+                              f"{len(before)} leaves all changed, flash "
+                              f"{n['flash_attention']} + backward "
+                              f"{n['flash_attention_bwd']}")
+        log("[13d archs] one training step (fp32 smoke config, heads 64, "
+            "seq 64 x 2, remat): " + "; ".join(arch_lines) + f" | {card}")
+    finally:
+        configs.get_config = saved
+    torch.cuda.empty_cache()
+
+
+def _named(tree, prefix=""):
+    """(path, tensor) of every leaf of a nested dict, sorted."""
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _named(v, path)
+        else:
+            yield path, v
+
+
 def main() -> int:
     import torch
     tick = PhaseClock()
@@ -3998,6 +4601,9 @@ def main() -> int:
     # -- 12. every LM architecture the reference configures ------------------
     arch_phases(results, paths, card, tick)
     tick("12d musicgen-medium")
+    # -- 13. LM training ---------------------------------------------------------
+    lm_train_phases(results, paths, card, tick)
+    tick("13d launcher and every token architecture")
 
     # -- result ----------------------------------------------------------------
     table = []

@@ -13,7 +13,10 @@ One checkpoint ``step`` is two files, written in this order:
   (``train.guard.checkpoint_trees``), so the keys are the reference's:
   ``params::stem/w``, ``opt::.mu/stem/w``, ``opt::.nu/stem/w``,
   ``opt::.step`` (0-d int32), float32 in the JAX shapes (``w`` is
-  ``[K³, Cin, Cout]``, as the port holds it).
+  ``[K³, Cin, Cout]``, as the port holds it). The LM trainer hands over
+  its parameter tree and AdamW state the same way
+  (``train.loop.checkpoint_trees``); bf16 leaves land as the reference's
+  do, as raw 2-byte ``|V2`` arrays.
 * ``ckpt_{step:08d}.json`` — the manifest::
 
       {"step": int, "format": 2,
@@ -137,10 +140,22 @@ def _rebuild(tree, prefix: str, leaves: dict):
 
 def _snapshot(leaf) -> np.ndarray:
     """A host copy no later in-place update can reach (on the CPU
-    ``.cpu()`` would return the same storage)."""
+    ``.cpu()`` would return the same storage). bf16 has no numpy type: its
+    raw 2-byte elements go in as ``|V2``, as the reference's bf16 arrays
+    land in an npz."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view("V2")
+        return host.numpy()
     return np.array(leaf)
+
+
+def _from_host(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``arr`` as a tensor, ``|V2`` elements read as bf16 (``_snapshot``)."""
+    if arr.dtype.kind == "V" and like.dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _crc(a: np.ndarray) -> int:
@@ -408,7 +423,7 @@ class CheckpointManager:
         with torch.no_grad():
             for group, key, leaf, arr in plan:
                 if isinstance(leaf, torch.Tensor):
-                    leaf.copy_(torch.from_numpy(arr))
+                    leaf.copy_(_from_host(arr, leaf))
                     restored[group][key] = leaf
                 else:
                     restored[group][key] = arr

@@ -4,8 +4,11 @@ port, both ways.
 The JAX parameter tree of a point-cloud net is ``{layer: {"w", "b"},
 "head"}``, and that of an LM ``{"embed", "final_norm", "lm_head"?,
 "sb<i>": {"b<j>": {...}, "f<j>": {...}}}`` with per-layer leaves stacked
-on axis 0; taken to numpy with ``jax.tree.map(np.asarray, params)`` they
-are plain arrays, which is all this module reads (it imports no JAX). With
+on axis 0 (the port's LM tree is the same nesting); taken to numpy with
+``jax.tree.map(np.asarray, params)`` they are plain arrays, which is all
+this module reads (it imports no JAX). An LM's AdamW state converts as
+the reference's ``OptState`` (``lm_opt_state_from_jax`` /
+``lm_opt_state_to_jax``): moments in the parameters' nesting, fp32. With
 the same weights in both packages, their outputs can be held against each
 other; with the same AdamW state, one update step can. The reverse direction
 (:func:`params_to_jax`, :func:`opt_state_to_jax`) gives the numpy form of
@@ -121,3 +124,32 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig, device="cuda",
         return _tensor(node, shapes, path, device, dtype)
 
     return load(tree, param_shapes(cfg), "")
+
+
+def lm_opt_state_from_jax(state, cfg: ModelConfig, device="cuda",
+                          dtype=torch.float32) -> OptState:
+    """The numpy form of a JAX LM ``OptState`` (``mu``, ``nu`` trees in the
+    parameters' nesting, ``step``) → the port's
+    :class:`~repro_torch.train.OptState` on ``device``, moments in
+    ``dtype`` (the reference's ``state_dtype``, fp32 by default)."""
+    return OptState(mu=lm_params_from_jax(state.mu, cfg, device, dtype),
+                    nu=lm_params_from_jax(state.nu, cfg, device, dtype),
+                    step=int(np.asarray(state.step)))
+
+
+def lm_params_to_jax(params: Mapping) -> dict:
+    """The port's LM parameter tree → the numpy form of the JAX tree (host
+    copies; bf16 leaves as fp32, which holds them exactly: cast with
+    ``jnp.asarray(a, jnp.bfloat16)`` to get the reference's arrays)."""
+    return {k: lm_params_to_jax(v) if isinstance(v, Mapping)
+            else _host(v.float() if v.dtype == torch.bfloat16 else v)
+            for k, v in params.items()}
+
+
+def lm_opt_state_to_jax(state: OptState) -> OptState:
+    """The port's LM :class:`~repro_torch.train.OptState` → the numpy form
+    of the JAX ``OptState``: ``mu`` and ``nu`` trees, ``step`` a 0-d int32
+    array (the inverse of :func:`lm_opt_state_from_jax`)."""
+    return OptState(mu=lm_params_to_jax(state.mu),
+                    nu=lm_params_to_jax(state.nu),
+                    step=np.asarray(state.step, np.int32))

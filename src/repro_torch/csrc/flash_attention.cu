@@ -1,5 +1,7 @@
 // Flash attention (forward) for Hopper: causal or full softmax attention
-// with an online softmax over KV tiles, GQA by index.
+// with an online softmax over KV tiles, GQA by index. Given a buffer, it
+// also writes each row's log-sum-exp (m + log l, fp32), which the backward
+// kernels of flash_attention_bwd.cu recompute the probabilities from.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (_kernel). There the grid's innermost axis walks the KV blocks in order
@@ -133,7 +135,8 @@ __device__ __forceinline__ float row_sum(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq,
                        int Skv, int H, int G, int64_t qsb, int64_t qss,
                        int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
                        int64_t vsb, int64_t vss, int64_t vsh, int causal,
@@ -268,6 +271,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[i] + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     T* o = out + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D;
 #pragma unroll
@@ -329,7 +334,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int Sq, int Skv, int H,
                  int G, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
                  int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
                  int64_t vsh, int causal, float scale) {
@@ -487,6 +493,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rows[i] >= Sq) continue;
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + rows[i]] =
+          m_run[i] + logf(l_run[i]);
     const float denom = fmaxf(l_run[i], 1e-30f);
     __nv_bfloat16* op =
         out + ((static_cast<int64_t>(b) * Sq + rows[i]) * H + h) * D;
@@ -499,12 +508,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // fp32 runs the CUDA-core kernel above, bf16 the tensor-core one
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Skv, int H, int KV, const int64_t* st, int causal,
-             float scale, cudaStream_t s) {
+int launch_d(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int Sq, int Skv, int H, int KV,
+             const int64_t* st, int causal, float scale, cudaStream_t s) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int,
-                 int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
+  void (*kernel)(const T*, const T*, const T*, T*, float*, int, int, int,
+                 int, int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
                  int64_t, int64_t, int64_t, int, float);
   if constexpr (kMma)
     kernel = flash_mma_kernel<D>;
@@ -523,28 +532,30 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   kernel<<<grid, threads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, H / KV,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H,
+      H / KV,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
       scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int KV, int D, const int64_t* strides,
-           int causal, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           void* lse, int B, int Sq, int Skv, int H, int KV, int D,
+           const int64_t* strides, int causal, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return cudaSuccess;
   if (Skv <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return launch_d<T, 64>(q, k, v, out, B, Sq, Skv, H, KV, strides, causal,
-                             scale, s);
+      return launch_d<T, 64>(q, k, v, out, l, B, Sq, Skv, H, KV, strides,
+                             causal, scale, s);
     case 128:
-      return launch_d<T, 128>(q, k, v, out, B, Sq, Skv, H, KV, strides,
+      return launch_d<T, 128>(q, k, v, out, l, B, Sq, Skv, H, KV, strides,
                               causal, scale, s);
     case 256:
-      return launch_d<T, 256>(q, k, v, out, B, Sq, Skv, H, KV, strides,
+      return launch_d<T, 256>(q, k, v, out, l, B, Sq, Skv, H, KV, strides,
                               causal, scale, s);
     default:
       return cudaErrorInvalidValue;
@@ -557,23 +568,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // seq, head) strides in elements (strides[0..2] q's, [3..5] k's, [6..8]
 // v's; D contiguous, every row 16-byte aligned); out: contiguous
 // [B, Sq, H, D]. One type for all four (fp32 or bf16); D in {64, 128, 256};
-// H a multiple of KV.
+// H a multiple of KV. lse: null, or a contiguous fp32 [B, H, Sq] that gets
+// each row's log-sum-exp m + log(l) (the backward's input; a null pointer
+// writes nothing else and changes no other value).
 extern "C" int spira_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* out, int B,
-                                         int Sq, int Skv, int H, int KV,
-                                         int D, const int64_t* strides,
-                                         int causal, float scale,
-                                         void* stream) {
-  return launch<float>(q, k, v, out, B, Sq, Skv, H, KV, D, strides, causal,
-                       scale, stream);
+                                         const void* v, void* out, void* lse,
+                                         int B, int Sq, int Skv, int H,
+                                         int KV, int D,
+                                         const int64_t* strides, int causal,
+                                         float scale, void* stream) {
+  return launch<float>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, strides,
+                       causal, scale, stream);
 }
 
 extern "C" int spira_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* out, int B,
-                                          int Sq, int Skv, int H, int KV,
-                                          int D, const int64_t* strides,
-                                          int causal, float scale,
-                                          void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KV, D, strides,
-                               causal, scale, stream);
+                                          const void* v, void* out, void* lse,
+                                          int B, int Sq, int Skv, int H,
+                                          int KV, int D,
+                                          const int64_t* strides, int causal,
+                                          float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Skv, H, KV, D,
+                               strides, causal, scale, stream);
 }

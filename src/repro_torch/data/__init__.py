@@ -1,1 +1,2 @@
-"""Synthetic voxel scenes."""
+"""Synthetic inputs: voxel scenes (``scenes``) and the LM token stream
+(``tokens``)."""

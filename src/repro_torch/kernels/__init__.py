@@ -20,7 +20,10 @@ plain PyTorch version and a launch counter on its wrapper:
                        TPU counterpart (csrc/dw_gather_gemm.cu)
   flash_attention    — causal or full softmax attention with an online
                        softmax over KV tiles, GQA by index
-                       (csrc/flash_attention.cu)
+                       (csrc/flash_attention.cu), and its backward (dQ,
+                       then dK/dV; port-only, the JAX package
+                       differentiates attention in XLA:
+                       csrc/flash_attention_bwd.cu)
 
 ``ops.resolve_backend`` decides kernel or plain version by backend string
 and tensor device; ``_build`` compiles ``csrc/`` with nvcc on first use.
@@ -41,6 +44,7 @@ LAUNCHERS = {
     "masked_group_gemm": masked_group_gemm.masked_group_gemm,
     "dw_gather_gemm": dw_gather_gemm.dw_gather_gemm,
     "flash_attention": flash_attention.flash_attention,
+    "flash_attention_bwd": flash_attention.flash_attention_bwd,
     "zdelta_repair": zdelta_window.zdelta_repair_cuda,
 }
 

@@ -1,4 +1,4 @@
-"""Flash attention (forward): CUDA kernel + plain version.
+"""Flash attention, forward and backward: CUDA kernels + plain versions.
 
 Softmax attention of queries ``q [B, Sq, H, D]`` over keys and values
 ``k, v [B, Skv, KV, D]``: query head h reads KV head ``h // (H // KV)``
@@ -23,6 +23,16 @@ grouped ``[B, S, heads, D]`` layout, so neither needs a transpose.
 softmax of ``repro/models/layers.py`` (``grouped_attention``), which also
 covers what the kernel does not — an explicit ``q_offset`` and a per-batch
 ``kv_len`` (the decode step's padded cache).
+
+The backward (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``)
+is port-only: the JAX package differentiates its attention in XLA
+(``repro/models/layers.py``, ``grouped_attention``) and its Pallas forward
+has no VJP. Given ``return_lse=True`` the forward also returns each row's
+log-sum-exp ``[B, H, Sq]`` fp32, from which the backward's two launches
+(dQ with the row sums Δ = rowsum(dO ∘ O), then dK/dV summed over each KV
+head's query heads inside the block, no atomics) recompute the
+probabilities. :func:`flash_attention_bwd_torch` is its plain version: the
+closed-form gradient of :func:`flash_attention_torch`.
 """
 from __future__ import annotations
 
@@ -36,12 +46,14 @@ from . import _build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
 
-_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _ENTRY = {torch.float32: "spira_flash_attention_f32",
           torch.bfloat16: "spira_flash_attention_bf16"}
+_BWD_SIG = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_BWD_ENTRY = {torch.float32: "spira_flash_attention_bwd_f32",
+              torch.bfloat16: "spira_flash_attention_bwd_bf16"}
 _fns: dict = {}
 
 
@@ -106,15 +118,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors (a CPU tensor raises). q
-    ``[B, Sq, H, D]``, k/v ``[B, Skv, KV, D]``, one dtype (fp32 or bf16),
-    D in ``HEAD_DIMS``, H a multiple of KV; read through their strides.
-    Returns a contiguous ``[B, Sq, H, D]`` in that dtype."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           what: str) -> None:
+    """Raise on what the kernels do not take (the forward's contract)."""
     if q.device.type != "cuda":
-        raise ValueError("flash_attention launches a CUDA kernel; got a "
-                         f"tensor on {q.device}")
+        raise ValueError(f"{what} launches a CUDA kernel; got a tensor on "
+                         f"{q.device}")
     dt = q.dtype
     if dt not in _ENTRY or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"q/k/v must all be fp32 or bf16, got {q.dtype}/"
@@ -132,23 +141,152 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {D}: the kernel is compiled for "
                          f"{HEAD_DIMS}")
     if Skv == 0:
-        raise ValueError("flash_attention needs at least one key")
+        raise ValueError(f"{what} needs at least one key")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must share a device")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, scale: float, return_lse: bool = False):
+    """Launch the CUDA kernel on CUDA tensors (a CPU tensor raises). q
+    ``[B, Sq, H, D]``, k/v ``[B, Skv, KV, D]``, one dtype (fp32 or bf16),
+    D in ``HEAD_DIMS``, H a multiple of KV; read through their strides.
+    Returns a contiguous ``[B, Sq, H, D]`` in that dtype, and with
+    ``return_lse`` also each row's log-sum-exp, contiguous ``[B, H, Sq]``
+    fp32 (the backward's input)."""
+    _check(q, k, v, "flash_attention")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    dt = q.dtype
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((B, Sq, H, D), dtype=dt, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
                                    *v.stride()[:3])
     fn = _fns.get(dt)
     if fn is None:
         fn = _fns[dt] = _build.function(_ENTRY[dt], _SIG)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-             Skv, H, KV, D, ctypes.addressof(strides), int(causal),
-             float(scale), stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KV, D,
+             ctypes.addressof(strides), int(causal), float(scale), stream)
     flash_attention.launches += 1
     _build.check(err, "flash_attention")
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool, scale: float):
+    """Launch the backward kernels (dQ, then dK/dV) on CUDA tensors (a CPU
+    tensor raises): the gradients ``(dq [B, Sq, H, D], dk, dv [B, Skv, KV,
+    D])``, contiguous, in q's dtype, of :func:`flash_attention` at ``(q, k,
+    v)`` given its output ``out``, the output's gradient ``dout`` and the
+    forward's ``lse``. The forward's contract, and ``causal`` needs
+    ``Sq <= Skv`` (every row sees a key). Counts one launch per call."""
+    _check(q, k, v, "flash_attention_bwd")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    dt = q.dtype
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != dt or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be fp32 [B, H, Sq] = {(B, H, Sq)} on "
+                         f"{q.device}; got {tuple(lse.shape)} {lse.dtype}")
+    if causal and Sq > Skv:
+        raise ValueError(f"causal backward needs Sq <= Skv (got {Sq} > "
+                         f"{Skv}): a row with no visible key")
+    q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq = torch.empty((B, Sq, H, D), dtype=dt, device=q.device)
+    dk = torch.empty((B, Skv, KV, D), dtype=dt, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 15)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3],
+                                    *dout.stride()[:3])
+    key = ("bwd", dt)
+    fn = _fns.get(key)
+    if fn is None:
+        fn = _fns[key] = _build.function(_BWD_ENTRY[dt], _BWD_SIG)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV,
+             D, ctypes.addressof(strides), int(causal), float(scale), stream)
+    flash_attention_bwd.launches += 1
+    _build.check(err, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, *, causal: bool,
+                              scale: float):
+    """Plain version of :func:`flash_attention_bwd`, any device: the
+    closed-form gradient of :func:`flash_attention_torch` (end-aligned
+    causal diagonal, no ``kv_len``) in fp32, or in float64 for float64
+    inputs (the float64 gate of ``chip_smoke.py``). P is recomputed from
+    the scores' log-sum-exp and rounded to v's dtype for dV, as the forward
+    rounds it for P·V; Δ = rowsum(dO ∘ O) from the forward's output.
+    Returns ``(dq, dk, dv)`` in q's dtype."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.reshape(B, Sq, KV, G, D).to(ct)
+    dog = dout.reshape(B, Sq, KV, G, D).to(ct)
+    og = out.reshape(B, Sq, KV, G, D).to(ct)
+    ks, vs = k.to(ct), v.to(ct)
+    s = torch.einsum("bqngd,bknd->bngqk", qg, ks) * scale
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+        mask = q_pos[:, None] >= torch.arange(Skv, device=q.device)[None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    if causal:
+        p = torch.where(mask, p, 0.0)
+    del s
+    dv = torch.einsum("bngqk,bqngd->bknd", p.to(v.dtype).to(ct), dog)
+    dp = torch.einsum("bqngd,bknd->bngqk", dog, vs)
+    delta = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]   # [b,n,g,q,1]
+    ds = p * (dp - delta)
+    del dp, p
+    dq = torch.einsum("bngqk,bknd->bqngd", ds, ks) * scale
+    dk = torch.einsum("bngqk,bqngd->bknd", ds, qg) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal flash attention under autograd on the card (scale 1, the
+    caller's q already scaled): the forward kernel with the row
+    log-sum-exp saved, the backward kernels for the gradients. The launches
+    go through ``launch_fwd`` / ``launch_bwd`` as given, so a caller's
+    module binding (where ``chip_smoke.Recorder`` looks) decides what
+    runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, launch_fwd, launch_bwd):
+        out, lse = launch_fwd(q, k, v, causal=True, scale=1.0,
+                              return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.launch_bwd = launch_bwd
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.launch_bwd(q, k, v, out, dout, lse, causal=True,
+                                    scale=1.0)
+        return dq, dk, dv, None, None

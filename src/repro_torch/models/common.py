@@ -195,3 +195,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in fp32. logits [..., V], labels [...]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

@@ -5,7 +5,8 @@ The port of ``repro/models/layers.py``. Attention keeps the grouped form
 :func:`grouped_attention` does what the reference's docstring says its
 Pallas kernel should do and the reference never wired: the full-sequence
 causal calls (:func:`attn_fwd`, :func:`attn_prefill`) run the hand-written
-flash attention kernel on a CUDA tensor. The decode step
+flash attention kernel on a CUDA tensor, and under autograd its backward
+kernel too. The decode step
 (:func:`attn_step`: ``causal=False``, a per-slot ``kv_len`` over a padded
 cache) is a different function, which the kernel's end-aligned diagonal
 does not mask; it runs the reference's chunked online softmax
@@ -22,7 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.flash_attention import (NEG_INF, flash_attention,
+from ..kernels.flash_attention import (NEG_INF, FlashAttentionFn,
+                                       flash_attention, flash_attention_bwd,
                                        flash_attention_torch)
 from ..kernels.ops import resolve_backend
 from .common import ModelConfig, ParamCtx, act_fn, rms_norm, rope
@@ -43,13 +45,20 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     weak-typed multiply), so the kernel runs with scale 1. The causal
     full-sequence call (``q_offset == Sk - Sq``, no ``kv_len``) launches
     the flash attention kernel on a CUDA tensor unless ``backend`` is
-    "torch"; every other call is the reference's chunked math."""
+    "torch"; under autograd (grad enabled, q, k or v requiring grad) it
+    goes through :class:`FlashAttentionFn`, whose backward is the backward
+    kernel. Every other call is the reference's chunked math, which
+    autograd differentiates as it is."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     qf = q * torch.tensor(1.0 / (D ** 0.5), dtype=q.dtype)
     full = (causal and kv_len is None and isinstance(q_offset, int)
             and q_offset == Sk - Sq)
     if full and resolve_backend(backend, q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(qf, k, v, flash_attention,
+                                          flash_attention_bwd)
         return flash_attention(qf, k, v, causal=True, scale=1.0)
     return flash_attention_torch(qf, k, v, causal=causal, scale=1.0,
                                  q_offset=q_offset, kv_len=kv_len,

@@ -7,7 +7,8 @@ sequence when S is not a multiple of it) and discretises each chunk inside
 the scan, so the ``[B, S, d_inner, d_state]`` tensors of the whole
 sequence never exist. Within a chunk the recurrence ``h_t = a_t h_{t-1} +
 b_t`` runs as a loop over the chunk's steps (one fused multiply-add per
-step into the chunk's state buffer): PyTorch has no associative scan, and
+step, the states stacked once per chunk, which autograd differentiates as
+it is): PyTorch has no associative scan, and
 the reference's parallel scan differs from it only in rounding. Decode is
 O(1) per token with the (conv window, ssm state) cache written in place.
 
@@ -107,12 +108,13 @@ def _scan(p: dict, cfg: ModelConfig, xconv: torch.Tensor, chunk: int
     ys = []
     for c0 in range(0, S, chunk):
         dA, dBx, Cm = _ssm_inputs(p, cfg, xconv[:, c0:c0 + chunk])
-        hs = torch.empty_like(dA)                          # [B, chunk, di, ds]
+        states = []
         for t in range(dA.shape[1]):
-            hstate = torch.addcmul(dBx[:, t], dA[:, t], hstate,
-                                   out=hs[:, t])
+            hstate = torch.addcmul(dBx[:, t], dA[:, t], hstate)
+            states.append(hstate)
+        hs = torch.stack(states, dim=1)                    # [B, chunk, di, ds]
         ys.append((hs * Cm[:, :, None, :]).sum(-1))        # [B, chunk, di]
-        del dA, dBx, hs
+        del dA, dBx, hs, states
     return (torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]), hstate.clone()
 
 

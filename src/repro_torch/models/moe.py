@@ -126,7 +126,8 @@ def moe_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def aux_load_balance_loss(logits: torch.Tensor, eidx: torch.Tensor,
                           E: int) -> torch.Tensor:
-    """Switch-style auxiliary loss (optional; the LM trainer wires it)."""
+    """Switch-style auxiliary loss. As in the reference, the LM loss
+    (``transformer.loss_fn``) does not add it."""
     probs = torch.softmax(logits.float(), dim=-1)
     me = probs.mean(0)
     ce = torch.nn.functional.one_hot(eidx[:, 0].long(), E).float().mean(0)

@@ -16,20 +16,31 @@ Entry points:
   init_decode_state     static-size per-layer caches (KV, recurrent state)
   prefill(...)          populate caches from a prompt
   decode_step(...)      one-token serve step (caches updated in place)
+  loss_fn(...)          the masked token cross-entropy (training)
 
 ``backend`` ("auto" | "torch" | "cuda") picks the flash attention kernel or
 its plain version for the full-sequence attention calls
-(``kernels.ops.resolve_backend``). The loss waits for LM training (ROADMAP
-Queue 1 item 7.3) and raises ``NotImplementedError``.
+(``kernels.ops.resolve_backend``); under autograd the kernel path runs the
+forward and backward kernels (``layers.grouped_attention``).
+``forward(remat=True)`` is the reference's ``jax.checkpoint`` of one
+superblock repeat: ``torch.utils.checkpoint`` around each repeat, which
+saves the repeat's input and recomputes its inside in the backward.
+
+A stacked leaf may also be a tuple of per-layer tensors (``t[r]`` reads
+either): the LM training step hands the model per-layer leaves that share
+the stacks' storage, so that autograd returns one gradient per layer
+(``train.loop``).
 """
 from __future__ import annotations
 
 from typing import Dict, Iterator, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers, mamba, moe, xlstm
-from .common import ModelConfig, ParamCtx, ShapeCtx, rms_norm
+from .common import (ModelConfig, ParamCtx, ShapeCtx, SuperBlock,
+                     rms_norm)
 
 BLOCK_INIT = {"attn": layers.attn_init, "mamba": mamba.mamba_init,
               "mlstm": xlstm.mlstm_init, "slstm": xlstm.slstm_init}
@@ -102,6 +113,27 @@ def _layers(params: dict, cfg: ModelConfig
 def _ffn(ffn: str, fp: dict, cfg: ModelConfig, x: torch.Tensor
          ) -> torch.Tensor:
     return FFN_FWD[ffn](fp, cfg, x) if ffn in FFN_FWD else x
+
+
+def _repeats(params: dict, cfg: ModelConfig
+             ) -> Iterator[Tuple[SuperBlock, dict]]:
+    """Every repeat of every superblock in order: (superblock, the
+    repeat's params ``{"b<j>" / "f<j>": {leaf: view}}``)."""
+    for si, sb in enumerate(cfg.superblocks):
+        stack = params[f"sb{si}"]
+        for r in range(sb.repeat):
+            yield sb, {k: {n: t[r] for n, t in d.items()}
+                       for k, d in stack.items()}
+
+
+def _repeat_fwd(sb: SuperBlock, lp: dict, cfg: ModelConfig,
+                x: torch.Tensor, positions: torch.Tensor, backend: str
+                ) -> torch.Tensor:
+    """One repeat of a superblock: the reference's scanned body."""
+    for bi, (kind, ffn) in enumerate(sb.blocks):
+        x = _block_fwd(kind, lp[f"b{bi}"], cfg, x, positions, backend)
+        x = _ffn(ffn, lp.get(f"f{bi}", {}), cfg, x)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -178,19 +210,35 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
-            backend: str = "auto") -> torch.Tensor:
-    """Full-sequence logits ``[B, S, vocab]``."""
+            remat: bool = False, backend: str = "auto") -> torch.Tensor:
+    """Full-sequence logits ``[B, S, vocab]``. ``remat`` checkpoints each
+    superblock repeat (module doc); the result is bitwise the same."""
     x = _embed_inputs(params, cfg, batch)
     positions = _positions(x)
-    for _, _, _, kind, bp, ffn, fp in _layers(params, cfg):
-        x = _block_fwd(kind, bp, cfg, x, positions, backend)
-        x = _ffn(ffn, fp, cfg, x)
+    for sb, lp in _repeats(params, cfg):
+        if remat:
+            x = checkpoint(_repeat_fwd, sb, lp, cfg, x, positions, backend,
+                           use_reentrant=False)
+        else:
+            x = _repeat_fwd(sb, lp, cfg, x, positions, backend)
     return _logits(params, cfg, x)
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError("the LM loss waits for LM training (ROADMAP "
-                              "Queue 1 item 7.3)")
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False, backend: str = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32 over the labels ``>= 0``
+    (``batch["labels"] [B, St]``; the sum divided by ``max(count, 1)``).
+    With both embeddings and tokens only the token suffix counts. No MoE
+    auxiliary loss: the reference's loss has none."""
+    logits = forward(params, cfg, batch, remat=remat, backend=backend)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    if batch.get("embeds") is not None and batch.get("tokens") is not None:
+        logits = logits[:, -labels.shape[1]:]        # VLM: the token suffix
+    mask = (labels >= 0).float()
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ The port of ``repro/models/xlstm.py``. mLSTM's full-sequence pass is the
 reference's chunkwise-parallel form (quadratic only within a chunk,
 recurrent across chunks, a log-space stabiliser ``m``), with its chunking
 (``chunk = min(256, S)``, the whole sequence when S is not a multiple of
-it). sLSTM is sequential by nature: a loop over time. Both decode one
-token in O(1), the cache's leaves written in place.
+it). sLSTM is sequential by nature: a loop over time, its outputs stacked
+once (no in-place writes, so autograd differentiates the loop). Both
+decode one token in O(1), the cache's leaves written in place.
 """
 from __future__ import annotations
 
@@ -238,11 +239,11 @@ def slstm_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
     state = (torch.zeros((B, dm), **f32), torch.zeros((B, dm), **f32),
              torch.zeros((B, dm), dtype=x.dtype, device=x.device),
              torch.full((B, dm), NEG, **f32))
-    hs = torch.empty((B, S, dm), dtype=x.dtype, device=x.device)
+    hs = []
     for t in range(S):
         state = _slstm_cell(p, xg[:, t], state)
-        hs[:, t] = state[2]
-    out = x + hs @ p["down"].to(x.dtype)
+        hs.append(state[2])
+    out = x + torch.stack(hs, dim=1) @ p["down"].to(x.dtype)
     if return_state:
         c_f, n_f, h_f, m_f = state
         return out, {"c": c_f, "n": n_f, "h": h_f, "m": m_f}

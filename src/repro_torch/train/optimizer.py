@@ -1,7 +1,11 @@
 """AdamW with fp32 moments (torch port of ``repro.train.optimizer``).
 
 Parameters, gradients and moments are dictionaries of tensors keyed by
-parameter name (``dict(model.named_parameters())``). The update runs in
+parameter name (``dict(model.named_parameters())``), or nested dicts (an
+LM's parameter tree; :func:`init_opt_state` keeps the nesting). An LM step
+updates through :func:`apply_updates_parts`: the same AdamW over
+(parameter, gradient, moment, moment) parts that may be slices of a
+stacked leaf, so no temporary is larger than one layer. The update runs in
 fp32 and is applied **in place**: the parameter tensors and the moment
 tensors are overwritten (the reference returns new arrays; updating in
 place keeps one copy of each on the card, and a session's modules serve
@@ -12,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, Iterable, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -36,15 +40,16 @@ class OptState(NamedTuple):
     step: int
 
 
-def init_opt_state(params: Dict[str, torch.Tensor],
-                   cfg: AdamWConfig) -> OptState:
+def init_opt_state(params: dict, cfg: AdamWConfig) -> OptState:
+    """Zero moments in ``cfg.state_dtype`` shaped as ``params`` (a dict of
+    tensors, possibly nested), step 0."""
     dt = getattr(torch, cfg.state_dtype)
-    return OptState(
-        mu={k: torch.zeros(p.shape, dtype=dt, device=p.device)
-            for k, p in params.items()},
-        nu={k: torch.zeros(p.shape, dtype=dt, device=p.device)
-            for k, p in params.items()},
-        step=0)
+
+    def zeros(tree):
+        return {k: zeros(p) if isinstance(p, dict)
+                else torch.zeros(p.shape, dtype=dt, device=p.device)
+                for k, p in tree.items()}
+    return OptState(mu=zeros(params), nu=zeros(params), step=0)
 
 
 def lr_at(cfg: AdamWConfig, step: int) -> float:
@@ -57,21 +62,25 @@ def lr_at(cfg: AdamWConfig, step: int) -> float:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """√(Σ over the tensors of Σ x²) in fp32, as a 0-d tensor."""
+def _norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """√(Σ over the tensors, in order, of Σ x²) in fp32, as a 0-d tensor."""
     total = None
-    for x in tree.values():
+    for x in tensors:
         s = torch.sum(torch.square(x.float()))
         total = s if total is None else total + s
     return torch.sqrt(total)
 
 
-def _step_scalars(grads: Dict[str, torch.Tensor], state: OptState,
-                  cfg: AdamWConfig):
-    """The step's shared factors: the gradient norm (0-d), its clip scale
-    (0-d), the learning rate and the two bias corrections (host floats)."""
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """√(Σ over the tensors of Σ x²) in fp32, as a 0-d tensor."""
+    return _norm(tree.values())
+
+
+def _step_scalars(gnorm: torch.Tensor, state: OptState, cfg: AdamWConfig):
+    """The step's shared factors from the gradient norm (0-d): the norm,
+    its clip scale (0-d), the learning rate and the two bias corrections
+    (host floats)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     return gnorm, scale, lr_at(cfg, state.step), 1 - cfg.b1 ** step, \
@@ -107,7 +116,8 @@ def apply_updates(params: Dict[str, torch.Tensor],
     on the state's moments. Returns ``(params, new_state, metrics)`` with
     ``metrics = {"grad_norm": 0-d tensor, "lr": float}``, as the
     reference's ``(new_params, new_state, metrics)``."""
-    gnorm, scale, lr, bc1, bc2 = _step_scalars(grads, state, cfg)
+    gnorm, scale, lr, bc1, bc2 = _step_scalars(global_norm(grads), state,
+                                               cfg)
     for k, p in params.items():
         _commit(p, state.mu[k], state.nu[k], _leaf_update(
             p, grads[k], state.mu[k], state.nu[k], scale, lr, bc1, bc2, cfg))
@@ -140,7 +150,24 @@ def stage_updates(params: Dict[str, torch.Tensor],
     with nothing written: returns ``(StagedUpdate, metrics)``. Holds one
     extra copy of the parameters and of both moments until committed or
     dropped."""
-    gnorm, scale, lr, bc1, bc2 = _step_scalars(grads, state, cfg)
+    gnorm, scale, lr, bc1, bc2 = _step_scalars(global_norm(grads), state,
+                                               cfg)
     new = {k: _leaf_update(p, grads[k], state.mu[k], state.nu[k], scale, lr,
                            bc1, bc2, cfg) for k, p in params.items()}
     return StagedUpdate(params, state, new), {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def apply_updates_parts(parts: Sequence[Tuple[torch.Tensor, ...]],
+                        state: OptState, cfg: AdamWConfig):
+    """The AdamW step of :func:`apply_updates` over ``parts``, each
+    ``(param, grad, mu, nu)`` — whole leaves or slices of stacked ones
+    (views, written in place) — with the gradient norm summed over the
+    parts in their order. Returns ``(new_state, metrics)``; the moments in
+    ``state`` are the parts' bases, already updated."""
+    gnorm, scale, lr, bc1, bc2 = _step_scalars(
+        _norm(g for _, g, _, _ in parts), state, cfg)
+    for p, g, m, v in parts:
+        _commit(p, m, v, _leaf_update(p, g, m, v, scale, lr, bc1, bc2, cfg))
+    return OptState(state.mu, state.nu, state.step + 1), {
+        "grad_norm": gnorm, "lr": lr}

@@ -284,7 +284,8 @@ def test_session_batch_equals_single_on_card(dev):
                                "ws_scatter_gemm": 0,
                                "zdelta_window_search": 0,
                                "masked_group_gemm": 0, "dw_gather_gemm": 0,
-                               "flash_attention": 0, "zdelta_repair": 42}
+                               "flash_attention": 0,
+                               "flash_attention_bwd": 0, "zdelta_repair": 42}
     for i, cloud in enumerate(clouds):
         o1 = s(SparseTensor.from_point_clouds([cloud], s.layout,
                                               device=dev)).unbatch()[0]
@@ -572,7 +573,8 @@ def test_centerpoint_session_on_card(dev):
                       "spconv_gather_gemm": 17, "segment_sum": 20,
                       "ws_scatter_gemm": 20, "zdelta_window_search": 0,
                       "masked_group_gemm": 0, "dw_gather_gemm": 0,
-                      "flash_attention": 0, "zdelta_repair": 20}
+                      "flash_attention": 0, "flash_attention_bwd": 0,
+                      "zdelta_repair": 20}
     for i, cloud in enumerate(clouds):
         o1 = s(SparseTensor.from_point_clouds([cloud], s.layout,
                                               device=dev)).unbatch()[0]

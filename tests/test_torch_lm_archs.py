@@ -14,8 +14,9 @@ reference runs a parallel associative scan: the two differ only in
 rounding, well inside that tolerance at these sizes. The chunked scans'
 invariance to the chunk size mirrors ``tests/test_models.py`` on the port.
 Also: every configured architecture builds (no ``NotImplementedError``),
-its parameter tree has the JAX tree's shapes, the loss still raises (it
-waits for LM training), and the sliced draw of large leaves.
+its parameter tree has the JAX tree's shapes, the loss (which raised
+until LM training was ported) equals the reference's, and the sliced
+draw of large leaves.
 """
 import dataclasses
 
@@ -116,11 +117,17 @@ def test_every_arch_is_supported_with_the_jax_trees_shapes(arch):
 
 
 def test_loss_still_raises():
-    _, tc, _, tp = _params(XLSTM)
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        ttf.loss_fn(tp, tc, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                             "labels": torch.zeros((1, 4),
-                                                   dtype=torch.int32)})
+    """The loss raised until LM training was ported (ROADMAP item 7.3); it
+    now runs on the xLSTM's parameters and equals the reference's (its
+    gradients: ``tests/test_torch_lm_train_archs.py``)."""
+    jc, tc, jp, tp = _params(XLSTM)
+    batch = {"tokens": np.zeros((1, 4), np.int32),
+             "labels": np.zeros((1, 4), np.int32)}
+    got = float(ttf.loss_fn(tp, tc, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()}))
+    want = float(jtf.loss_fn(jp, jc, {k: jnp.asarray(v)
+                                      for k, v in batch.items()}))
+    assert np.isfinite(got) and abs(got - want) <= 5e-5 * abs(want)
 
 
 def test_check_supported_refuses_unknown_kinds():
