@@ -19,6 +19,10 @@ graph per key:
 1. device: torch version, card name and ``nvidia-smi`` power limit; TF32
    off (the port sets it on import);
 2. build: compile ``src/repro_torch/csrc/*.cu`` with nvcc, timed;
+2b. the ``wgmma`` helpers the bf16 attention backward is built on, alone
+   (``wgmma_check``): a product from shared memory with both operands
+   K-major and one with A from registers and B MN-major, on tiles loaded
+   by the backward's TMA maps, against ``torch.matmul`` at D 64 and 128;
 
 MinkUNet-42 (OS dataflow):
 
@@ -69,6 +73,9 @@ CenterPoint-Large (hybrid dataflow, t = 3, K = 5), same scenes:
    ``2e-2`` relative in bf16 at ``stem``, ``s2_down`` and ``s3_b0a``;
    then the per-group window search kernel on
    every layer of the plan (phase 4d's launches): maps and counters equal;
+   every repair launch of the forward (and of 4d's plan) against its plain
+   version, each phase's repair line with the device time of an
+   unflagged launch (as in 3, 4e and 11c);
 4b. main path at full width: scene 0 alone, then the batch of 2, each
    twice — finite logits, batched scene 0 bitwise equal to the single
    run, two compiled keys, and per call 20 superwindow, 20 segment-sum,
@@ -303,7 +310,8 @@ said):
 
 13a. the attention backward kernels (``flash_attention_bwd``: dQ, then
    dK/dV) at the main path's shape (B 4, S 2,048, 32 heads, KV 4, head
-   dim 128), at D 64 and 256, in fp32 and at a ragged S = 1,000, causal:
+   dim 128), at D 64 and 256, in fp32, at a ragged S = 1,000 and at the
+   edge shape Sq 130 < Skv 200 (``BWD_SHAPES``), causal:
    dq, dk, dv of each launch against the plain backward evaluated in
    float64 (bf16 within 2e-2 of max|ref|, the forward's gate; fp32 within
    ``BWD_FP32_GATE``), two launches bitwise equal, the forward's output
@@ -603,6 +611,7 @@ def check_repair(search_calls, repair_calls, kind: str) -> dict:
                            f"{len(search_calls)} {kind} searches")
     t_k = t_q = t_p = b_tot = nbytes = 0.0
     flagged = 0
+    unflagged = []                   # device ms of each unflagged launch
     for i, ((sa, skw), (a, kw)) in enumerate(zip(search_calls,
                                                  repair_calls)):
         arr, out2d, anchors, zstep, _, ovf = a
@@ -619,11 +628,14 @@ def check_repair(search_calls, repair_calls, kind: str) -> dict:
                                "plain version's")
         t_k += cuda_ms(lambda: zw.zdelta_repair_cuda(
             arr, out2d, anchors, zstep, mk, ovf, **kw), 3)
-        t_q += queued_ms(lambda: zw.zdelta_repair_cuda(
+        q = queued_ms(lambda: zw.zdelta_repair_cuda(
             arr, out2d, anchors, zstep, mk, ovf, **kw), 5)
+        t_q += q
         t_p += cuda_ms(lambda: zw.zdelta_repair_torch(
             arr, out2d, anchors, zstep, m0, ovf, **kw), 2)
         cells = int((ovf > 0).sum())
+        if cells == 0:
+            unflagged.append(q)
         flagged += cells
         nb = 4 * ovf.numel() + cells * 128 * (arr.element_size()
                                               + 4 * kw["K"])
@@ -631,7 +643,19 @@ def check_repair(search_calls, repair_calls, kind: str) -> dict:
         b_tot += bound_ms(nb, 0)[0]
     return dict(max_abs_err=0.0, ms=t_q, wrapper_ms=t_k, plain_ms=t_p,
                 bound_ms=b_tot, bound_by="bytes", library_ms=None,
-                gbytes=nbytes / 1e9, flagged=flagged)
+                gbytes=nbytes / 1e9, flagged=flagged,
+                unflagged=(sum(unflagged) / len(unflagged), len(unflagged))
+                if unflagged else None)
+
+
+def unflagged_note(r: dict) -> str:
+    """Pops check_repair's per-launch time of the unflagged launches and
+    says it."""
+    u = r.pop("unflagged")
+    if u is None:
+        return "; every launch had a flagged cell"
+    return (f"; an unflagged launch {u[0] * 1e3:.2f} us of device time "
+            f"(mean of {u[1]})")
 
 
 def os_f64(F, m, W):
@@ -1830,6 +1854,7 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
         launches=wcount, **per_forward(r))
     r = check_repair(v_calls, rec.calls["zdelta_repair"], "window")
     flagged, gbytes = r.pop("flagged"), r.pop("gbytes")
+    note = unflagged_note(r)
     paths["zdelta_repair"]["minkunet42 int64 window plan (4e)"] = dict(
         launches=len(rec.calls["zdelta_repair"]), flagged=flagged,
         **per_forward(r))
@@ -1838,7 +1863,7 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
         f"version, {flagged} flagged cells re-searched; per plan device "
         f"{r['ms']:.4f} ms, through the wrapper {r['wrapper_ms']:.4f} ms, "
         f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
-        f"({gbytes * 1e3:.2f} MB) | {card}")
+        f"({gbytes * 1e3:.2f} MB){note} | {card}")
     del rec, v_calls, session, win, st1, st2
     torch.cuda.empty_cache()
 
@@ -2899,6 +2924,7 @@ def graph_case(label: str, net, layout, clouds, card: str, paths: dict,
         r = check_repair(rec.calls["zdelta_superwindow_search"],
                          rec.calls["zdelta_repair"], "superwindow")
         flagged, gbytes = r.pop("flagged"), r.pop("gbytes")
+        note = unflagged_note(r)
         if not flagged:
             raise RuntimeError(f"{label}: the tuned session flagged no cell")
         paths["zdelta_repair"][f"{net.name} tuned ({label})"] = dict(
@@ -2909,7 +2935,7 @@ def graph_case(label: str, net, layout, clouds, card: str, paths: dict,
             f"the plain version, {flagged} flagged cells re-searched; per "
             f"forward device {r['ms']:.4f} ms, through the wrapper "
             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.5f} ms ({gbytes * 1e3:.2f} MB) | {card}")
+            f"{r['bound_ms']:.5f} ms ({gbytes * 1e3:.2f} MB){note} | {card}")
     del e, g
     torch.cuda.empty_cache()
 
@@ -3411,12 +3437,15 @@ TRAIN_ARCHS = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b",
                "xlstm-350m", "gemma-7b", "mistral-nemo-12b", "internlm2-20b",
                "pixtral-12b")
 BWD_FP32_GATE = 1e-5              # the backward's fp32 float64 gate
-# 13a: (label, B, S, H, KV, D, dtype): the path's own shape first
-BWD_SHAPES = (("path", 4, 2048, 32, 4, 128, "bfloat16"),
-              ("D64", 1, 2048, 16, 4, 64, "bfloat16"),
-              ("D256", 1, 1024, 8, 2, 256, "bfloat16"),
-              ("fp32", 1, 1024, 8, 2, 128, "float32"),
-              ("ragged", 2, 1000, 8, 2, 128, "bfloat16"))
+# 13a: (label, B, Sq, Skv, H, KV, D, dtype): the path's own shape first;
+# "edge": Sq < Skv, neither a multiple of the bf16 kernels' 64-row tiles
+# (a key tile across the diagonal at offset 70)
+BWD_SHAPES = (("path", 4, 2048, 2048, 32, 4, 128, "bfloat16"),
+              ("D64", 1, 2048, 2048, 16, 4, 64, "bfloat16"),
+              ("D256", 1, 1024, 1024, 8, 2, 256, "bfloat16"),
+              ("fp32", 1, 1024, 1024, 8, 2, 128, "float32"),
+              ("ragged", 2, 1000, 1000, 8, 2, 128, "bfloat16"),
+              ("edge", 2, 130, 200, 8, 2, 128, "bfloat16"))
 
 
 def bwd_bound(q, k, causal: bool) -> tuple:
@@ -3425,16 +3454,53 @@ def bwd_bound(q, k, causal: bool) -> tuple:
     dq, dk, dv written once, over the HBM rate; 2.5x the forward's
     operations (five products of its size against its two: S recomputed,
     dP, dV, dQ, dK) over the tensor-core bf16 or the CUDA-core fp32
-    peak."""
+    peak, counted over the (query, key) pairs the causal mask keeps."""
     import torch
     B, Sq, H, D = q.shape
+    Skv = k.shape[1]
     es = q.element_size()
     nbytes = es * (3 * q.numel() + 2 * k.numel()) + 4 * B * H * Sq \
         + es * (q.numel() + 2 * k.numel())
-    ops = 2.5 * 4.0 * B * H * Sq * k.shape[1] * D * (0.5 if causal else 1.0)
+    pairs = (sum(min(Skv, r + Skv - Sq + 1) for r in range(Sq)) if causal
+             else Sq * Skv)
+    ops = 2.5 * 4.0 * B * H * pairs * D
     peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_FP32_PER_S
     tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (tb, ops, "bytes") if tb >= to else (to, ops, "operations")
+
+
+def wgmma_check(card: str) -> None:
+    """Phase 2b: the wgmma helpers that the bf16 backward is built on
+    (``csrc/tensor_core.cuh``, ``csrc/tma.cuh``), on their own: a, b, v
+    bf16 [64, D] loaded by the backward's TMA maps, x = a . b^T from shared
+    memory (K-major, as S and dP) against ``torch.matmul`` in fp32, and
+    y = bf16(x) . v with the A operand from registers and v MN-major (as
+    dQ, dK, dV) against ``torch.matmul`` of the kernel's own x rounded to
+    bf16; both within 1e-5 of max|ref| (fp32 sums of exact bf16 products
+    in another order)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (WGMMA_HEAD_DIMS,
+                                                     wgmma_check as launch)
+    g = torch.Generator(device=DEV).manual_seed(25)
+    for D in WGMMA_HEAD_DIMS:
+        a, b, v = (torch.randn((64, D), generator=g, device=DEV)
+                   .to(torch.bfloat16) for _ in range(3))
+        x, y = launch(a, b, v)
+        torch.cuda.synchronize()
+        xr = torch.matmul(a.float(), b.float().T)
+        yr = torch.matmul(x.to(torch.bfloat16).float(), v.float())
+        errs = []
+        for name, got, ref in (("x", x, xr), ("y", y, yr)):
+            d = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            if not (bool(torch.isfinite(got).all()) and d <= 1e-5 * scale):
+                raise RuntimeError(f"2b wgmma D={D} {name}: max|diff| {d:.3e}"
+                                   f" > 1e-5 x {scale:.3e}")
+            errs.append(d / scale)
+        log(f"[2b wgmma D={D}] x = a.b^T (both K-major in shared memory) "
+            f"and y = bf16(x).v (A from registers, v MN-major) equal "
+            f"torch.matmul within {errs[0]:.1e} / {errs[1]:.1e} of max|ref| "
+            f"| {card}")
 
 
 def bwd_f64(q, k, v, out, do, causal: bool):
@@ -3555,12 +3621,12 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
     # -- 13a. the backward kernels against the plain version ------------------
     free_card("13a", 30)
     row = dict(launches=0, max_abs_err=0.0)
-    for label, B, S, H, KV, D, dt in BWD_SHAPES:
+    for label, B, S, Skv, H, KV, D, dt in BWD_SHAPES:
         dtype = getattr(torch, dt)
         g = torch.Generator(device=DEV).manual_seed(13)
         q = (torch.randn((B, S, H, D), generator=g, device=DEV)
              / D ** 0.5).to(dtype)
-        k, v = (torch.randn((B, S, KV, D), generator=g, device=DEV)
+        k, v = (torch.randn((B, Skv, KV, D), generator=g, device=DEV)
                 .to(dtype) for _ in range(2))
         do = torch.randn((B, S, H, D), generator=g, device=DEV).to(dtype)
         out, lse = flash_attention(q, k, v, causal=True, scale=1.0,
@@ -3573,7 +3639,8 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
                                  dict(causal=True, scale=1.0),
                                  f"13a {label}")
         r = time_bwd(q, k, v, out, do, lse, True)
-        log(f"[13a bwd {label}] B={B} S={S} H={H} KV={KV} D={D} {dt} causal:"
+        log(f"[13a bwd {label}] B={B} Sq={S} Skv={Skv} H={H} KV={KV} D={D} "
+            f"{dt} causal:"
             f" dq/dk/dv within "
             f"{'2e-2' if dtype == torch.bfloat16 else BWD_FP32_GATE} of "
             f"max|ref| against the float64 plain backward (worst "
@@ -3675,11 +3742,13 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
         ref = flash_attention_torch(q, k, v, causal=True, scale=1.0)
         f_err = max(f_err, attention_close(got, ref, f"13b forward {i}"))
         B, Sq, H, D = q.shape
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()
+        # the reference in float64: at random init yi-9b's scores are in
+        # the thousands, where an fp32 logsumexp is itself a few ulp off
+        s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()
                          .repeat_interleave(H // k.shape[2], 2))
         s = s.masked_fill(torch.ones((Sq, Sq), dtype=torch.bool, device=DEV)
                           .tril().logical_not(), float("-inf"))
-        d = float((lse - torch.logsumexp(s, -1)).abs().max())
+        d = float((lse.double() - torch.logsumexp(s, -1)).abs().max())
         if not d <= 1e-3:
             raise RuntimeError(f"13b forward {i}: lse max|diff| {d}")
         del got, ref, s
@@ -3715,7 +3784,8 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
            ("ms", "plain_ms", "library_ms", "bound_ms")})
     log(f"[13b flash] per step: backward {row['ms']:.2f} ms over "
         f"{TRAIN_LM_LAYERS} launches (bound {row['bound_ms']:.2f}, SDPA "
-        f"backward {row['library_ms']:.2f}); forward with the lse "
+        f"backward {row['library_ms']:.2f}), {row['ms'] / steady:.1%} of "
+        f"the step; forward with the lse "
         f"{fwd_ms * 2 * TRAIN_LM_LAYERS:.2f} ms over {2 * TRAIN_LM_LAYERS} "
         f"launches; of a {steady:.1f} ms step | {card}")
     del params, opt, step, batches
@@ -4012,6 +4082,7 @@ def main() -> int:
              .splitlines() if "registers" in ln or "Compiling entry" in ln]
     for ln in ptxas:
         log(f"    ptxas {ln}")
+    wgmma_check(card)
 
     tick("1-2 device and build")
     # -- the main path's inputs -------------------------------------------
@@ -4057,11 +4128,12 @@ def main() -> int:
     r = check_repair(z, rec.calls["zdelta_repair"], "superwindow")
     r.pop("gbytes")
     results["zdelta_repair"] = r
+    note = unflagged_note(r)
     log(f"[3 repair] {len(z)} launches equal to the plain version, "
         f"{r.pop('flagged')} flagged cells; per forward device "
         f"{r['ms']:.4f} ms, through the wrapper {r['wrapper_ms']:.4f} ms, "
-        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms | "
-        f"{card}")
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms"
+        f"{note} | {card}")
 
     # OS implicit GEMM: fp32 within 1e-5 * max(1, max|ref|)
     o = rec.calls["spconv_gather_gemm"]
@@ -4248,6 +4320,18 @@ def main() -> int:
             f"(max|diff| {r['max_abs_err']:.3e}); per forward kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, bound "
             f"{r['bound_ms']:.4f} ms")
+    r = check_repair(rec.calls["zdelta_superwindow_search"],
+                     rec.calls["zdelta_repair"], "superwindow")
+    flagged, gbytes = r.pop("flagged"), r.pop("gbytes")
+    note = unflagged_note(r)
+    paths["zdelta_repair"]["centerpoint_large"] = dict(
+        launches=len(rec.calls["zdelta_repair"]), flagged=flagged,
+        **per_forward(r))
+    log(f"[3 cp repair] {len(rec.calls['zdelta_repair'])} launches equal to "
+        f"the plain version, {flagged} flagged cells; per forward device "
+        f"{r['ms']:.4f} ms, through the wrapper {r['wrapper_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms"
+        f"{note} | {card}")
     del rec, w_calls, F, m, W
     torch.cuda.empty_cache()
 
@@ -4332,6 +4416,17 @@ def main() -> int:
     paths["zdelta_window_search"] = {"centerpoint_large plan (4d)": dict(
         launches=wcount, **per_forward(r))}
     r["launches"] = wcount
+    rr = check_repair(v_calls, rec.calls["zdelta_repair"], "window")
+    flagged, gbytes = rr.pop("flagged"), rr.pop("gbytes")
+    note = unflagged_note(rr)
+    paths["zdelta_repair"]["centerpoint_large window plan (4d)"] = dict(
+        launches=len(rec.calls["zdelta_repair"]), flagged=flagged,
+        **per_forward(rr))
+    log(f"[4d repair] {len(rec.calls['zdelta_repair'])} repair launches of "
+        f"the window plan equal to the plain version, {flagged} flagged "
+        f"cells re-searched; per plan device {rr['ms']:.4f} ms, through the "
+        f"wrapper {rr['wrapper_ms']:.4f} ms, plain {rr['plain_ms']:.3f} ms, "
+        f"bound {rr['bound_ms']:.5f} ms{note} | {card}")
     log(f"[3 cp window] {len(v_calls)} launches: maps+counters equal; per "
         f"plan device {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.4f} ms; {search_rates(r)} (superwindow at the "

@@ -16,32 +16,63 @@
 // query heads.
 //
 // FlashAttention-2's split into two kernels, neither with atomics, so two
-// launches on the same inputs are bitwise equal:
-//
-//  * dQ (one block per 64 query rows of one (batch, head)): a prologue
-//    computes Delta of its rows (fp32, d in order) and writes it out for
-//    the second kernel; then the key tiles up to the diagonal in order:
-//    recompute S and P, dP, dS, and dQ += dS . K in fp32 registers.
-//  * dK/dV (one block per 64 keys of one (batch, KV head)): K and V stay in
-//    shared memory; the block walks the KV head's G query heads, and for
-//    each the query tiles that see its keys, in that fixed order:
-//    recompute S^T = K . Q^T and P^T, dV += P^T . dO, dP^T = V . dO^T,
-//    dS^T, dK += dS^T . Q. The GQA sum happens inside the block.
+// launches on the same inputs are bitwise equal: dQ (and Delta) first,
+// then dK/dV; each sums in a fixed order.
 //
 // Bound on this card: operations, 2.5x the forward's (five products of the
 // forward's size against its two: S recomputed, dP, dV, dQ and dK). The
-// split runs seven (S and dP in each kernel), 1.4x the bound's. bf16 inputs run mma.sync m16n8k16 (fp32 accumulators) with
-// bf16 tiles brought in by cp.async into row-swizzled [64][D] tiles, as
-// the forward; P is rounded to bf16 for dV (V's type, as the forward
-// rounds it for P . V) and dS to bf16 for dQ and dK. At D = 256 each
-// 16-row group is split over two warps by output columns (each recomputes
-// its S and dP), so no thread holds more than 128 accumulators. fp32
-// inputs run a CUDA-core variant of the same two kernels (the forward's
-// 16 x 16 thread grid over 64 x 64 score tiles, fp32 tiles in shared
-// memory, 32-row query tiles at D = 256 to fit shared memory).
+// split runs seven (S and dP in each kernel), 1.4x the bound's. P is
+// rounded to bf16 for dV (V's type, as the forward rounds it for P . V)
+// and dS to bf16 for dQ and dK; every sum is fp32, `scale` applied at
+// the end.
 //
-// Simple first: one stage of tiles, no double buffering, no wgmma, TMA or
-// warp specialisation (later work).
+// bf16 at D = 64 and 128 (the `wg` kernels below) runs on wgmma, fed by
+// TMA. The first version ran mma.sync over ldmatrix fragments with one
+// cp.async stage (2.283 ms at yi-9b's shape, 2.2x SDPA's backward); what
+// held it back and what this design does about it:
+//
+//  * Rate: every product is a wgmma m64nNk16 of a warpgroup (the card's
+//    full tensor rate), bf16 into fp32. Two consumer warpgroups per block
+//    own 64 rows each of its resident tile (128 query rows for dQ, 128
+//    keys for dK/dV). S and dP (S^T and dP^T in dK/dV) read both operands
+//    from shared memory, K-major; the products with P or dS take them
+//    straight from registers (the fp32 accumulator packed to bf16 is the
+//    next wgmma's A fragment, as in FlashAttention-3) against an MN-major
+//    B: dQ += dS . K, dV += P^T . dO, dK += dS^T . Q. Neither P nor dS
+//    goes through shared memory.
+//  * Overlap: the streamed tiles (K and V for dQ; Q and dO, with their
+//    lse and Delta, for dK/dV) come through a ring of stages with full and
+//    empty mbarriers, loaded ahead by TMA (out-of-range rows land as
+//    zeros; the masked edge test stays) while the tensor cores run.
+//    Resident Q and dO (dQ) or K and V (dK/dV) are loaded once by TMA.
+//    Every operand tile is 64-row boxes of 64 columns in the 128-byte
+//    swizzle, read by wgmma descriptors; a TMA map per tensor over
+//    (D, head, seq, batch) reads the callers' strides directly.
+//  * dQ: a producer warpgroup (one thread issues the loads) gives up
+//    registers by setmaxnreg (24 a thread) to the two consumers (240).
+//  * dK/dV needs ~224 registers a consumer thread at D = 128 (dK and dV
+//    accumulators 128, S^T and dP^T 64): ptxas held setmaxnreg regions
+//    well below their count and spilled (and any extra warp rounds the
+//    block's registers up to a warpgroup's), so this kernel has the two
+//    consumer warpgroups only, up to 255 registers each, and its first
+//    warp issues the loads: the lanes put each tile's lse and Delta into
+//    its stage by 4-byte cp.async counted on the stage's barrier, lane 0
+//    the TMA, and the warp refills the ring ahead without waiting where a
+//    stage is still read. Its warp index comes through a shuffle,
+//    warp-uniform to the compiler, which keeps the descriptors in uniform
+//    registers.
+//  * Order: dQ blocks take the last query rows first and dK/dV blocks the
+//    first keys first: the longest walks under the causal mask start
+//    first. A warpgroup skips a tile none of whose pairs is visible.
+//
+// bf16 at D = 256 keeps the mma.sync kernels (a dispatch by head dim: two
+// warpgroups cannot hold 64 x 256 fp32 dK and dV): cp.async tiles in
+// row-swizzled [64][D] shared memory; each 16-row group is split over two
+// warps by output columns (each recomputes its S and dP), so no thread
+// holds more than 128 accumulators. fp32 inputs run a CUDA-core variant
+// of the two kernels (the forward's 16 x 16 thread grid over 64 x 64
+// score tiles, fp32 tiles in shared memory, 32-row query tiles at D = 256
+// to fit shared memory); they are not on the speed path.
 #include <cstdint>
 #include <type_traits>
 
@@ -49,6 +80,7 @@
 #include <cuda_runtime.h>
 
 #include "tensor_core.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -367,6 +399,7 @@ bwd_dkdv_mma(BwdArgs a) {
   }
   spira_tc::cp_async_wait<0>();      // K and V landed even with no tile
 
+  using bf = __nv_bfloat16;
   bf* dkb = static_cast<bf*>(a.dk);
   bf* dvb = static_cast<bf*>(a.dv);
 #pragma unroll
@@ -685,6 +718,659 @@ __global__ void __launch_bounds__(kF32Threads) bwd_dkdv_f32(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at D = 64 and 128 on Hopper: wgmma, TMA, warp specialisation
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace spira_tma;
+
+constexpr int kThreads = 384;      // dQ: two consumer warpgroups, a producer
+constexpr int kRows = 64;          // rows of a consumer warpgroup, of a box
+constexpr int kBox = kRows * 128;  // one 64 x 64 bf16 box, 128-byte swizzle
+constexpr int kStages = 2;         // dQ's ring of streamed tiles
+constexpr int kDkvThreads = 256;   // dK/dV: two consumer warpgroups only
+constexpr int kDkvStages = 3;      // dK/dV's ring
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr long long kWaitCycles = 1ll << 34;   // ~9 s at 1.98 GHz
+
+// 2^x by the SFU (ex2.approx, relative error ~2^-22): no branch, unlike
+// exp2f's range handling
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// every wait of these kernels: a stalled ring traps instead of hanging
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  mbar_wait_or_trap(bar, parity, kWaitCycles);
+}
+
+// TMA maps over (D, head, seq, batch) of q, k, v and dout
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Shared memory of the dQ kernel: the block's Q and dO ([warpgroup][D/64]
+// boxes each), the ring's stages (K's D/64 boxes, then V's), the block's
+// Delta, then the mbarriers (full and empty per stage, the resident load).
+template <int D> struct DqLayout {
+  static constexpr int kNb = D / 64;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + 2 * kNb * kBox;
+  static constexpr int kStage0 = kDo + 2 * kNb * kBox;
+  static constexpr int kStageBytes = 2 * kNb * kBox;
+  static constexpr int kDelta = kStage0 + kStages * kStageBytes;
+  static constexpr int kBars = kDelta + 2 * kRows * 4;
+  static constexpr int kAlloc = kBars + 8 * (2 * kStages + 1) + 1024;
+};
+
+// Shared memory of the dK/dV kernel: the block's K and V, the ring's
+// stages (Q's boxes, dO's, then the tile's 64 log2-scaled lse and 64
+// Delta), then the mbarriers.
+template <int D> struct DkvLayout {
+  static constexpr int kNb = D / 64;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + 2 * kNb * kBox;
+  static constexpr int kStage0 = kV + 2 * kNb * kBox;
+  static constexpr int kStats = 2 * kNb * kBox;   // within a stage
+  static constexpr int kStageBytes =
+      (kStats + 2 * kRows * 4 + 1023) / 1024 * 1024;
+  static constexpr int kBars = kStage0 + kDkvStages * kStageBytes;
+  static constexpr int kAlloc = kBars + 8 * (2 * kDkvStages + 1) + 1024;
+};
+
+// k16 step kk of a K-major operand: a [D/64][rows][64] tile read along D
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, int kk) {
+  return spira_tc::wgmma_desc(tile + (kk >> 2) * kBox + (kk & 3) * 32, 16,
+                              1024);
+}
+// k16 step kk of an MN-major operand: rows 16kk.. of a [D/64][64][64]
+// tile, all D columns (one box to the next is 64 columns)
+__device__ __forceinline__ uint64_t mndesc(uint32_t tile, int kk) {
+  return spira_tc::wgmma_desc(tile + kk * 2048, kBox, 1024);
+}
+
+// d += A . B, A a register fragment, B an MN-major [k][D] tile
+template <int D>
+__device__ __forceinline__ void rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                   uint64_t db) {
+  if constexpr (D == 64)
+    spira_tc::wgmma_rs_n64(d, a, db, 1);
+  else
+    spira_tc::wgmma_rs_n128(d, a, db, 1);
+}
+
+// d = A . B^T over D (S or dP of a 64 x 64 tile), both K-major tiles
+template <int D>
+__device__ __forceinline__ void ss(float (&d)[32], uint32_t at, uint32_t bt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    spira_tc::wgmma_ss_n64(d, kdesc(at, kk), kdesc(bt, kk), kk > 0);
+}
+
+// a barrier of one consumer warpgroup (named barrier 1 or 2)
+__device__ __forceinline__ void group_sync(int grp) {
+  if (grp == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t align_1k(const char* p) {
+  const uint32_t a = spira_tc::smem_u32(p);
+  return (a + 1023u) & ~1023u;
+}
+
+// dQ (and Delta): one block per 128 query rows of one (batch, head), the
+// last rows first (they walk the most key tiles under the causal mask).
+// Warpgroup 2 produces: its first thread loads the block's Q and dO once,
+// then K and V tiles of 64 keys into the ring. Warpgroups 0 and 1 each own
+// 64 rows: Delta of their rows, then per key tile S = Q . K^T and
+// dP = dO . V^T (wgmma, both operands in shared memory), P and dS in
+// registers, dQ += dS . K (dS from registers, K MN-major).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dq_wgmma(const __grid_constant__ Maps maps, const BwdArgs a) {
+  using L = DqLayout<D>;
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(16) char smraw[];
+  const uint32_t base = align_1k(smraw);
+  char* sm = smraw + (base - spira_tc::smem_u32(smraw));
+  const uint32_t full = base + L::kBars;
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t res = empty + 8 * kStages;
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x % a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 2 * kRows;
+  const int offset = a.Skv - a.Sq;
+  int n_tiles = (a.Skv + kRows - 1) / kRows;
+  if (a.causal)
+    n_tiles = min(n_tiles,
+                  (min(q0 + 2 * kRows - 1, a.Sq - 1) + offset) / kRows + 1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    mbar_init(res, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup's index, warp-uniform for the compiler (setmaxnreg)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == 2) {
+    // ---- producer warpgroup: one thread issues, 24 registers each ----
+    spira_tc::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      const int kvh = h / a.G;
+      mbar_expect_tx(res, 4 * L::kNb * kBox);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < L::kNb; ++c) {
+          const int at = (w * L::kNb + c) * kBox;
+          tma_load_4d(base + L::kQ + at, &maps.q, 64 * c, h,
+                      q0 + kRows * w, b, res);
+          tma_load_4d(base + L::kDo + at, &maps.dout, 64 * c, h,
+                      q0 + kRows * w, b, res);
+        }
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % kStages;
+        const int u = kt / kStages;
+        if (u > 0) bar_wait(empty + 8 * st, (u - 1) & 1);
+        const uint32_t sb = base + L::kStage0 + st * L::kStageBytes;
+        mbar_expect_tx(full + 8 * st, L::kStageBytes);
+        for (int c = 0; c < L::kNb; ++c) {
+          tma_load_4d(sb + c * kBox, &maps.k, 64 * c, kvh, kt * kRows, b,
+                      full + 8 * st);
+          tma_load_4d(sb + (L::kNb + c) * kBox, &maps.v, 64 * c, kvh,
+                      kt * kRows, b, full + 8 * st);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    spira_tc::regs_alloc<240>();
+    const int grp = role;
+    const int tw = threadIdx.x % 128;
+    const int warp = tw / 32;
+    const int lane = tw % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int r0 = q0 + kRows * grp;
+    const int64_t stat = (static_cast<int64_t>(b) * a.H + h) * a.Sq;
+    float* delta_s = reinterpret_cast<float*>(sm + L::kDelta) + kRows * grp;
+    {  // Delta = rowsum(dO o O) of the group's rows, two threads a row
+      const int rr = tw / 2;
+      const int half = tw % 2;
+      const int row = r0 + rr;
+      float acc = 0.0f;
+      if (row < a.Sq) {
+        const bf* x = static_cast<const bf*>(a.dout) + b * a.dos.b +
+                      row * a.dos.s + h * a.dos.h + half * (D / 2);
+        const bf* y = static_cast<const bf*>(a.o) + b * a.os.b +
+                      row * a.os.s + h * a.os.h + half * (D / 2);
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          const uint4 xv = *reinterpret_cast<const uint4*>(x + 8 * c);
+          const uint4 yv = *reinterpret_cast<const uint4*>(y + 8 * c);
+          const bf* xe = reinterpret_cast<const bf*>(&xv);
+          const bf* ye = reinterpret_cast<const bf*>(&yv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc = fmaf(__bfloat162float(xe[e]), __bfloat162float(ye[e]), acc);
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        delta_s[rr] = acc;
+        if (row < a.Sq) a.delta[stat + row] = acc;
+      }
+    }
+    group_sync(grp);
+
+    const int rows[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lse_r[i] = rows[i] < a.Sq ? a.lse[stat + rows[i]] * kLog2e : 0.0f;
+      delta_r[i] = delta_s[16 * warp + g + 8 * i];
+    }
+    const float sl2 = a.scale * kLog2e;
+    int last = -1;                   // the group's last key tile with work
+    if (r0 < a.Sq)
+      last = a.causal ? min(n_tiles - 1,
+                            (min(r0 + kRows - 1, a.Sq - 1) + offset) / kRows)
+                      : n_tiles - 1;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+    const uint32_t qa = base + L::kQ + grp * L::kNb * kBox;
+    const uint32_t doa = base + L::kDo + grp * L::kNb * kBox;
+    bar_wait(res, 0);
+
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int st = kt % kStages;
+      bar_wait(full + 8 * st, (kt / kStages) & 1);
+      if (kt <= last) {
+        const uint32_t kb = base + L::kStage0 + st * L::kStageBytes;
+        const uint32_t vb = kb + L::kNb * kBox;
+        float s[32], dp[32];
+        spira_tc::wgmma_fence();
+        ss<D>(s, qa, kb);
+        spira_tc::wgmma_commit();
+        ss<D>(dp, doa, vb);
+        spira_tc::wgmma_commit();
+        spira_tc::wgmma_wait<1>();
+        spira_tc::fence_regs(s);
+        const int k0 = kt * kRows;
+        const bool edge = k0 + kRows > a.Skv || r0 + kRows > a.Sq ||
+                          (a.causal && k0 + kRows - 1 > r0 + offset);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            const float p = fast_exp2(fmaf(s[4 * j + e], sl2, -lse_r[i]));
+            s[4 * j + e] = (!edge || visible(a, rows[i], col)) ? p : 0.0f;
+          }
+        spira_tc::wgmma_wait<0>();
+        spira_tc::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * j + e] *= dp[4 * j + e] - delta_r[e >> 1];      // dS
+        uint32_t ds[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) spira_tc::acc_to_a(ds[kk], s, kk);
+        spira_tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) rs<D>(dq, ds[kk], mndesc(kb, kk));
+        spira_tc::wgmma_commit();
+        spira_tc::wgmma_wait<0>();
+        spira_tc::fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) spira_tc::fence_regs(ds[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+
+    bf* dqb = static_cast<bf*>(a.dq);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (rows[i] >= a.Sq) continue;
+      bf* out =
+          dqb + ((static_cast<int64_t>(b) * a.Sq + rows[i]) * a.H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t) =
+            spira_tc::pack_bf16(dq[4 * j + 2 * i] * a.scale,
+                                dq[4 * j + 2 * i + 1] * a.scale);
+    }
+  }
+}
+
+// dK and dV: one block per 128 keys of one (batch, KV head), the first keys
+// first (under the causal mask they see the most query tiles). Warpgroups
+// 0 and 1 each own 64 keys: S^T = K . Q^T and dP^T = V . dO^T (both
+// operands in shared memory), P^T and dS^T in registers, dV += P^T . dO
+// and dK += dS^T . Q (A from registers, B MN-major), for each of the KV
+// head's G query heads in order and each query tile of 64 rows that sees
+// the block's keys. The first warp also loads (module note): the block's
+// K and V once, then the tiles' Q, dO, lse and Delta into the ring. The
+// GQA sum happens inside the block, in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+bwd_dkdv_wgmma(const __grid_constant__ Maps maps, const BwdArgs a) {
+  using L = DkvLayout<D>;
+  extern __shared__ __align__(16) char smraw[];
+  const uint32_t base = align_1k(smraw);
+  char* sm = smraw + (base - spira_tc::smem_u32(smraw));
+  const uint32_t full = base + L::kBars;
+  const uint32_t empty = full + 8 * kDkvStages;
+  const uint32_t res = empty + 8 * kDkvStages;
+  const int b = blockIdx.x / a.KV;
+  const int kvh = blockIdx.x % a.KV;
+  const int k0 = blockIdx.y * 2 * kRows;
+  const int offset = a.Skv - a.Sq;
+  const int qt_lo = a.causal ? max(0, k0 - offset) / kRows : 0;
+  const int n_q = max(0, (a.Sq + kRows - 1) / kRows - qt_lo);
+  const int n_it = a.G * n_q;        // tile it: head gi = it / n_q, in order
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(full + 8 * s, 33);   // 32 lanes' copies and the TMA's
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    mbar_init(res, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int grp = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tw = threadIdx.x % 128;
+  const int warp = tw / 32;
+  const int lane = tw % 32;
+  // warp 0 also loads; the warp's index from a shuffle is warp-uniform
+  // for the compiler, so the loop's descriptors stay in uniform registers
+  const bool loader = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0) == 0;
+  // warp 0: tile j into its stage (free), all asynchronous, so the warp
+  // never waits on device memory: the tile's lse and Delta by 4-byte
+  // cp.async from the lanes (zeros past Sq), each lane's copies counted
+  // on the stage's barrier when they land; Q and dO by TMA from lane 0
+  auto load = [&](int j) {
+    const int st = j % kDkvStages;
+    const int h = kvh * a.G + j / n_q;
+    const int q0 = (qt_lo + j % n_q) * kRows;
+    const int64_t stat = (static_cast<int64_t>(b) * a.H + h) * a.Sq;
+    const int sbo = L::kStage0 + st * L::kStageBytes;
+    float* ls = reinterpret_cast<float*>(sm + sbo + L::kStats);
+    for (int r = lane; r < kRows; r += 32) {
+      const bool ok = q0 + r < a.Sq;
+      spira_tc::cp_async<4>(ls + r, a.lse + (ok ? stat + q0 + r : 0), ok);
+      spira_tc::cp_async<4>(ls + kRows + r,
+                            a.delta + (ok ? stat + q0 + r : 0), ok);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 ::"r"(full + 8 * st)
+                 : "memory");
+    if (lane == 0) {
+      const uint32_t sb = base + sbo;
+      mbar_expect_tx(full + 8 * st, L::kStats);
+      for (int c = 0; c < L::kNb; ++c) {
+        tma_load_4d(sb + c * kBox, &maps.q, 64 * c, h, q0, b, full + 8 * st);
+        tma_load_4d(sb + (L::kNb + c) * kBox, &maps.dout, 64 * c, h, q0, b,
+                    full + 8 * st);
+      }
+    }
+  };
+  int issued = 0;                    // tiles loaded so far (warp 0)
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(res, 4 * L::kNb * kBox);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < L::kNb; ++c) {
+          const int at = (w * L::kNb + c) * kBox;
+          tma_load_4d(base + L::kK + at, &maps.k, 64 * c, kvh,
+                      k0 + kRows * w, b, res);
+          tma_load_4d(base + L::kV + at, &maps.v, 64 * c, kvh,
+                      k0 + kRows * w, b, res);
+        }
+    }
+    for (; issued < min(kDkvStages, n_it); ++issued) load(issued);
+  }
+
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int kw = k0 + kRows * grp;
+  const int keys[2] = {kw + 16 * warp + g, kw + 16 * warp + g + 8};
+  const float sl2 = a.scale * kLog2e;
+  const uint32_t ka = base + L::kK + grp * L::kNb * kBox;
+  const uint32_t va = base + L::kV + grp * L::kNb * kBox;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+  bar_wait(res, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    if (loader) {
+      // refill the ring up to kDkvStages - 1 tiles ahead: a stage whose
+      // last tile the other warpgroup still reads is left for the next
+      // iteration, unless this tile needs it now
+      while (issued < n_it && issued < it + kDkvStages) {
+        const int st = issued % kDkvStages;
+        const uint32_t parity = (issued / kDkvStages - 1) & 1;
+        if (issued == it)
+          bar_wait(empty + 8 * st, parity);
+        else if (!__shfl_sync(
+                     0xffffffffu,
+                     static_cast<int>(lane == 0 && mbar_test(empty + 8 * st,
+                                                             parity)),
+                     0))
+          break;
+        load(issued++);
+      }
+    }
+    {
+      const int st = it % kDkvStages;
+      bar_wait(full + 8 * st, (it / kDkvStages) & 1);
+      const int q0 = (qt_lo + it % n_q) * kRows;
+      if (kw < a.Skv &&
+          !(a.causal && min(q0 + kRows - 1, a.Sq - 1) + offset < kw)) {
+        const int sbo = L::kStage0 + st * L::kStageBytes;
+        const uint32_t qb = base + sbo;
+        const uint32_t dob = qb + L::kNb * kBox;
+        const float* ls = reinterpret_cast<const float*>(sm + sbo +
+                                                         L::kStats);
+        float s[32], dp[32];
+        spira_tc::wgmma_fence();
+        ss<D>(s, ka, qb);                                   // S^T
+        spira_tc::wgmma_commit();
+        ss<D>(dp, va, dob);                                 // dP^T
+        spira_tc::wgmma_commit();
+        spira_tc::wgmma_wait<1>();
+        spira_tc::fence_regs(s);
+        const bool edge = kw + kRows > a.Skv || q0 + kRows > a.Sq ||
+                          (a.causal && kw + kRows - 1 > q0 + offset);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+          const float m0 = -l2.x * kLog2e;
+          const float m1 = -l2.y * kLog2e;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t + (e & 1);      // query in the tile
+            const float p =
+                fast_exp2(fmaf(s[4 * j + e], sl2, (e & 1) ? m1 : m0));
+            s[4 * j + e] =
+                (!edge || visible(a, q0 + c, keys[e >> 1])) ? p : 0.0f;
+          }
+        }
+        spira_tc::wgmma_wait<0>();                         // dP^T landed
+        spira_tc::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(ls + kRows + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)                       // dS^T
+            dp[4 * j + e] = s[4 * j + e] *
+                            (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+        }
+        // P^T and dS^T as bf16 A fragments: the fp32 tiles die here, so
+        // the two products below run with 64 fewer live registers
+        uint32_t pa[4][4], ds[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          spira_tc::acc_to_a(pa[kk], s, kk);
+          spira_tc::acc_to_a(ds[kk], dp, kk);
+        }
+        spira_tc::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) rs<D>(dv, pa[kk], mndesc(dob, kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) rs<D>(dk, ds[kk], mndesc(qb, kk));
+        spira_tc::wgmma_commit();
+        spira_tc::wgmma_wait<0>();
+        spira_tc::fence_regs(dk);
+        spira_tc::fence_regs(dv);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          spira_tc::fence_regs(pa[kk]);
+          spira_tc::fence_regs(ds[kk]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+  }
+
+  using bf = __nv_bfloat16;
+  bf* dkb = static_cast<bf*>(a.dk);
+  bf* dvb = static_cast<bf*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (keys[i] >= a.Skv) continue;
+    const int64_t at =
+        ((static_cast<int64_t>(b) * a.Skv + keys[i]) * a.KV + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkb + at + c) = spira_tc::pack_bf16(
+          dk[4 * j + 2 * i] * a.scale, dk[4 * j + 2 * i + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvb + at + c) = spira_tc::pack_bf16(
+          dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// A bf16 [B, seq, heads, D] tensor as a TMA map over (D, head, seq,
+// batch), boxes of 64 columns by 64 rows of one (batch, head), 128-byte
+// swizzle, zeros past every edge. A dimension of extent 1 is given a
+// packed stride (its own is never read).
+bool make_map(CUtensorMap* map, EncodeTiled enc, const void* base, int D,
+              int heads, int seq, int batch, const Strides& st) {
+  const int64_t sh = heads > 1 ? st.h : D;
+  const int64_t ss = seq > 1 ? st.s : sh * heads;
+  const int64_t sb = batch > 1 ? st.b : ss * seq;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const BwdArgs& a, int B, cudaStream_t s) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  Maps maps;
+  if (!make_map(&maps.q, enc, a.q, D, a.H, a.Sq, B, a.qs) ||
+      !make_map(&maps.k, enc, a.k, D, a.KV, a.Skv, B, a.ks) ||
+      !make_map(&maps.v, enc, a.v, D, a.KV, a.Skv, B, a.vs) ||
+      !make_map(&maps.dout, enc, a.dout, D, a.H, a.Sq, B, a.dos))
+    return cudaErrorInvalidValue;
+  static bool configured = false;    // above 48 KB needs the opt-in
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        DqLayout<D>::kAlloc);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(bwd_dkdv_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DkvLayout<D>::kAlloc);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  bwd_dq_wgmma<D><<<dim3(B * a.H, (a.Sq + 2 * kRows - 1) / (2 * kRows)),
+                    kThreads, DqLayout<D>::kAlloc, s>>>(maps, a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dkdv_wgmma<D><<<dim3(B * a.KV, (a.Skv + 2 * kRows - 1) / (2 * kRows)),
+                      kDkvThreads, DkvLayout<D>::kAlloc, s>>>(maps, a);
+  return cudaGetLastError();
+}
+
+// The helpers' own check: x = a . b^T (wgmma from shared memory, both
+// K-major, as S and dP) and y = bf16(x) . v (A from registers, v MN-major,
+// as dQ, dK and dV), a, b, v bf16 [64, D] by the backward's TMA maps; one
+// warpgroup.
+template <int D>
+__global__ void __launch_bounds__(128)
+wgmma_check_kernel(const __grid_constant__ Maps maps, float* x, float* y) {
+  constexpr int kNb = D / 64;
+  extern __shared__ __align__(16) char smraw[];
+  const uint32_t base = align_1k(smraw);
+  const uint32_t bar = base + 3 * kNb * kBox;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, 3 * kNb * kBox);
+    for (int c = 0; c < kNb; ++c) {
+      tma_load_4d(base + c * kBox, &maps.q, 64 * c, 0, 0, 0, bar);
+      tma_load_4d(base + (kNb + c) * kBox, &maps.k, 64 * c, 0, 0, 0, bar);
+      tma_load_4d(base + (2 * kNb + c) * kBox, &maps.v, 64 * c, 0, 0, 0,
+                  bar);
+    }
+  }
+  bar_wait(bar, 0);
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  float s[32];
+  spira_tc::wgmma_fence();
+  ss<D>(s, base, base + kNb * kBox);
+  spira_tc::wgmma_commit();
+  spira_tc::wgmma_wait<0>();
+  spira_tc::fence_regs(s);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] =
+          s[4 * j + e];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) spira_tc::acc_to_a(pa[kk], s, kk);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  spira_tc::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    rs<D>(o, pa[kk], mndesc(base + 2 * kNb * kBox, kk));
+  spira_tc::wgmma_commit();
+  spira_tc::wgmma_wait<0>();
+  spira_tc::fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) spira_tc::fence_regs(pa[kk]);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      y[(16 * warp + g + 8 * (e >> 1)) * D + 8 * j + 2 * t + (e & 1)] =
+          o[4 * j + e];
+}
+
+template <int D>
+int check(const void* a, const void* b, const void* v, float* x, float* y,
+          cudaStream_t s) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const Strides st{64 * D, D, D};
+  Maps maps{};
+  if (!make_map(&maps.q, enc, a, D, 1, 64, 1, st) ||
+      !make_map(&maps.k, enc, b, D, 1, 64, 1, st) ||
+      !make_map(&maps.v, enc, v, D, 1, 64, 1, st))
+    return cudaErrorInvalidValue;
+  const int bytes = 3 * (D / 64) * kBox + 8 + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      wgmma_check_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return e;
+  wgmma_check_kernel<D><<<1, 128, bytes, s>>>(maps, x, y);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -744,11 +1430,20 @@ int launch(const void* q, const void* k, const void* v, const void* o,
             {st[6], st[7], st[8]}, {st[9], st[10], st[11]},
             {st[12], st[13], st[14]}, causal, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_d<T, 64>(a, B, s);
-    case 128: return launch_d<T, 128>(a, B, s);
-    case 256: return launch_d<T, 256>(a, B, s);
-    default: return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (D) {       // a kernel by head dim: wgmma at 64 and 128
+      case 64: return wg::launch<64>(a, B, s);
+      case 128: return wg::launch<128>(a, B, s);
+      case 256: return launch_d<T, 256>(a, B, s);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (D) {
+      case 64: return launch_d<T, 64>(a, B, s);
+      case 128: return launch_d<T, 128>(a, B, s);
+      case 256: return launch_d<T, 256>(a, B, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -780,4 +1475,19 @@ extern "C" int spira_flash_attention_bwd_bf16(
   return launch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
                                Sq, Skv, H, KV, D, strides, causal, scale,
                                stream);
+}
+
+// The wgmma helpers' check (chip_smoke.py): a, b, v contiguous bf16
+// [64, D], D in {64, 128}; x = a . b^T fp32 [64, 64]; y = bf16(x) . v fp32
+// [64, D].
+extern "C" int spira_wgmma_check(const void* a, const void* b, const void* v,
+                                 void* x, void* y, int D, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* xf = static_cast<float*>(x);
+  float* yf = static_cast<float*>(y);
+  switch (D) {
+    case 64: return wg::check<64>(a, b, v, xf, yf, s);
+    case 128: return wg::check<128>(a, b, v, xf, yf, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -68,16 +68,17 @@
 // of every tile, so a row's bits depend on neither M nor its tile-mates (a
 // skipped fragment would have added zeros). The output is written in g's
 // type.
-#include <cuda.h>              // CUtensorMap (types only; nothing is linked)
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tensor_core.cuh"
+#include "tma.cuh"
 
 namespace {
 
 using namespace spira_tc;
+using namespace spira_tma;
 
 constexpr int kThreads = 256;     // 8 warps: 4 along rows x 2 along Cout
 constexpr int kBM = 128;          // rows per block
@@ -143,37 +144,6 @@ __device__ __forceinline__ bool finite_f32(uint32_t v) {
 }
 __device__ __forceinline__ bool finite_bf16x2(uint32_t v) {
   return (v & 0x7f80u) != 0x7f80u && (v & 0x7f800000u) != 0x7f800000u;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-// A 2-D box at element coordinates (x innermost, y) into shared memory;
-// completion counted on `bar` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int x, int y, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
 }
 
 // The TMA maps of a launch: g as [M, Kd * Cin], W as [Kd * Cin, Cout].
@@ -480,36 +450,6 @@ masked_group_gemm_kernel(const __grid_constant__ Maps maps,
                   acc[mt][j][2 * h + e]);
         }
     }
-}
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime (so
-// the library links nothing new), or null.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  static bool looked = false;
-  if (!looked) {
-    looked = true;
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A row-major [rows, cols] tensor as 2-D boxes of 128 bytes by box_rows

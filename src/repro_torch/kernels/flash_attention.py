@@ -31,8 +31,12 @@ has no VJP. Given ``return_lse=True`` the forward also returns each row's
 log-sum-exp ``[B, H, Sq]`` fp32, from which the backward's two launches
 (dQ with the row sums Δ = rowsum(dO ∘ O), then dK/dV summed over each KV
 head's query heads inside the block, no atomics) recompute the
-probabilities. :func:`flash_attention_bwd_torch` is its plain version: the
-closed-form gradient of :func:`flash_attention_torch`.
+probabilities. In bf16 at head dims 64 and 128 they run Hopper's
+``wgmma`` on tiles loaded by TMA through maps over the callers' strides
+(``_tma_ready`` copies a layout whose strides do not nest);
+:func:`wgmma_check` runs the helpers they are built on alone.
+:func:`flash_attention_bwd_torch` is its plain version: the closed-form
+gradient of :func:`flash_attention_torch`.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from . import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128)       # the bf16 backward's wgmma kernels
 
 _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -116,6 +121,20 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
             and t.data_ptr() % 16 == 0):
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its (head, seq, batch) strides nest (each at least
+    the extent times the stride of the dimension inside it, dimensions of
+    extent 1 aside), as the bf16 backward's TMA maps over (D, head, seq,
+    batch) want; else a contiguous copy."""
+    inner = t.shape[3]
+    for dim in (2, 1, 0):
+        if t.shape[dim] > 1:
+            if t.stride(dim) < inner:
+                return t.clone(memory_format=torch.contiguous_format)
+            inner = t.stride(dim) * t.shape[dim]
+    return t
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -204,6 +223,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"causal backward needs Sq <= Skv (got {Sq} > "
                          f"{Skv}): a row with no visible key")
     q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+    if dt == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        q, k, v, dout = (_tma_ready(t) for t in (q, k, v, dout))
     lse = lse.contiguous()
     dq = torch.empty((B, Sq, H, D), dtype=dt, device=q.device)
     dk = torch.empty((B, Skv, KV, D), dtype=dt, device=q.device)
@@ -266,6 +287,44 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
     dk = torch.einsum("bngqk,bqngd->bknd", ds, qg) * scale
     return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def wgmma_check(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
+    """The check of the wgmma helpers that the bf16 backward is built on
+    (``csrc/flash_attention_bwd.cu``, ``spira_wgmma_check``): a, b, v bf16
+    ``[64, D]``, D in ``WGMMA_HEAD_DIMS``; returns ``x = a · bᵀ`` fp32
+    ``[64, 64]`` (both operands from shared memory, as S and dP) and
+    ``y = bf16(x) · v`` fp32 ``[64, D]`` (A from registers, v MN-major, as
+    dQ, dK and dV). On CUDA tensors it launches the kernel; on CPU tensors
+    it runs :func:`wgmma_check_torch`, its plain version."""
+    D = a.shape[1]
+    for t in (a, b, v):
+        if (t.dtype != torch.bfloat16 or tuple(t.shape) != (64, D)
+                or D not in WGMMA_HEAD_DIMS or t.device != a.device):
+            raise ValueError(f"wgmma_check takes bf16 [64, D] tensors on one "
+                             f"device, D in {WGMMA_HEAD_DIMS}; got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if a.device.type != "cuda":
+        return wgmma_check_torch(a, b, v)
+    a, b, v = (t.contiguous() for t in (a, b, v))
+    x = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    y = torch.empty((64, D), dtype=torch.float32, device=a.device)
+    fn = _fns.get("wgmma_check")
+    if fn is None:
+        fn = _fns["wgmma_check"] = _build.function(
+            "spira_wgmma_check", [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                                          ctypes.c_void_p])
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), x.data_ptr(),
+             y.data_ptr(), D, stream)
+    _build.check(err, "wgmma_check")
+    return x, y
+
+
+def wgmma_check_torch(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor):
+    """Plain version of :func:`wgmma_check`, any device."""
+    x = a.float() @ b.float().T
+    return x, x.to(torch.bfloat16).float() @ v.float()
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -143,3 +143,26 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         ops.attention(q[:, :, 0], k[:, :, 0], v[:, :, 0], backend="cuda")
     assert LAUNCHERS["flash_attention"] is flash_attention
     assert flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_check_plain_version(D):
+    """The wgmma helpers' check on CPU tensors runs its plain version:
+    x = a . b^T and y = bf16(x) . v in fp32 (the products the bf16
+    backward kernels run), and it refuses a head dim the kernels do not
+    take."""
+    from repro_torch.kernels.flash_attention import wgmma_check
+    g = torch.Generator().manual_seed(D)
+    a, b, v = (torch.randn((64, D), generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    x, y = wgmma_check(a, b, v)
+    want = a.double() @ b.double().T
+    assert x.dtype == torch.float32 and x.shape == (64, 64)
+    assert float((x.double() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    want_y = x.to(torch.bfloat16).double() @ v.double()
+    assert y.shape == (64, D)
+    assert float((y.double() - want_y).abs().max()) <= 1e-5 * float(
+        want_y.abs().max())
+    with pytest.raises(ValueError, match="D in"):
+        wgmma_check(a[:, :32], b[:, :32], v[:, :32])

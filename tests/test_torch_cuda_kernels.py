@@ -1419,6 +1419,69 @@ def test_repair_kernel_equals_plain(dev, dtype, search, m_in, m_out):
                                                  anchors, zstep, K=K))
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("flags", ["none", "all"])
+def test_repair_kernel_flag_extremes(dev, dtype, flags):
+    """The search's own map with no cell flagged (the map comes back
+    untouched) and with every cell flagged (every cell re-searched: the
+    exact search's map): the kernel equals its plain version exactly."""
+    layout, cs = _words(dev, dtype)
+    K, anchors, zstep = _anchors(layout, "G9", 0, 1, dev)
+    m, ovf = zdelta_superwindow_search(cs[0], cs[1], anchors, zstep, K=K,
+                                       W=256, backend="cuda")
+    ovf = (torch.zeros_like(ovf) if flags == "none"
+           else torch.ones_like(ovf))
+    got = zdelta_repair(cs[0], cs[1], anchors, zstep, m.clone(), ovf, K=K,
+                        backend="cuda")
+    ref = zdelta_repair(cs[0], cs[1], anchors, zstep, m, ovf, K=K,
+                        backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if flags == "none":
+        assert torch.equal(got, m)
+    else:
+        assert torch.equal(got, zdelta.zdelta_search(cs[0], cs[1], anchors,
+                                                     zstep, K=K))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_repair_kernel_cells_past_one_pass(dev, dtype):
+    """More (tile, group) cells than the compact grid covers in one pass
+    (4 blocks per SM, 512 cells a block), flags scattered over all of them
+    (the last cell among them): the kernel, in place, equals its plain
+    version exactly, and every unflagged cell keeps its entries."""
+    from repro_torch.kernels.zdelta_window import (zdelta_repair_cuda,
+                                                   zdelta_repair_torch)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G, K = 64, 2
+    n_tiles = -(-3 * sms * 4 * 512 // (2 * G))        # 1.5 passes of cells
+    g = torch.Generator(device=dev).manual_seed(5)
+    pad = voxel.pad_value(dtype)
+    n = 50_000
+    arr = torch.randint(0, 1 << 22, (n,), generator=g, device=dev)
+    arr = torch.unique(arr).to(dtype)
+    arr = torch.cat([arr, torch.full((64,), pad, dtype=dtype, device=dev)])
+    rows = n_tiles * 128
+    pick = torch.randint(0, arr.shape[0] - 64, (rows,), generator=g,
+                         device=dev)
+    outp = arr[pick] - 3
+    outp[torch.rand(rows, generator=g, device=dev) < 0.05] = pad
+    out2d = outp.reshape(n_tiles, 128)
+    anchors = torch.arange(G, device=dev).to(dtype) - 2
+    ovf = (torch.rand((n_tiles, G), generator=g, device=dev) < 0.01)
+    ovf[-1, -1] = True
+    ovf = ovf.to(torch.int32) * torch.randint(
+        1, 9, (n_tiles, G), generator=g, device=dev, dtype=torch.int32)
+    m0 = torch.full((rows, G * K), -7, dtype=torch.int32, device=dev)
+    got = zdelta_repair_cuda(arr, out2d, anchors, 1, m0.clone(), ovf, K=K)
+    ref = zdelta_repair_torch(arr, out2d, anchors, 1, m0, ovf, K=K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    kept = (ovf == 0).repeat_interleave(128, 0).repeat_interleave(K, 1)
+    assert bool((got[kept] == -7).all())
+    assert bool((got[~kept] != -7).all())
+
+
 def _graph_case(dev, name, **kw):
     """A graph session of a narrow ``name`` net, an eager one with the same
     weights, and a one-scene and a two-scene input (two buckets)."""

@@ -33,9 +33,14 @@ pytestmark = pytest.mark.cuda
 
 BF16_GATE = 2e-2
 FP32_GATE = 1e-5
-# (B, Sq, Skv, H, KV, causal): square, ragged, Sq < Skv, full attention
+# (B, Sq, Skv, H, KV, causal): square, ragged, Sq < Skv, full attention;
+# then the edges of the bf16 kernels' tiling (128-row blocks of 64-row
+# tiles): S = 200 (a multiple of neither), Sq 130 < Skv 200 (a key tile
+# across the diagonal at offset 70), G = 1 and G = 8
 SHAPES = [(2, 128, 128, 8, 2, True), (1, 130, 130, 4, 4, True),
-          (2, 70, 200, 8, 1, True), (1, 50, 90, 4, 2, False)]
+          (2, 70, 200, 8, 1, True), (1, 50, 90, 4, 2, False),
+          (1, 200, 200, 8, 2, True), (1, 130, 200, 8, 2, True),
+          (2, 200, 200, 4, 4, True), (1, 200, 200, 8, 1, True)]
 
 
 @pytest.fixture
@@ -90,6 +95,54 @@ def test_backward_kernel_vs_float64(dev, shape, D, dtype):
     again = flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
                                 scale=1.0)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_backward_kernel_strided_q(dev, D, dtype):
+    """q a view with a head stride of 2D (as a slice of a fused projection's
+    output): the kernels read it through its strides (the bf16 kernels by
+    TMA maps over them); gradients against float64, bitwise twice, and
+    equal to the same launch on a contiguous copy of q."""
+    (q, k, v, do), causal = _inputs((2, 200, 200, 8, 2, True), D, dtype, dev)
+    wide = torch.zeros((2, 200, 8, 2 * D), dtype=dtype, device=dev)
+    wide[..., :D] = q
+    qs = wide[..., :D]
+    assert not qs.is_contiguous() and qs.stride(2) == 2 * D
+    out, lse = flash_attention(qs, k, v, causal=causal, scale=1.0,
+                               return_lse=True)
+    want = flash_attention_bwd_torch(*(t.double() for t in (qs, k, v, out,
+                                                             do)),
+                                     causal=causal, scale=1.0)
+    got = flash_attention_bwd(qs, k, v, out, do, lse, causal=causal,
+                              scale=1.0)
+    gate = BF16_GATE if dtype == torch.bfloat16 else FP32_GATE
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a, b, gate, name)
+    again = flash_attention_bwd(qs, k, v, out, do, lse, causal=causal,
+                                scale=1.0)
+    dense = flash_attention_bwd(q.contiguous(), k, v, out, do, lse,
+                                causal=causal, scale=1.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, dense))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_check_kernel_equals_plain(dev, D):
+    """The wgmma helpers alone (``spira_wgmma_check``): a product from
+    shared memory with both operands K-major and one with A from registers
+    and B MN-major, on tiles loaded by the backward's TMA maps, against
+    the plain version (fp32 sums of exact bf16 products: within 1e-5 of
+    max|ref|; y against the kernel's own x rounded to bf16)."""
+    from repro_torch.kernels.flash_attention import (wgmma_check,
+                                                     wgmma_check_torch)
+    g = torch.Generator(device=dev).manual_seed(D)
+    a, b, v = (torch.randn((64, D), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    x, y = wgmma_check(a, b, v)
+    xr, _ = wgmma_check_torch(a, b, v)
+    _close(x, xr, 1e-5, "x")
+    _close(y, x.to(torch.bfloat16).float() @ v.float(), 1e-5, "y")
 
 
 def test_backward_rejects_what_it_does_not_take(dev):

@@ -242,22 +242,34 @@ def test_cross_entropy_matches_reference():
     assert abs(got - want) <= 1e-6 * abs(want)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
-def test_plain_backward_matches_jax_grad(D):
+# (D, (B, Sq, Skv, H, KV)): GQA 4 query heads per KV head at every head
+# dim, then the edge shapes of the card's backward kernels: Sq < Skv with
+# neither a multiple of 64 (a key tile across the diagonal at offset 70),
+# G = 1 and G = 8
+BWD_CASES = ([pytest.param(D, (2, 37, 37, 8, 2), id=str(D))
+              for D in (64, 128, 256)]
+             + [pytest.param(64, (1, 130, 200, 4, 2), id="64-sq130-skv200"),
+                pytest.param(64, (2, 45, 45, 4, 4), id="64-G1"),
+                pytest.param(64, (1, 45, 45, 8, 1), id="64-G8")])
+
+
+@pytest.mark.parametrize("D,shape", BWD_CASES)
+def test_plain_backward_matches_jax_grad(D, shape):
     """The attention's closed-form backward against ``jax.grad`` of the
-    reference's ``grouped_attention`` (GQA, 4 query heads per KV head,
-    causal, ragged S): dQ, dK, dV within 5e-5 of their max (the
-    reference's q is scaled inside; the port's plain backward takes the
-    scaled q with scale 1 and the chain rule outside, as the model
-    calls it)."""
-    B, S, H, KV = 2, 37, 8, 2
-    rng = np.random.default_rng(D)
+    reference's ``grouped_attention`` (causal, ragged S; for Sq < Skv the
+    reference is called at ``q_offset = Skv - Sq``, the port's end-aligned
+    diagonal): dQ, dK, dV within 5e-5 of their max (the reference's q is
+    scaled inside; the port's plain backward takes the scaled q with scale
+    1 and the chain rule outside, as the model calls it)."""
+    B, Sq, Skv, H, KV = shape
+    rng = np.random.default_rng(D + Sq + H)
     q, k, v, do = (rng.normal(size=sh).astype(np.float32)
-                   for sh in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
-                              (B, S, H, D)))
+                   for sh in ((B, Sq, H, D), (B, Skv, KV, D),
+                              (B, Skv, KV, D), (B, Sq, H, D)))
 
     def ref(q, k, v):
-        o = jlayers.grouped_attention(q, k, v, causal=True, kv_chunk=16)
+        o = jlayers.grouped_attention(q, k, v, causal=True,
+                                      q_offset=Skv - Sq, kv_chunk=16)
         return jnp.sum(o * do)
 
     wq, wk, wv = jax.grad(ref, argnums=(0, 1, 2))(q, k, v)
