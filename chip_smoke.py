@@ -343,6 +343,38 @@ said):
    smoke config of every other token architecture: finite loss, every
    leaf changed, the flash launches counted.
 
+The multi-card layer (phase 14, after 13d; ``dist.sharding`` on DTensor,
+``launch/{mesh,dryrun,op_analysis,roofline}.py``):
+
+14a. a one-rank NCCL process group and its ``(1, 1)`` ``("data",
+   "model")`` mesh; ``sharding_ctx(fsdp=True)``; 13b's yi-9b cut (16
+   layers, seq 2,048 x batch 4, remat, bf16) from seed 0 for
+   ``SHARD_STEPS`` steps on DTensor parameters and moments, against the
+   plain step from the same init: every loss and every parameter and
+   moment bitwise equal (at world size 1 every redistribution moves
+   nothing), the flash forward and backward launched on this path
+   (through ``local_map`` on the rank's heads, counted); then
+   ``SHARD_TIMED_PAIRS`` (plain, sharded) pairs in alternating turns on
+   one state (the plain step on the DTensors' own local tensors): the
+   medians;
+14b. reshard-on-load on a 2-layer, 512-token cut of the same width: the
+   sharded state saved and restored into plain tensors, the plain state
+   saved and restored with ``shardings=`` into DTensors on the mesh; one
+   step after each bitwise the uninterrupted run's;
+14c. the dry run (``launch.dryrun``, in a background process on the CPU
+   while 14b runs: every cell on ``meta`` under a fake process group) of
+   yi-9b ``train_4k`` and ``decode_32k`` on ``1x1`` and ``16x16`` and of
+   qwen3-moe-30b-a3b ``train_4k`` on ``16x16`` at full size, and of 14a's
+   cell on ``1x1``: ``n_params`` equal to the config's count, the
+   per-device terms and the bottleneck printed; the 14a cell's parameter
+   and optimizer bytes equal to what the card held in 14a, its peak-live
+   estimate printed beside 14a's ``max_memory_allocated`` (not gated);
+14d. the whole-step roofline of 14a's plain step: 6·N·D and the op
+   counter's FLOPs, each over (median step x 989 TFLOP/s).
+
+The kernel table's flash rows add 14a's launches under the path ``yi-16
+sharded``.
+
 After each phase a ``[seconds]`` line gives its seconds and the run's so
 far. The second-to-last lines are the kernel table as JSON and the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line; the last line is
@@ -2262,7 +2294,7 @@ def lm_phases(results: dict, paths: dict, card: str) -> None:
     # -- the LM main path's inputs -------------------------------------------
     t0 = time.perf_counter()
     cfg = configs.get_config(LM_ARCH)
-    params = tf.init_params(cfg, 0, device=DEV)
+    params = tf.init_params(cfg, 0, device=DEV)[0]
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     rng = np.random.default_rng(0)
@@ -3263,7 +3295,7 @@ def arch_phases(results: dict, paths: dict, card: str, tick) -> None:
 
     def build(label, cfg, note=""):
         t0 = time.perf_counter()
-        params = tf.init_params(cfg, 0, device=DEV)
+        params = tf.init_params(cfg, 0, device=DEV)[0]
         torch.cuda.synchronize()
         n = sum(t.numel() for t in _leaves(params))
         blocks = [f"{sb.repeat} x {[f'{k}+{f}' for k, f in sb.blocks]}"
@@ -3664,7 +3696,7 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
                                 repeat=TRAIN_LM_LAYERS),))
     free_card("13b", 60)
     t0 = time.perf_counter()
-    params = tf.init_params(cfg, 0, device=DEV)
+    params = tf.init_params(cfg, 0, device=DEV)[0]
     opt = init_opt_state(params, AdamWConfig())
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in _leaves(params))
@@ -3797,7 +3829,7 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
         superblocks=(SuperBlock(blocks=(("attn", "dense"),),
                                 repeat=TRAIN_CUT_LAYERS),))
     free_card("13c", 30)
-    p0 = tf.init_params(cut, 0, device=DEV)
+    p0 = tf.init_params(cut, 0, device=DEV)[0]
     cb = batch_at(DataConfig(vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ,
                              global_batch=TRAIN_LM_BATCH, seed=1), 0)
     gk = grads_of(p0, cut, cb, "auto")
@@ -3867,8 +3899,8 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
                 vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ,
                 global_batch=TRAIN_LM_BATCH, seed=2), i))
         return p
-    ra = three(tf.init_params(cut, 0, device=DEV))
-    rb = three(tf.init_params(cut, 0, device=DEV))
+    ra = three(tf.init_params(cut, 0, device=DEV)[0])
+    rb = three(tf.init_params(cut, 0, device=DEV)[0])
     la, lb = dict(_named(ra)), dict(_named(rb))
     diff = [k_ for k_ in la if not torch.equal(la[k_], lb[k_])]
     gk2 = grads_of(p0, cut, cb, "auto")
@@ -3891,7 +3923,7 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
     # -- 13c. grad_accum and compression on the cut ----------------------------
     res = {}
     for accum in (1, 2):
-        p = tf.init_params(cut, 0, device=DEV)
+        p = tf.init_params(cut, 0, device=DEV)[0]
         p, _, m = make_train_step(cut, TrainConfig(remat=True,
                                                    grad_accum=accum))(
             p, init_opt_state(p, AdamWConfig()), cb)
@@ -3934,7 +3966,7 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
         pc, _, mc = train(cut, tcc, stream(DataConfig(
             vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ,
             global_batch=TRAIN_LM_BATCH, seed=3)), 3, params=tf.init_params(
-                cut, 0, device=DEV), log=lines.append)
+                cut, 0, device=DEV)[0], log=lines.append)
     finally:
         loop_mod.compression.compress_tree = real
     if not (seen[0] is None and all(s_ is not None and s_ > 0
@@ -3992,7 +4024,7 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
         arch_lines = []
         for arch in TRAIN_ARCHS:
             c = wide(arch, True)
-            p = tf.init_params(c, 0, device=DEV)
+            p = tf.init_params(c, 0, device=DEV)[0]
             before = {k_: v_.clone() for k_, v_ in _named(p)}
             n_pre = configs.embed_prefix_len(arch, 64)
             b = batch_at(DataConfig(vocab=c.vocab, seq_len=64,
@@ -4021,6 +4053,353 @@ def lm_train_phases(results: dict, paths: dict, card: str, tick) -> None:
     finally:
         configs.get_config = saved
     torch.cuda.empty_cache()
+
+
+# -- phase 14: the multi-card layer at world size 1, and the dry run ---------
+SHARD_STEPS = 3                   # 14a: sharded against plain, bitwise
+SHARD_TIMED_PAIRS = 4             # 14a: (plain, sharded) pairs timed in turns
+DRYRUN_CELLS = (                  # 14c: (arch, shape, mesh, dryrun flags)
+    ("yi-9b", "train_4k", "1x1", ()),
+    ("yi-9b", "train_4k", "16x16", ()),
+    ("yi-9b", "decode_32k", "1x1", ()),
+    ("yi-9b", "decode_32k", "16x16", ()),
+    ("qwen3-moe-30b-a3b", "train_4k", "16x16", ()))
+DRYRUN_TIMEOUT = 600
+
+
+def _bits_equal(a: dict, b: dict) -> list:
+    """Paths whose tensors differ in any bit (DTensors by their local
+    shard, which at world size 1 is the whole tensor)."""
+    import torch
+    from repro_torch.dist.sharding import is_dtensor
+
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+    return [k for k in a if not torch.equal(local(a[k]), local(b[k]))]
+
+
+def _state_named(params, opt) -> dict:
+    """Every leaf of the LM training state by path (params, moments)."""
+    out = {f"params/{k}": v for k, v in _named(params)}
+    out.update({f"mu/{k}": v for k, v in _named(opt.mu)})
+    out.update({f"nu/{k}": v for k, v in _named(opt.nu)})
+    return out
+
+
+def start_dryrun(out: Path, extra_cells=()):
+    """The 14c dry-run cells in one background process (CPU only: every
+    cell is built on ``meta`` under a fake process group), results to
+    ``out``."""
+    calls = []
+    for arch, shape, mesh, flags in DRYRUN_CELLS + tuple(extra_cells):
+        calls.append(["--arch", arch, "--shape", shape, "--mesh", mesh,
+                      "--out", str(out), "--force", *flags])
+    code = ("import sys; from repro_torch.launch import dryrun\n"
+            f"for a in {calls!r}:\n    dryrun.main(a)\n")
+    env = dict(__import__("os").environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=str(ROOT))
+
+
+def sharded_phases(results: dict, paths: dict, card: str, tick) -> None:
+    """Phase 14 (module doc): the training step on DTensors over a one-rank
+    NCCL ``(1, 1)`` mesh against the plain step, bitwise (14a),
+    reshard-on-load both ways (14b), the dry run of production cells on
+    ``meta`` (14c) and the whole step's roofline shares (14d)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.dist.sharding import (distribute_params,
+                                           param_shardings, sharding_ctx)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import init_single, make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import SuperBlock
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.loop import checkpoint_trees, restore
+    from torch.distributed.tensor import DTensor
+
+    init_single(DEV)
+    mesh = make_host_mesh(device_type=DEV)
+    full = configs.get_config("yi-9b")
+    cfg = dataclasses.replace(
+        full, name=f"yi-9b ({TRAIN_LM_LAYERS} of {full.n_layers} layers)",
+        superblocks=(SuperBlock(blocks=(("attn", "dense"),),
+                                repeat=TRAIN_LM_LAYERS),))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_LM_SEQ,
+                      global_batch=TRAIN_LM_BATCH, seed=0)
+    tcfg = TrainConfig(remat=True, log_every=1, ckpt_every=10**9)
+    step = make_train_step(cfg, tcfg)
+    batches = [batch_at(dcfg, i) for i in range(SHARD_STEPS
+                                               + 2 * SHARD_TIMED_PAIRS)]
+
+    # -- 14a. the sharded step against the plain one, bitwise ---------------
+    free_card("14a", 50)
+    base = torch.cuda.memory_allocated() / 2**30     # earlier phases' own
+    params, axes = tf.init_params(cfg, 0, device=DEV)
+    opt = init_opt_state(params, AdamWConfig())
+    torch.cuda.reset_peak_memory_stats()
+    plain_loss = []
+    for i in range(SHARD_STEPS):
+        params, opt, m = step(params, opt, batches[i])
+        plain_loss.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    host = {k: v.to("cpu") for k, v in _state_named(params, opt).items()}
+    state_bytes = sum(v.numel() * v.element_size() for v in host.values())
+    param_bytes = sum(t.numel() * t.element_size()
+                      for _, t in _named(params))
+    del params, opt, m
+    free_card("14a sharded", 50)
+    with sharding_ctx(mesh, fsdp=True):
+        sp, _ = tf.init_params(cfg, 0, device=DEV)
+        sp = distribute_params(sp, axes)
+        so = init_opt_state(sp, AdamWConfig())
+        placed = {k: tuple(str(p) for p in v.placements)
+                  for k, v in _named(sp)}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        shard_loss = []
+        for i in range(SHARD_STEPS):
+            sp, so, m = step(sp, so, batches[i])
+            shard_loss.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k_: 0 for k_ in counts}
+    want.update(flash_attention=2 * TRAIN_LM_LAYERS * SHARD_STEPS,
+                flash_attention_bwd=TRAIN_LM_LAYERS * SHARD_STEPS)
+    if counts != want:
+        raise RuntimeError(f"14a: launches {counts}, expected {want}")
+    if shard_loss != plain_loss:
+        raise RuntimeError(f"14a: losses {shard_loss} against the plain "
+                           f"step's {plain_loss}")
+    got = _state_named(sp, so)
+    diff = []
+    for k, v in host.items():
+        if not torch.equal(got[k].to_local(), v.to(DEV)):
+            diff.append(k)
+    if diff:
+        raise RuntimeError(f"14a: {len(diff)} of {len(host)} leaves differ "
+                           f"from the plain step's after {SHARD_STEPS} "
+                           f"steps: {diff[:4]}")
+    sharded_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                        for t in got.values())
+    n_leaves = len(host)
+    del host, got
+    n_par = sum(t.numel() for _, t in _named(sp))
+    log(f"[14a sharded] {cfg.name} on a one-rank NCCL (1, 1) "
+        f"(data, model) mesh, sharding_ctx(fsdp=True): parameters and fp32 "
+        f"moments as DTensors ({n_par / 1e9:.3f} B parameters; e.g. wq "
+        f"{placed['sb0/b0/wq']}, embed {placed['embed']}), seq "
+        f"{TRAIN_LM_SEQ} x batch {TRAIN_LM_BATCH}, remat: {SHARD_STEPS} steps"
+        f" from seed 0, losses {shard_loss} bitwise the plain step's and all"
+        f" {n_leaves} parameter and moment leaves bitwise equal after them; "
+        f"launches {counts} (the flash kernels through local_map on the "
+        f"rank's heads); peak mem {peak:.1f} GiB (the plain steps' "
+        f"{plain_peak:.1f}; {base:.1f} GiB held by earlier phases) | "
+        f"{card}")
+
+    # timed in turns on one state: the plain step on the DTensors' local
+    # tensors (the same storage), the sharded step on the DTensors
+    local_tree = _map_local(sp)
+    local_opt = type(so)(_map_local(so.mu), _map_local(so.nu), so.step)
+    ms = {"plain": [], "sharded": []}
+    with sharding_ctx(mesh, fsdp=True):
+        for i in range(SHARD_TIMED_PAIRS):
+            for kind in (("plain", "sharded") if i % 2 == 0
+                         else ("sharded", "plain")):
+                b = batches[SHARD_STEPS + 2 * i + (kind == "sharded")]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if kind == "plain":
+                    _, local_opt, m = step(local_tree, local_opt, b)
+                    so = type(so)(so.mu, so.nu, local_opt.step)
+                else:
+                    _, so, m = step(sp, so, b)
+                    local_opt = type(so)(local_opt.mu, local_opt.nu, so.step)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"[14a timing] {SHARD_TIMED_PAIRS} pairs in alternating turns on one"
+        f" state: plain "
+        + ", ".join(f"{x:.1f}" for x in ms["plain"]) + " ms, sharded "
+        + ", ".join(f"{x:.1f}" for x in ms["sharded"])
+        + f" ms; medians plain {med['plain']:.1f} ms, sharded "
+        f"{med['sharded']:.1f} ms (x{med['sharded'] / med['plain']:.3f}: "
+        f"DTensor's per-operation dispatch on the host) | {card}")
+    for name, n in (("flash_attention", counts["flash_attention"]),
+                    ("flash_attention_bwd", counts["flash_attention_bwd"])):
+        results[name]["launches"] += n
+        paths.setdefault(name, {})["yi-16 sharded"] = dict(
+            launches=n // SHARD_STEPS, step_ms=med["sharded"],
+            plain_step_ms=med["plain"])
+    del sp, so, local_tree, local_opt, m
+    tick("14a sharded step at world size 1")
+
+    # -- 14b. reshard-on-load, both ways ---------------------------------
+    free_card("14b", 30)
+    out_json = ROOT / "build" / "chip_smoke_dryrun.json"
+    out_json.parent.mkdir(exist_ok=True)
+    if out_json.exists():
+        out_json.unlink()
+    cut14 = ("yi-9b", "train_4k", "1x1",
+             ("--layers", str(TRAIN_LM_LAYERS), "--batch",
+              str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ)))
+    proc = start_dryrun(out_json, (cut14,))
+    cut = dataclasses.replace(
+        cfg, name=f"yi-9b ({TRAIN_CUT_LAYERS} layers)",
+        superblocks=(SuperBlock(blocks=(("attn", "dense"),),
+                                repeat=TRAIN_CUT_LAYERS),))
+    cstep = make_train_step(cut, TrainConfig(remat=True))
+    cb = [batch_at(DataConfig(vocab=cut.vocab, seq_len=TRAIN_CUT_SEQ,
+                              global_batch=TRAIN_LM_BATCH, seed=4), i)
+          for i in range(2)]
+    lines = []
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp, \
+            sharding_ctx(mesh, fsdp=True):
+        for src_kind in ("sharded", "plain"):
+            p, cax = tf.init_params(cut, 0, device=DEV)
+            if src_kind == "sharded":
+                p = distribute_params(p, cax)
+            o = init_opt_state(p, AdamWConfig())
+            p, o, _ = cstep(p, o, cb[0])
+            mgr = CheckpointManager(f"{tmp}/{src_kind}", async_save=False)
+            t0 = time.perf_counter()
+            mgr.save(0, *checkpoint_trees(p, o))
+            save_s = time.perf_counter() - t0
+            p, o, _ = cstep(p, o, cb[1])           # the uninterrupted run
+            ref = _state_named(p, o)
+            q, _ = tf.init_params(cut, 1, device=DEV)
+            if src_kind == "sharded":            # into plain tensors
+                t0 = time.perf_counter()
+                q, qo, _ = restore(mgr, q, init_opt_state(q, AdamWConfig()))
+            else:                                 # into the (1, 1) mesh
+                meta, _ = tf.abstract_params(cut)
+                sh = param_shardings(cax, meta)
+                qo = init_opt_state(q, AdamWConfig())
+                t0 = time.perf_counter()
+                q, o2, _ = mgr.restore(None, q, *checkpoint_trees(q, qo)[1:],
+                                       shardings=sh,
+                                       opt_shardings={".mu": sh, ".nu": sh})
+                qo = type(qo)(o2[".mu"], o2[".nu"], int(o2[".step"]))
+                if not all(isinstance(t, DTensor) for _, t in _named(q)):
+                    raise RuntimeError("14b: the restore did not reshard "
+                                       "onto the mesh")
+            load_s = time.perf_counter() - t0
+            q, qo, _ = cstep(q, qo, cb[1])
+            bad = _bits_equal(_state_named(q, qo), ref)
+            if bad:
+                raise RuntimeError(f"14b: restored from the {src_kind} "
+                                   f"checkpoint, one step differs from the "
+                                   f"uninterrupted run in {bad[:4]}")
+            into = ("plain tensors" if src_kind == "sharded" else
+                    "DTensors on the (1, 1) mesh (shardings=)")
+            lines.append(f"{src_kind} state saved ({save_s:.1f} s) and "
+                         f"restored into {into} ({load_s:.1f} s): one step "
+                         f"bitwise the uninterrupted run's, all {len(ref)} "
+                         f"leaves")
+            del p, o, q, qo, ref, mgr
+    log(f"[14b reshard-on-load] {cut.name}, seq {TRAIN_CUT_SEQ} x batch "
+        f"{TRAIN_LM_BATCH}, format-2 checkpoints: " + "; ".join(lines)
+        + f" | {card}")
+    torch.cuda.empty_cache()
+    tick("14b reshard-on-load")
+
+    # -- 14c. the dry run -------------------------------------------------
+    try:
+        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"14c: the dry run exited {proc.returncode}: "
+                           f"{text[-2000:]}")
+    res = json.loads(out_json.read_text())
+    failed = {k: v["error"][:300] for k, v in res.items() if "error" in v}
+    if failed:
+        raise RuntimeError(f"14c: dry-run cells failed: {failed}")
+    for key, r in sorted(res.items()):
+        coll = sorted(r["collectives"].items())
+        closed = sum(t.numel() for _, t in _named(tf.abstract_params(
+            dryrun_cfg(r, configs))[0]))
+        if r["n_params"] != closed:
+            raise RuntimeError(f"14c {key}: n_params {r['n_params']} "
+                               f"against the config's {closed}")
+        log(f"[14c dry run] {key}: {r['devices']} device(s), n_params "
+            f"{r['n_params']:,} (= the config's), per device: "
+            f"{r['flops_per_device']:.4e} FLOPs, {r['bytes_per_device']:.4e}"
+            f" bytes, collectives {r['collective_bytes_per_device']:.4e} "
+            f"bytes ({', '.join(f'{k_} {v_:.3e}' for k_, v_ in coll)}), "
+            f"arguments {r['arg_bytes_per_device'] / 2**30:.2f} GiB, peak "
+            f"live {r['temp_bytes_per_device'] / 2**30:.2f} GiB; t_compute "
+            f"{r['t_compute']:.4e} s, t_memory {r['t_memory']:.4e} s, "
+            f"t_collective {r['t_collective']:.4e} s, bottleneck "
+            f"{r['bottleneck']}, roofline fraction "
+            f"{r['roofline_fraction']:.3f} (H100 constants; counted in "
+            f"{r['count_s']} s)")
+    cell = res[f"yi-9b|train_4k|1x1|layers{TRAIN_LM_LAYERS},batch"
+               f"{TRAIN_LM_BATCH},seq{TRAIN_LM_SEQ}"]
+    if (cell["param_bytes_per_device"] + cell["opt_bytes_per_device"]
+            != sharded_bytes or cell["param_bytes_per_device"]
+            != param_bytes):
+        raise RuntimeError(
+            f"14c: the dry run's parameter + optimizer bytes "
+            f"{cell['param_bytes_per_device']} + "
+            f"{cell['opt_bytes_per_device']} against the card's "
+            f"{param_bytes} + {sharded_bytes - param_bytes}")
+    est = cell["temp_bytes_per_device"] + cell["arg_bytes_per_device"]
+    log(f"[14c bytes] {cfg.name} at {TRAIN_LM_SEQ} x {TRAIN_LM_BATCH} on "
+        f"1x1: the dry run's parameter bytes "
+        f"{cell['param_bytes_per_device']:,} and optimizer bytes "
+        f"{cell['opt_bytes_per_device']:,} equal what the card held in 14a "
+        f"({state_bytes:,} in all); its peak-live estimate "
+        f"{cell['temp_bytes_per_device'] / 2**30:.2f} GiB beside the "
+        f"arguments {cell['arg_bytes_per_device'] / 2**30:.2f} GiB (sum "
+        f"{est / 2**30:.2f} GiB) against 14a's plain steps' "
+        f"torch.cuda.max_memory_allocated {plain_peak:.2f} GiB less the "
+        f"{base:.2f} GiB earlier phases held, {plain_peak - base:.2f} GiB "
+        f"(not gated) | {card}")
+    tick("14c dry run")
+
+    # -- 14d. the whole step's roofline -------------------------------------
+    n_active = sum(t.numel() for _, t in _named(tf.abstract_params(cfg)[0]))
+    tokens = TRAIN_LM_SEQ * TRAIN_LM_BATCH
+    step_s = med["plain"] / 1e3
+    mf = roofline.model_flops_share(step_s, n_active, tokens, train=True)
+    of = cell["flops_per_device"] / (step_s * roofline.PEAK_FLOPS)
+    log(f"[14d roofline] {cfg.name}, the plain step's median "
+        f"{med['plain']:.1f} ms (14a): model FLOPs 6·N·D = 6 x "
+        f"{n_active / 1e9:.3f} B x {tokens} = {roofline.model_flops(n_active, tokens, True):.4e} -> "
+        f"{mf:.1%} of {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s; the op "
+        f"counter's FLOPs for the cell (remat's recomputation included) "
+        f"{cell['flops_per_device']:.4e} -> {of:.1%} | {card}")
+    dist.destroy_process_group()
+    tick("14d roofline shares")
+
+
+def dryrun_cfg(rec: dict, configs):
+    """The config a dry-run record counted (its depth cut by ``layers``)."""
+    from repro_torch.launch.dryrun import cut_config
+    full = configs.get_config(rec["arch"])
+    return cut_config(rec["arch"], rec["layers"]
+                      if rec["layers"] != full.n_layers else 0)
+
+
+def _map_local(tree):
+    """A nested dict of DTensors as their local tensors (the same
+    storage)."""
+    return {k: _map_local(v) if isinstance(v, dict) else v.to_local()
+            for k, v in tree.items()}
 
 
 def _named(tree, prefix=""):
@@ -4699,6 +5078,8 @@ def main() -> int:
     # -- 13. LM training ---------------------------------------------------------
     lm_train_phases(results, paths, card, tick)
     tick("13d launcher and every token architecture")
+    # -- 14. the multi-card layer at world size 1, and the dry run ------------
+    sharded_phases(results, paths, card, tick)
 
     # -- result ----------------------------------------------------------------
     table = []

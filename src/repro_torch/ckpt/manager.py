@@ -47,9 +47,17 @@ tensor, on the template's device, so the ``nn.Module`` and ``Parameter``
 objects a session and its trainer hold stay the ones they hold. It
 returns ``(params, opt_state, step)`` as the reference does: trees of the
 templates' shape whose tensor leaves are the templates' tensors and whose
-other leaves (the optimizer's step) are the loaded arrays. (The
-reference's ``shardings=`` / ``opt_shardings=`` have no counterpart on one
-card.)
+other leaves (the optimizer's step) are the loaded arrays.
+
+Reshard-on-load: a template leaf may be a DTensor (its own shard is
+written in place), and ``restore(..., shardings=, opt_shardings=)`` — trees
+of ``dist.NamedSharding`` in the templates' shape, the reference's
+arguments — restores each leaf as a new DTensor of that sharding instead
+(the template then only names the leaf, its dtype and shape; a ``meta``
+tensor will do). A checkpoint is the whole array of every leaf whatever
+mesh saved it, so it restores onto any mesh, or into plain tensors. Under
+a process group of several ranks ``save`` gathers each DTensor leaf on
+every rank (all ranks must call it) and rank 0 alone writes.
 
 The ``last_good`` tag
 ---------------------
@@ -77,6 +85,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..dist.sharding import is_dtensor, whole
 from ..obs import MetricsRegistry, default_registry, span
 
 MANIFEST_FORMAT = 2
@@ -140,11 +149,11 @@ def _rebuild(tree, prefix: str, leaves: dict):
 
 def _snapshot(leaf) -> np.ndarray:
     """A host copy no later in-place update can reach (on the CPU
-    ``.cpu()`` would return the same storage). bf16 has no numpy type: its
-    raw 2-byte elements go in as ``|V2``, as the reference's bf16 arrays
-    land in an npz."""
+    ``.cpu()`` would return the same storage); a DTensor's whole array.
+    bf16 has no numpy type: its raw 2-byte elements go in as ``|V2``, as
+    the reference's bf16 arrays land in an npz."""
     if isinstance(leaf, torch.Tensor):
-        host = leaf.detach().to("cpu", copy=True)
+        host = whole(leaf).detach().to("cpu", copy=True)
         if host.dtype == torch.bfloat16:
             return host.view(torch.int16).numpy().view("V2")
         return host.numpy()
@@ -156,6 +165,28 @@ def _from_host(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     if arr.dtype.kind == "V" and like.dtype == torch.bfloat16:
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def _rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _place(arr: np.ndarray, like: torch.Tensor, sharding) -> torch.Tensor:
+    """``arr`` in ``like``'s dtype as a DTensor: with ``sharding`` (a
+    ``dist.NamedSharding``) on its mesh's device, else as ``like`` is
+    placed; each rank keeps its own shard."""
+    from torch.distributed.tensor import distribute_tensor
+    t = _from_host(arr, like).to(like.dtype)
+    if sharding is not None:
+        mesh, placements = sharding.mesh, sharding.placements
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda" else torch.device("cpu"))
+    else:
+        mesh, placements = like.device_mesh, like.placements
+        dev = like.to_local().device
+    return distribute_tensor(t.to(dev), mesh, placements, src_data_rank=None)
 
 
 def _crc(a: np.ndarray) -> int:
@@ -199,6 +230,8 @@ class CheckpointManager:
         meta = {"step": step, **(extra or {})}
         self._join_writer()   # backpressure: at most one write in flight;
                               # also surfaces the previous write's error
+        if _rank() != 0:
+            return            # rank 0 writes the gathered arrays
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write_captured, args=(step, blob, meta),
@@ -322,9 +355,12 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, step: Optional[int], params_template,
-                opt_template=None, *, verify: bool = True,
-                fallback: bool = False) -> Tuple[Any, Any, int]:
-        """Restore into the templates' own tensors (module doc).
+                opt_template=None, shardings=None, opt_shardings=None, *,
+                verify: bool = True, fallback: bool = False
+                ) -> Tuple[Any, Any, int]:
+        """Restore into the templates' own tensors, or with ``shardings`` /
+        ``opt_shardings`` into new DTensors of those shardings (module
+        doc: reshard-on-load).
 
         ``step=None`` restores the newest checkpoint. ``verify=True``
         (default) checks every array against the manifest CRC32 and raises
@@ -349,6 +385,7 @@ class CheckpointManager:
             try:
                 with span("ckpt/restore", self.metrics):
                     return self._restore_one(s, params_template, opt_template,
+                                             shardings, opt_shardings,
                                              verify=verify)
             except CheckpointCorruptionError as e:
                 self.verify_failures += 1
@@ -362,8 +399,9 @@ class CheckpointManager:
                        f"checkpoints failed verification") from err
         raise err
 
-    def _restore_one(self, step: int, params_template, opt_template, *,
-                     verify: bool) -> Tuple[Any, Any, int]:
+    def _restore_one(self, step: int, params_template, opt_template,
+                     shardings, opt_shardings, *, verify: bool
+                     ) -> Tuple[Any, Any, int]:
         path = os.path.join(self.dir, f"ckpt_{step:08d}.npz")
         mpath = os.path.join(self.dir, f"ckpt_{step:08d}.json")
         try:
@@ -401,11 +439,12 @@ class CheckpointManager:
 
         # every array is found and shape-checked before the first copy, so
         # a rejected checkpoint leaves the templates untouched
-        groups = [("params", params_template)]
+        groups = [("params", params_template, shardings)]
         if opt_template is not None:
-            groups.append(("opt", opt_template))
+            groups.append(("opt", opt_template, opt_shardings))
         plan = []
-        for group, template in groups:
+        for group, template, placed in groups:
+            placed = _leaves(placed) if placed is not None else {}
             for key, leaf in _leaves(template).items():
                 arr = data.get(f"{group}::{key}")
                 if arr is None:
@@ -418,12 +457,17 @@ class CheckpointManager:
                         path, key=f"{group}::{key}",
                         reason=f"shape {tuple(arr.shape)} does not match "
                                f"the template's {tuple(np.shape(leaf))}")
-                plan.append((group, key, leaf, arr))
+                plan.append((group, key, leaf, arr, placed.get(key)))
         restored: Dict[str, dict] = {"params": {}, "opt": {}}
         with torch.no_grad():
-            for group, key, leaf, arr in plan:
-                if isinstance(leaf, torch.Tensor):
-                    leaf.copy_(_from_host(arr, leaf))
+            for group, key, leaf, arr, sharding in plan:
+                if sharding is not None:
+                    restored[group][key] = _place(arr, leaf, sharding)
+                elif isinstance(leaf, torch.Tensor):
+                    if is_dtensor(leaf):
+                        leaf.copy_(_place(arr, leaf, None))
+                    else:
+                        leaf.copy_(_from_host(arr, leaf))
                     restored[group][key] = leaf
                 else:
                     restored[group][key] = arr

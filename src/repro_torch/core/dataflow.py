@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..kernels import opcount
 # the fixed-panel row contraction lives beside the dW kernel as its plain
 # version; re-exported here, where the reference defines it
 from ..kernels.dw_gather_gemm import chunked_rowdot  # noqa: F401
@@ -154,10 +155,13 @@ def os_torch(features: torch.Tensor, m: torch.Tensor, weights: torch.Tensor,
 
 
 def _os_primal(features, m, weights, fuse, backend, bm, bn):
-    if kops.resolve_backend(backend, features):
-        return kops.spconv_os_fused(features, m, weights, backend="cuda",
-                                    bm=bm, bn=bn)
-    return os_torch(features, m, weights, fuse=fuse)
+    # counted by the kernel's closed form whichever runs (kernels.opcount)
+    with opcount.kernel("spconv_gather_gemm",
+                        *kops.gemm_counts(features, m, weights)):
+        if kops.resolve_backend(backend, features):
+            return kops.spconv_os_fused(features, m, weights, backend="cuda",
+                                        bm=bm, bn=bn)
+        return os_torch(features, m, weights, fuse=fuse)
 
 
 def ws_torch(features: torch.Tensor, m: torch.Tensor, weights: torch.Tensor,
@@ -172,10 +176,13 @@ def ws_torch(features: torch.Tensor, m: torch.Tensor, weights: torch.Tensor,
 
 
 def _ws_primal(features, m, weights, capacity, backend, bm, bn, cols=None):
-    if kops.resolve_backend(backend, features):
-        return kops.spconv_ws_fused(features, m, weights, capacity=capacity,
-                                    backend="cuda", bm=bm, bn=bn, cols=cols)
-    return ws_torch(features, m, weights, capacity=capacity, cols=cols)
+    with opcount.kernel("ws_scatter_gemm", *kops.gemm_counts(
+            features, m, weights, capacity, cols=cols)):
+        if kops.resolve_backend(backend, features):
+            return kops.spconv_ws_fused(features, m, weights,
+                                        capacity=capacity, backend="cuda",
+                                        bm=bm, bn=bn, cols=cols)
+        return ws_torch(features, m, weights, capacity=capacity, cols=cols)
 
 
 def ws_kept_map(m: torch.Tensor, capacity: int) -> torch.Tensor:

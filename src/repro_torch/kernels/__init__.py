@@ -26,7 +26,9 @@ plain PyTorch version and a launch counter on its wrapper:
                        csrc/flash_attention_bwd.cu)
 
 ``ops.resolve_backend`` decides kernel or plain version by backend string
-and tensor device; ``_build`` compiles ``csrc/`` with nvcc on first use.
+and tensor device; ``_build`` compiles ``csrc/`` with nvcc on first use;
+``opcount`` holds the hooks through which the kernels' closed forms reach
+an operation counter (``launch.op_analysis``).
 """
 from . import (dw_gather_gemm, flash_attention, masked_group_gemm, ops,
                segsum, spconv_gather_gemm, ws_scatter_gemm, zdelta_window)

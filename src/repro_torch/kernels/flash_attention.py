@@ -41,7 +41,7 @@ gradient of :func:`flash_attention_torch`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -66,13 +66,17 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, scale: float,
                           q_offset: Union[int, torch.Tensor, None] = None,
                           kv_len: Optional[torch.Tensor] = None,
-                          kv_chunk: Optional[int] = None) -> torch.Tensor:
+                          kv_chunk: Optional[int] = None,
+                          on_scores: Optional[Callable] = None
+                          ) -> torch.Tensor:
     """Plain version, any device. q ``[B, Sq, H, D]``, k/v ``[B, Skv, KV,
     D]``; returns ``[B, Sq, H, D]`` in q's dtype. ``q_offset`` is the
     absolute position of ``q[:, 0]`` (default ``Skv - Sq``, the kernel's
     end-aligned diagonal); ``kv_len`` ([B] or scalar) masks keys at or past
     it; ``kv_chunk`` is the reference's chunk (default: all keys in one;
-    a chunk that does not divide Skv also means one)."""
+    a chunk that does not divide Skv also means one). ``on_scores``, when
+    given, maps each chunk's fp32 scores ``[B, KV, G, Sq, chunk]`` before
+    the mask (the caller's sharding constraint)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -93,6 +97,8 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ks = k[:, c0:c0 + chunk].float()
         vs = v[:, c0:c0 + chunk]
         s = torch.einsum("bqngd,bknd->bngqk", qg, ks) * scale
+        if on_scores is not None:
+            s = on_scores(s)
         kpos = c0 + torch.arange(chunk, device=dev)
         mask = torch.ones((B, Sq, chunk), dtype=torch.bool, device=dev)
         if causal:

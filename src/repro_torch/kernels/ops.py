@@ -22,6 +22,7 @@ import torch
 
 from .dw_gather_gemm import dw_gather_gemm, dw_gather_gemm_torch
 from .flash_attention import flash_attention, flash_attention_torch
+from . import opcount
 from .masked_group_gemm import masked_group_gemm, masked_group_gemm_torch
 from .spconv_gather_gemm import (TILE_M, _tile_for, spconv_gather_gemm,
                                  spconv_gather_gemm_torch)
@@ -43,6 +44,30 @@ def resolve_backend(backend: str, tensor: torch.Tensor) -> bool:
         raise ValueError(f"backend='cuda' needs a CUDA tensor, got one on "
                          f"{tensor.device}")
     return on_cuda
+
+
+def gemm_counts(features: torch.Tensor, m: torch.Tensor,
+                weights: torch.Tensor, capacity: int = 0, cols=None):
+    """The closed form of a gather GEMM over the map ``m [M, Kd]`` (PERF.md's
+    kernel table): ``2 · pairs · Cin · Cout`` operations, ``pairs`` the
+    valid entries (per column at most ``capacity`` when given: the WS
+    kept pairs; only the map columns ``cols`` when given); bytes: the
+    features, the map and the weights read once, an fp32 ``[M, Cout]``
+    written once. Computed only under a counter: outside one it touches
+    no tensor."""
+    if not opcount.counting():
+        return 0.0, 0.0
+    with opcount.uncounted():
+        if cols is not None:
+            m = m[:, cols.long()]
+        per_col = (m >= 0).sum(0)
+        if capacity:
+            per_col = per_col.clamp(max=capacity)
+        pairs = float(per_col.sum())
+    cin, cout = features.shape[-1], weights.shape[-1]
+    nb = (features.numel() * features.element_size() + 4 * m.numel()
+          + weights.numel() * weights.element_size() + 4 * m.shape[0] * cout)
+    return 2.0 * pairs * cin * cout, nb
 
 
 def spconv_os_fused(features: torch.Tensor, m: torch.Tensor,
@@ -97,9 +122,10 @@ def spconv_dw_fused(features: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
     row contraction in fixed panels (``kernels.dw_gather_gemm``): one
     kernel for all offsets on the card, the panel loop in torch
     otherwise."""
-    if resolve_backend(backend, features):
-        return dw_gather_gemm(features, m, g)
-    return dw_gather_gemm_torch(features, m, g)
+    with opcount.kernel("dw_gather_gemm", *gemm_counts(features, m, g)):
+        if resolve_backend(backend, features):
+            return dw_gather_gemm(features, m, g)
+        return dw_gather_gemm_torch(features, m, g)
 
 
 def output_stationary_fused(features: torch.Tensor, m: torch.Tensor,

@@ -44,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import opcount
 from . import _build
 from .ops import resolve_backend
 
@@ -248,8 +249,10 @@ def segment_sum(x: torch.Tensor, sid: torch.Tensor, starts: torch.Tensor,
     under the canonical schedule; the kernel or the plain version by
     ``spec.backend`` (``kernels.ops.resolve_backend``). Differentiable: the
     backward is :func:`segment_gather`'s elementwise broadcast."""
-    return _SegmentSum.apply(x, sid, starts, counts, num_segments,
-                             spec or SegmentSpec())
+    with opcount.kernel("segment_sum", 0.0, x.numel() * x.element_size()
+                        + 4 * (sid.numel() + num_segments * x.shape[-1])):
+        return _SegmentSum.apply(x, sid, starts, counts, num_segments,
+                                 spec or SegmentSpec())
 
 
 def segment_gather(v: torch.Tensor, sid: torch.Tensor, starts: torch.Tensor,

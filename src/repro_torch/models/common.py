@@ -8,17 +8,24 @@ x's dtype and multiplies by ``1 + g`` in x's dtype; :func:`rope` builds
 fp32 angles and casts cos/sin to x's dtype before the products; ``gelu``
 is the tanh approximation (``jax.nn.gelu``'s default).
 
-The port runs on one card, so the logical sharding axes of the reference
-are not recorded.
+Every parameter is created through ``ParamCtx.param`` with the
+reference's *logical axis names*, recorded in the ctx's ``axes`` table
+(slash-joined tree path → axes, a stacked leaf's with a leading
+``"layers"``), which ``transformer.init_params`` and ``abstract_params``
+return beside the tree; logical→mesh resolution lives in
+``dist/sharding.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Literal, Optional, Tuple
+from typing import Dict, Literal, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..dist.sharding import is_dtensor, local_linear, whole
 
 BlockKind = Literal["attn", "mamba", "mlstm", "slstm"]
 FfnKind = Literal["dense", "moe", "none"]
@@ -106,7 +113,37 @@ def _stacked(stack: int, shape) -> Tuple[int, ...]:
     return ((stack,) if stack else ()) + tuple(shape)
 
 
-class ParamCtx:
+class _AxesCtx:
+    """The logical-axes bookkeeping of the reference's ``ParamCtx``: a
+    scope path, and ``axes[path] = logical`` for every leaf made (with a
+    leading ``"layers"`` when ``stack`` > 0). Ctxs that build one tree
+    share one ``axes`` dict."""
+
+    def __init__(self, stack: int = 0, axes: Optional[dict] = None,
+                 prefix: Tuple[str, ...] = ()):
+        self.stack = stack
+        self.axes: Dict[str, Tuple[Optional[str], ...]] = (
+            {} if axes is None else axes)
+        self._path = list(prefix)
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        self._path.append(name)
+        try:
+            yield
+        finally:
+            self._path.pop()
+
+    def _record(self, name: str, shape, logical) -> Tuple[int, ...]:
+        if len(shape) != len(logical):
+            raise ValueError(f"{name}: shape {tuple(shape)} with axes "
+                             f"{logical}")
+        self.axes["/".join(self._path + [name])] = (
+            (("layers",) if self.stack else ()) + tuple(logical))
+        return _stacked(self.stack, shape)
+
+
+class ParamCtx(_AxesCtx):
     """Draws parameters from an explicit ``torch.Generator`` with the
     reference's distributions: normal · (1/√fan_in), fan_in = ``shape[-2]``
     (``shape[-1]`` for vectors), or an explicit ``scale``; ``"zeros"`` /
@@ -118,15 +155,17 @@ class ParamCtx:
     tests convert JAX parameters instead."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype,
-                 device, stack: int = 0):
+                 device, stack: int = 0, axes: Optional[dict] = None,
+                 prefix: Tuple[str, ...] = ()):
+        super().__init__(stack, axes, prefix)
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
-        self.stack = stack
 
-    def param(self, shape: Tuple[int, ...], init: str = "normal",
+    def param(self, name: str, shape: Tuple[int, ...],
+              logical: Tuple[Optional[str], ...], init: str = "normal",
               scale: Optional[float] = None) -> torch.Tensor:
-        full = _stacked(self.stack, shape)
+        full = self._record(name, shape, logical)
         if init in ("zeros", "ones"):
             fill = torch.zeros if init == "zeros" else torch.ones
             return fill(full, dtype=self.dtype, device=self.device)
@@ -143,31 +182,61 @@ class ParamCtx:
                                         device=self.device) * s)
         return out
 
-    def const(self, value: torch.Tensor) -> torch.Tensor:
+    def const(self, name: str, value: torch.Tensor,
+              logical: Tuple[Optional[str], ...]) -> torch.Tensor:
         """A deterministic leaf (the same in every layer), in the ctx's
         dtype on its device."""
+        self._record(name, value.shape, logical)
         v = value.to(device=self.device, dtype=self.dtype)
         return v.expand(_stacked(self.stack, v.shape)).clone()
 
 
-class ShapeCtx:
+class ShapeCtx(_AxesCtx):
     """:class:`ParamCtx`'s interface returning each leaf's shape instead of
-    drawing it: the parameter tree's shapes from the init code itself."""
+    drawing it: the parameter tree's shapes (and axes) from the init code
+    itself."""
 
-    def __init__(self, stack: int = 0):
-        self.stack = stack
+    def param(self, name: str, shape, logical, init: str = "normal",
+              scale=None) -> Tuple[int, ...]:
+        return self._record(name, shape, logical)
 
-    def param(self, shape, init: str = "normal", scale=None
+    def const(self, name: str, value: torch.Tensor, logical
               ) -> Tuple[int, ...]:
-        return _stacked(self.stack, shape)
-
-    def const(self, value: torch.Tensor) -> Tuple[int, ...]:
-        return _stacked(self.stack, value.shape)
+        return self._record(name, value.shape, logical)
 
 
 # ---------------------------------------------------------------------------
 # shared math
 # ---------------------------------------------------------------------------
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w.to(x.dtype)
+
+
+def _glu_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).unflatten(
+        -1, w.shape[1:])
+
+
+def store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` into a whole (plain) ``dst`` —
+    a serving engine's cache under a sharded model — as its whole
+    tensor."""
+    dst.copy_(src if is_dtensor(dst) else whole(src))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in x's dtype (w cast to it); per rank on DTensors
+    (``dist.sharding.local_linear``)."""
+    return local_linear(_matmul, x, w)
+
+
+def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...d,d...->......")``: x ``[..., d]`` against w ``[d, *o]``
+    as one matmul over w's trailing dims flattened, then unflattened; per
+    rank on DTensors."""
+    return local_linear(_glu_local, x, w)
+
 
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:

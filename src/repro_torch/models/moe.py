@@ -15,8 +15,15 @@ be captured as a CUDA graph.
 The rank is an inclusive scan along the tokens of the one-hot's transpose
 ``[E, N·k]`` (a scan over the inner axis; the outer-axis ``cumsum`` is slow
 on the card). The expert GEMMs are ``torch.bmm`` over the expert axis: the
-reference computes them with XLA einsums, not a Pallas kernel. The port
-runs on one card: there is no ``shard_act``.
+reference computes them with XLA einsums, not a Pallas kernel.
+
+Under a mesh the slot buffer and the expert GEMMs' outputs pass through
+``shard_act`` at the reference's sites (``("experts", "expert_cap",
+...)``), and each rank runs the GLU of its own experts
+(``_per_expert_rank``). The routing, the slot-table scatter and the
+gather back run on the tokens of the whole batch, replicated on every
+rank (``_replicated``): their scans and scatters cross the batch's
+shards, which DTensor cannot partition.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ from typing import Tuple
 
 import torch
 
-from .common import ModelConfig, ParamCtx, act_fn, rms_norm
+from ..dist.sharding import is_dtensor, shard_act
+from .common import (ModelConfig, ParamCtx, act_fn, matmul, proj,
+                     rms_norm)
 
 __all__ = ["moe_init", "capacity_for", "route", "moe_fwd",
            "aux_load_balance_loss"]
@@ -33,15 +42,18 @@ __all__ = ["moe_init", "capacity_for", "route", "moe_fwd",
 def moe_init(ctx: ParamCtx, cfg: ModelConfig) -> dict:
     dm, dff, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
     p = {
-        "norm": ctx.param((dm,), init="zeros"),
-        "router": ctx.param((dm, E), scale=0.02),
-        "wi": ctx.param((E, dm, 2, dff)),
-        "wo": ctx.param((E, dff, dm)),
+        "norm": ctx.param("norm", (dm,), ("d_model",), init="zeros"),
+        "router": ctx.param("router", (dm, E), ("d_model", None), scale=0.02),
+        "wi": ctx.param("wi", (E, dm, 2, dff),
+                        ("experts", "d_model_fsdp", None, "expert_ff")),
+        "wo": ctx.param("wo", (E, dff, dm),
+                        ("experts", "expert_ff", "d_model_fsdp")),
     }
     if cfg.n_shared_experts:
         sdff = dff * cfg.n_shared_experts
-        p["swi"] = ctx.param((dm, 2, sdff))
-        p["swo"] = ctx.param((sdff, dm))
+        p["swi"] = ctx.param("swi", (dm, 2, sdff),
+                             ("d_model_fsdp", None, "d_ff"))
+        p["swo"] = ctx.param("swo", (sdff, dm), ("d_ff", "d_model_fsdp"))
     return p
 
 
@@ -81,47 +93,108 @@ def route(p: dict, cfg: ModelConfig, h: torch.Tensor):
     return logits, gate, eidx, pos, pos < C
 
 
-def moe_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    B, S, dm = x.shape
-    E, k, dff = cfg.n_experts, cfg.top_k, cfg.d_ff_expert
-    N = B * S
+def _replicated(fn, n_out: int, *args):
+    """``fn(*args)`` on plain tensors; on DTensors through ``local_map``
+    with every argument replicated on every rank (all-gathered) and each of
+    its ``n_out`` outputs replicated."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a for a in args if is_dtensor(a)).device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    args = [a.redistribute(mesh, rep) if is_dtensor(a) else a for a in args]
+    return local_map(fn, out_placements=(rep,) * n_out,
+                     in_placements=tuple(rep if is_dtensor(a) else None
+                                         for a in args),
+                     device_mesh=mesh)(*args)
+
+
+def _dispatch(p: dict, cfg: ModelConfig, h: torch.Tensor):
+    """Route the tokens ``h [N, d]`` and fill the slot buffer: (``dest [N,
+    k]`` each choice's slot, ``E·C`` for a dropped one; ``keep``; the
+    gates; ``buf [E·C, d]``)."""
+    N, dm = h.shape
+    E, k = cfg.n_experts, cfg.top_k
     C = capacity_for(cfg, N)
-
-    h = rms_norm(x, p["norm"], cfg.norm_eps).reshape(N, dm)
     _, gate, eidx, pos, keep = route(p, cfg, h)
-
     # dispatch: token ids into the slot table (one sink row past E·C takes
     # the dropped choices), then the embeddings gathered
     dest = torch.where(keep, eidx * C + pos, E * C)
     tok_of = torch.arange(N, dtype=torch.int32,
-                          device=x.device)[:, None].expand(N, k)
+                          device=h.device)[:, None].expand(N, k)
     slot_tok = torch.full((E * C + 1,), N, dtype=torch.int32,
-                          device=x.device)
+                          device=h.device)
     slot_tok.scatter_(0, dest.reshape(-1), tok_of.reshape(-1))
     slot_tok = slot_tok[:E * C]
-    hx = h.to(x.dtype)
     buf = torch.where((slot_tok < N)[:, None],
-                      hx[slot_tok.clamp(0, N - 1).long()],
-                      torch.zeros((), dtype=x.dtype, device=x.device))
+                      h[slot_tok.clamp(0, N - 1).long()],
+                      torch.zeros((), dtype=h.dtype, device=h.device))
+    return dest, keep, gate, buf
 
-    # batched expert GLU: "ecd,edgf->ecgf", then "ecf,efd->ecd"
-    wi = p["wi"].to(x.dtype).reshape(E, dm, 2 * dff)
-    gu = torch.bmm(buf.reshape(E, C, dm), wi).reshape(E, C, 2, dff)
-    a = act_fn(cfg.act)(gu[:, :, 0]) * gu[:, :, 1]
-    out_buf = torch.bmm(a, p["wo"].to(x.dtype)).reshape(E * C, dm)
 
-    # gather back, weighted by the gates
-    gathered = out_buf[dest.clamp(0, E * C - 1).long()]      # [N, k, dm]
-    gathered = gathered * keep[..., None].to(x.dtype) * gate[..., None]
-    out = gathered.sum(dim=1)
+def _expert_glu(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                act) -> torch.Tensor:
+    """The batched expert GLU over the slot buffer ``buf [E, C, d]``:
+    "ecd,edgf->ecgf", then "ecf,efd->ecd", in buf's dtype."""
+    E, C, dm = buf.shape
+    gu = torch.bmm(buf, wi.to(buf.dtype).reshape(E, dm, -1)).reshape(
+        E, C, 2, -1)
+    a = act(gu[:, :, 0]) * gu[:, :, 1]
+    return torch.bmm(a, wo.to(buf.dtype))
+
+
+def _per_expert_rank(fn, buf, wi, wo):
+    """``fn(buf, wi, wo)`` on plain tensors; on DTensors through
+    ``local_map``, each rank on its experts (the mesh dims that split wi's
+    expert dim, the reference's ``("experts", ...)`` constraints), the
+    weights' other splits (FSDP's) gathered."""
+    if not is_dtensor(wi):
+        return fn(buf, wi, wo)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = wi.device_mesh
+    ep = tuple(Shard(0) if p == Shard(0) else Replicate()
+               for p in wi.placements)
+    args = [t.redistribute(mesh, ep) for t in (buf, wi, wo)]
+    return local_map(fn, out_placements=(ep,), in_placements=(ep,) * 3,
+                     in_grad_placements=(ep,) * 3, device_mesh=mesh)(*args)
+
+
+def _combine(out_buf: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+             gate: torch.Tensor) -> torch.Tensor:
+    """Gather the expert outputs ``out_buf [E, C, d]`` back to their
+    tokens, weighted by the gates: ``[N, d]``."""
+    out_buf = out_buf.reshape(-1, out_buf.shape[-1])
+    gathered = out_buf[dest.clamp(0, out_buf.shape[0] - 1).long()]
+    gathered = gathered * keep[..., None].to(out_buf.dtype) * gate[..., None]
+    return gathered.sum(dim=1)
+
+
+def moe_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    B, S, dm = x.shape
+    E, N = cfg.n_experts, B * S
+    C = capacity_for(cfg, N)
+
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    dest, keep, gate, buf = _replicated(
+        lambda h3, r: _dispatch({"router": r}, cfg, h3.reshape(N, dm)), 4,
+        h, p["router"])
+    buf = shard_act(buf.reshape(E, C, dm), ("experts", "expert_cap", None))
+
+    out_buf = _per_expert_rank(
+        lambda b, wi, wo: _expert_glu(b, wi, wo, act_fn(cfg.act)), buf,
+        p["wi"], p["wo"])
+    out_buf = shard_act(out_buf, ("experts", "expert_cap", None))
+    out = _replicated(_combine, 1, out_buf, dest, keep, gate)
+    out = out.reshape(B, S, dm)
 
     if cfg.n_shared_experts:
-        swi = p["swi"].to(x.dtype)
-        sgu = (hx @ swi.reshape(dm, -1)).unflatten(-1, swi.shape[1:])
-        out = out + (act_fn(cfg.act)(sgu[:, 0]) * sgu[:, 1]) \
-            @ p["swo"].to(x.dtype)
+        sgu = proj(h, p["swi"])
+        out = out + matmul(act_fn(cfg.act)(sgu[:, :, 0]) * sgu[:, :, 1],
+                           p["swo"])
 
-    return x + out.reshape(B, S, dm)
+    return x + shard_act(out, ("batch", "seq", "d_model"))
 
 
 def aux_load_balance_loss(logits: torch.Tensor, eidx: torch.Tensor,

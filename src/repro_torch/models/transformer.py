@@ -11,7 +11,9 @@ FFNs; inputs are tokens, frame or patch embeddings (musicgen), or
 embeddings as a prefix of tokens (pixtral's image prefix).
 
 Entry points:
-  init_params(...)      parameters from a seeded ``torch.Generator``
+  init_params(...)      parameters from a seeded ``torch.Generator``, and
+                        the logical-axes table (path → axes)
+  abstract_params(...)  the same tree on the ``meta`` device, and the axes
   forward(...)          full-sequence logits
   init_decode_state     static-size per-layer caches (KV, recurrent state)
   prefill(...)          populate caches from a prompt
@@ -26,6 +28,12 @@ forward and backward kernels (``layers.grouped_attention``).
 superblock repeat: ``torch.utils.checkpoint`` around each repeat, which
 saves the repeat's input and recomputes its inside in the backward.
 
+Under a mesh (``dist.sharding_ctx``, DTensor parameters from
+``dist.distribute_params``) the activations pass through ``shard_act`` at
+the reference's sites: the embedded input, the residual stream after each
+superblock repeat (``seq_sp``: Megatron-SP), the logits; the loss's
+log-sum-exp then runs over the vocabulary's shards (:class:`_LogSumExp`).
+
 A stacked leaf may also be a tuple of per-layer tensors (``t[r]`` reads
 either): the LM training step hands the model per-layer leaves that share
 the stacks' storage, so that autograd returns one gradient per layer
@@ -38,8 +46,9 @@ from typing import Dict, Iterator, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import is_dtensor, shard_act
 from . import layers, mamba, moe, xlstm
-from .common import (ModelConfig, ParamCtx, ShapeCtx, SuperBlock,
+from .common import (ModelConfig, ParamCtx, ShapeCtx, SuperBlock, matmul,
                      rms_norm)
 
 BLOCK_INIT = {"attn": layers.attn_init, "mamba": mamba.mamba_init,
@@ -133,48 +142,72 @@ def _repeat_fwd(sb: SuperBlock, lp: dict, cfg: ModelConfig,
     for bi, (kind, ffn) in enumerate(sb.blocks):
         x = _block_fwd(kind, lp[f"b{bi}"], cfg, x, positions, backend)
         x = _ffn(ffn, lp.get(f"f{bi}", {}), cfg, x)
-    return x
+    # sequence-parallel residual stream between repeats (what remat saves)
+    return shard_act(x, ("batch", "seq_sp", "d_model"))
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
-def _init_tree(cfg: ModelConfig, make_ctx) -> dict:
-    """The parameter tree, each leaf made by ``make_ctx(stack)``'s
-    ``param`` / ``const`` (drawn, or only its shape)."""
+def _init_tree(cfg: ModelConfig, make_ctx) -> Tuple[dict, dict]:
+    """The parameter tree and its logical-axes table, each leaf made by
+    ``make_ctx(stack, axes, prefix)``'s ``param`` / ``const`` (drawn, or
+    only its shape), the axes keyed by the reference's paths."""
     check_supported(cfg)
-    ctx = make_ctx(0)
+    axes: Dict[str, tuple] = {}
+    ctx = make_ctx(0, axes, ())
     params: Dict[str, object] = {}
     if not cfg.embedding_inputs:
-        params["embed"] = ctx.param((cfg.vocab, cfg.d_model), scale=0.02)
-    params["final_norm"] = ctx.param((cfg.d_model,), init="zeros")
+        params["embed"] = ctx.param("embed", (cfg.vocab, cfg.d_model),
+                                    ("vocab", "d_model"), scale=0.02)
+    params["final_norm"] = ctx.param("final_norm", (cfg.d_model,),
+                                     ("d_model",), init="zeros")
     if not cfg.tie_embeddings:
-        params["lm_head"] = ctx.param((cfg.d_model, cfg.vocab))
+        params["lm_head"] = ctx.param("lm_head", (cfg.d_model, cfg.vocab),
+                                      ("d_model", "vocab"))
     for si, sb in enumerate(cfg.superblocks):
-        stacked = make_ctx(sb.repeat)
+        stacked = make_ctx(sb.repeat, axes, (f"sb{si}",))
         p = {}
         for bi, (kind, ffn) in enumerate(sb.blocks):
-            p[f"b{bi}"] = BLOCK_INIT[kind](stacked, cfg)
+            with stacked.scope(f"b{bi}"):
+                p[f"b{bi}"] = BLOCK_INIT[kind](stacked, cfg)
             if ffn in FFN_INIT:
-                p[f"f{bi}"] = FFN_INIT[ffn](stacked, cfg)
+                with stacked.scope(f"f{bi}"):
+                    p[f"f{bi}"] = FFN_INIT[ffn](stacked, cfg)
         params[f"sb{si}"] = p
-    return params
+    return params, axes
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"
+                ) -> Tuple[dict, dict]:
     """Random parameters on ``device`` from ``torch.Generator(seed)`` with
-    the reference's distributions (``ParamCtx``), in ``cfg.dtype``."""
+    the reference's distributions (``ParamCtx``), in ``cfg.dtype``; returns
+    ``(params, axes)``, ``axes`` the logical-axes table (slash-joined path
+    → axes) that ``dist.param_shardings`` reads."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return _init_tree(cfg, lambda stack: ParamCtx(gen, cfg.param_dtype,
-                                                  device, stack=stack))
+    return _init_tree(cfg, lambda stack, axes, prefix: ParamCtx(
+        gen, cfg.param_dtype, device, stack=stack, axes=axes, prefix=prefix))
+
+
+def abstract_params(cfg: ModelConfig) -> Tuple[dict, dict]:
+    """``(params, axes)`` as :func:`init_params` returns them, every leaf an
+    empty tensor on the ``meta`` device in ``cfg.dtype``: nothing
+    allocated (the dry run's path)."""
+    shapes, axes = _init_tree(cfg, ShapeCtx)
+
+    def meta(tree):
+        return {k: meta(v) if isinstance(v, dict)
+                else torch.empty(v, dtype=cfg.param_dtype, device="meta")
+                for k, v in tree.items()}
+    return meta(shapes), axes
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's leaf shapes (the JAX tree's), nothing
     allocated."""
-    return _init_tree(cfg, ShapeCtx)
+    return _init_tree(cfg, ShapeCtx)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -189,19 +222,64 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict
     dev = params["final_norm"].device
     parts = []
     if batch.get("embeds") is not None:
-        parts.append(torch.as_tensor(batch["embeds"], device=dev)
-                     .to(cfg.param_dtype))
+        parts.append(_on(batch["embeds"], dev).to(cfg.param_dtype))
     if batch.get("tokens") is not None:
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        parts.append(params["embed"].to(cfg.param_dtype)[tokens.long()])
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        tokens = _on(batch["tokens"], dev)
+        parts.append(_lookup(params["embed"], tokens.long(),
+                             cfg.param_dtype))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return shard_act(x, ("batch", "seq", "d_model"))
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor, dtype
+            ) -> torch.Tensor:
+    """``table.to(dtype)[tokens]``, on plain tensors and DTensors alike
+    through ``local_map`` (which hands plain tensors to the local function
+    as they are). On a DTensor table each rank looks up in its own
+    vocabulary shard, 0 for a token outside it (a partial sum over the
+    vocabulary's mesh dim, reduced by the caller's ``shard_act``); neither
+    the lookup nor its backward's accumulation holds the whole table."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, split = None, []
+    tp = ip = op = tg = ()
+    if is_dtensor(table):
+        mesh = table.device_mesh
+        tp = tuple(p if p == Shard(0) else Replicate()
+                   for p in table.placements)
+        split = [i for i, p in enumerate(tp) if p == Shard(0)]
+        # plain tokens: the same ids on every rank
+        ip = tuple(p if p.is_shard() and i not in split else Replicate()
+                   for i, p in enumerate(tokens.placements)) if is_dtensor(
+            tokens) else (Replicate(),) * mesh.ndim
+        op = tuple(Partial() if i in split else p for i, p in enumerate(ip))
+        # the table's gradient is a partial sum over the tokens' shards
+        tg = tuple(Partial() if p.is_shard() else t for p, t in zip(ip, tp))
+
+    def local(tab, tok):
+        off = mesh.get_coordinate()[split[0]] * tab.shape[0] if split else 0
+        idx = tok - off
+        inside = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab.to(dtype)[idx.clamp(0, tab.shape[0] - 1)]
+        return torch.where(inside[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+    return local_map(local, out_placements=(op,), in_placements=(tp, ip),
+                     in_grad_placements=(tg, ip), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
+def _on(x, dev) -> torch.Tensor:
+    """An array as a tensor on ``dev``; a DTensor as it is."""
+    return x if is_dtensor(x) else torch.as_tensor(x, device=dev)
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    return shard_act(matmul(x, head),
+                     ("batch", "seq", "vocab"))
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -231,14 +309,84 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     With both embeddings and tokens only the token suffix counts. No MoE
     auxiliary loss: the reference's loss has none."""
     logits = forward(params, cfg, batch, remat=remat, backend=backend)
-    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    labels = _on(batch["labels"], logits.device)
     if batch.get("embeds") is not None and batch.get("tokens") is not None:
         logits = logits[:, -labels.shape[1]:]        # VLM: the token suffix
     mask = (labels >= 0).float()
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
-    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+    lse = _LogSumExp.apply(logits)
+    gold = _gold(logits, labels.clamp(min=0).long())
+    return _total((lse - gold) * mask) / torch.clamp(_total(mask), min=1.0)
+
+
+def _total(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sum(x)``; on a DTensor each rank sums its shard (a partial
+    sum over the mesh dims that split x), so that the backward hands each
+    rank the gradient of its own shard rather than of the whole."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    xp = op = ()
+    if is_dtensor(x):
+        xp = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+        op = tuple(Partial() if p.is_shard() else Replicate() for p in xp)
+    return local_map(torch.sum, out_placements=(op,), in_placements=(xp,),
+                     redistribute_inputs=True)(x)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``, on plain tensors and DTensors alike (as
+    :func:`_lookup`). On DTensor logits each rank gathers from its own
+    vocabulary shard, taking 0 for a label outside it (a partial sum over
+    the vocabulary's mesh dim), so that neither the gather nor its
+    backward's scatter ever holds the whole vocabulary."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, split = None, []
+    lp = tp = op = ()
+    if is_dtensor(logits):
+        mesh, vdim = logits.device_mesh, logits.ndim - 1
+        lp = tuple(p if p.is_shard() else Replicate()
+                   for p in logits.placements)
+        tp = tuple(Replicate() if p == Shard(vdim) else p for p in lp)
+        op = tuple(Partial() if p == Shard(vdim) else p for p in lp)
+        split = [i for i, p in enumerate(lp) if p == Shard(vdim)]
+        if not is_dtensor(labels):          # the same labels on every rank
+            labels = DTensor.from_local(labels, mesh,
+                                        (Replicate(),) * mesh.ndim)
+
+    def local(lg, lab):
+        off = (mesh.get_coordinate()[split[0]] * lg.shape[-1]) if split else 0
+        idx = lab - off
+        inside = (idx >= 0) & (idx < lg.shape[-1])
+        g = lg.gather(-1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(inside, g, torch.zeros((), dtype=g.dtype,
+                                                  device=g.device))
+    return local_map(local, out_placements=(op,), in_placements=(lp, tp),
+                     device_mesh=mesh, redistribute_inputs=True)(logits,
+                                                                 labels)
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp(x, -1)`` as its ATen implementation computes it
+    (``log(Σ exp(x - max)) + max``, an infinite max taken as 0) and
+    differentiates it (``grad · exp(x - result)``), written out so
+    that on a DTensor split over the last dim the max and the sum reduce
+    across the shards (two all-reduces of one value per row) instead of
+    gathering the vocabulary."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(dim=-1, keepdim=True)
+        m = torch.where(m.abs() == float("inf"), 0.0, m)
+        # the exp in place, as ATen's: one [.., vocab] temporary
+        out = (x - m).exp_().sum(dim=-1).log() + m.squeeze(-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad.unsqueeze(-1) * (x - out.unsqueeze(-1)).exp()
 
 
 # ---------------------------------------------------------------------------

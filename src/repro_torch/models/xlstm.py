@@ -7,7 +7,9 @@ recurrent across chunks, a log-space stabiliser ``m``), with its chunking
 (``chunk = min(256, S)``, the whole sequence when S is not a multiple of
 it). sLSTM is sequential by nature: a loop over time, its outputs stacked
 once (no in-place writes, so autograd differentiates the loop). Both
-decode one token in O(1), the cache's leaves written in place.
+decode one token in O(1), the cache's leaves written in place. Under a
+mesh the inner activation and the blocks' outputs pass through
+``shard_act`` at the reference's sites.
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, ParamCtx, rms_norm
+from ..dist.sharding import local_batch, shard_act
+from ..kernels import opcount
+from .common import (ModelConfig, ParamCtx, matmul, proj, rms_norm,
+                     store)
 
 __all__ = ["mlstm_init", "mlstm_fwd", "mlstm_prefill", "mlstm_init_cache",
            "mlstm_step", "slstm_init", "slstm_fwd", "slstm_prefill",
@@ -34,8 +39,7 @@ def _mdims(cfg: ModelConfig) -> Tuple[int, int]:
 
 def _glu_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dce->bsce")`` as one matmul."""
-    w = w.to(x.dtype)
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    return proj(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -47,38 +51,39 @@ def mlstm_init(ctx: ParamCtx, cfg: ModelConfig) -> dict:
     di, dh = _mdims(cfg)
     H = cfg.n_heads
     return {
-        "norm": ctx.param((dm,), init="zeros"),
-        "up": ctx.param((dm, 2, di)),
-        "wq": ctx.param((di, H, dh)),
-        "wk": ctx.param((di, H, dh)),
-        "wv": ctx.param((di, H, dh)),
-        "wi": ctx.param((di, H), scale=0.02),
-        "bi": ctx.param((H,), init="zeros"),
-        "wf": ctx.param((di, H), scale=0.02),
-        "bf": ctx.param((H,), init="ones"),
-        "og": ctx.param((di, di)),
-        "down": ctx.param((di, dm)),
+        "norm": ctx.param("norm", (dm,), ("d_model",), init="zeros"),
+        "up": ctx.param("up", (dm, 2, di), ("d_model_fsdp", None, "d_ff")),
+        "wq": ctx.param("wq", (di, H, dh), ("d_ff", "heads", None)),
+        "wk": ctx.param("wk", (di, H, dh), ("d_ff", "heads", None)),
+        "wv": ctx.param("wv", (di, H, dh), ("d_ff", "heads", None)),
+        "wi": ctx.param("wi", (di, H), ("d_ff", "heads"), scale=0.02),
+        "bi": ctx.param("bi", (H,), ("heads",), init="zeros"),
+        "wf": ctx.param("wf", (di, H), ("d_ff", "heads"), scale=0.02),
+        "bf": ctx.param("bf", (H,), ("heads",), init="ones"),
+        "og": ctx.param("og", (di, di), ("d_ff", "d_ff")),
+        "down": ctx.param("down", (di, dm), ("d_ff", "d_model_fsdp")),
     }
 
 
 def _mlstm_qkvgates(p: dict, cfg: ModelConfig, xin: torch.Tensor):
-    """q, k (scaled by 1/√dh), v ``[B, S, H, dh]``; the input gate and the
-    log-sigmoid forget gate ``[B, S, H]`` in fp32."""
+    """q, k (scaled by 1/√dh), v ``[B, S, H, dh]``; the input and forget
+    gates' pre-activations ``[B, S, H]`` in fp32 (the callers take the
+    forget gate's log-sigmoid: per rank, under a mesh)."""
     q = _glu_in(xin, p["wq"])
     k = _glu_in(xin, p["wk"]) / math.sqrt(q.shape[-1])
     v = _glu_in(xin, p["wv"])
-    igate = (xin @ p["wi"].to(xin.dtype) + p["bi"].to(xin.dtype)).float()
-    fgate = (xin @ p["wf"].to(xin.dtype) + p["bf"].to(xin.dtype)).float()
-    return q, k, v, igate, F.logsigmoid(fgate)
+    igate = (matmul(xin, p["wi"]) + p["bi"].to(xin.dtype)).float()
+    fgate = (matmul(xin, p["wf"]) + p["bf"].to(xin.dtype)).float()
+    return q, k, v, igate, fgate
 
 
 def _mlstm_out(p: dict, hseq: torch.Tensor, xin: torch.Tensor,
                z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The output gate, the z gate and the down projection, plus the
     residual."""
-    hseq = hseq * torch.sigmoid(xin @ p["og"].to(x.dtype))
+    hseq = hseq * torch.sigmoid(matmul(xin, p["og"]))
     hseq = hseq * F.silu(z)
-    return x + hseq @ p["down"].to(x.dtype)
+    return x + matmul(hseq, p["down"])
 
 
 def _mlstm_chunk(carry, qb, kb, vb, ib, fb):
@@ -127,30 +132,44 @@ def mlstm_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, chunk: int = 256,
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     ug = _glu_in(h, p["up"])
     xin, z = ug[:, :, 0], ug[:, :, 1]
-    q, k, v, igate, logf = _mlstm_qkvgates(p, cfg, xin)
+    xin = shard_act(xin, ("batch", "seq", "d_ff"))
+    q, k, v, igate, fgate = _mlstm_qkvgates(p, cfg, xin)
 
+    hseq, C_f, n_f, m_f = local_batch(
+        lambda *t: _mlstm_scan(*t, chunk=chunk), (q, k, v, igate, fgate),
+        n_out=4)
+    hseq = hseq.reshape(B, S, di).to(x.dtype)
+    out = shard_act(_mlstm_out(p, hseq, xin, z, x),
+                    ("batch", "seq", "d_model"))
+    if return_state:
+        return out, {"C": C_f, "n": n_f, "m": m_f}
+    return out
+
+
+def _mlstm_scan(q, k, v, igate, fgate, *, chunk: int):
+    """The chunks in turn over ``q, k, v [B, S, H, dh]`` and the gates
+    ``[B, S, H]``: (the outputs ``[B, S, H, dh]`` fp32, and the final C, n,
+    m). Per rank on its batch shard under a mesh (``local_batch``)."""
+    B, S, H, dh = q.shape
     chunk = min(chunk, S)
     if S % chunk:
         chunk = S
     tm = lambda t: t.transpose(0, 1)                   # noqa: E731 time-major
+    logf = F.logsigmoid(fgate)
     qt, kt, vt, it, ft = (tm(t) for t in (q, k, v, igate, logf))
-    dev = x.device
+    dev = q.device
     carry = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=dev),
              torch.zeros((B, H, dh), dtype=torch.float32, device=dev),
              torch.full((B, H), NEG, dtype=torch.float32, device=dev))
     hs = []
-    for c0 in range(0, S, chunk):
+    for c0 in opcount.trips(range(0, S, chunk)):
         sl = slice(c0, c0 + chunk)
         carry, hout = _mlstm_chunk(carry, qt[sl], kt[sl], vt[sl], it[sl],
                                    ft[sl])
         hs.append(hout)
+    hs = opcount.fill(hs, S // chunk)
     hseq = torch.cat(hs, dim=0) if len(hs) > 1 else hs[0]   # [S, B, H, dh]
-    hseq = hseq.transpose(0, 1).reshape(B, S, di).to(x.dtype)
-    out = _mlstm_out(p, hseq, xin, z, x)
-    if return_state:
-        C_f, n_f, m_f = carry
-        return out, {"C": C_f, "n": n_f, "m": m_f}
-    return out
+    return (hseq.transpose(0, 1), *carry)
 
 
 def mlstm_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -176,7 +195,8 @@ def mlstm_step(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     ug = _glu_in(h, p["up"])
     xin, z = ug[:, 0, 0], ug[:, 0, 1]                      # [B, di]
-    q, k, v, igate, logf = _mlstm_qkvgates(p, cfg, xin[:, None])
+    q, k, v, igate, fgate = _mlstm_qkvgates(p, cfg, xin[:, None])
+    logf = F.logsigmoid(fgate)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                    # [B,H,dh]
     i0, f0 = igate[:, 0], logf[:, 0]                       # [B,H]
     C, nrm, m = cache["C"], cache["n"], cache["m"]
@@ -192,9 +212,9 @@ def mlstm_step(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     hout = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
     hvec = hout.reshape(B, di).to(x.dtype)
     out = _mlstm_out(p, hvec, xin, z, x[:, 0])
-    C.copy_(C_new)
-    nrm.copy_(n_new)
-    m.copy_(m_new)
+    store(C, C_new)
+    store(nrm, n_new)
+    store(m, m_new)
     return out[:, None], cache
 
 
@@ -205,11 +225,12 @@ def mlstm_step(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
 def slstm_init(ctx: ParamCtx, cfg: ModelConfig) -> dict:
     dm = cfg.d_model
     return {
-        "norm": ctx.param((dm,), init="zeros"),
-        "wx": ctx.param((dm, 4, dm)),
-        "wr": ctx.param((dm, 4, dm), scale=0.02),
-        "b": ctx.param((4, dm), init="zeros"),
-        "down": ctx.param((dm, dm)),
+        "norm": ctx.param("norm", (dm,), ("d_model",), init="zeros"),
+        "wx": ctx.param("wx", (dm, 4, dm), ("d_model_fsdp", None, "d_ff")),
+        "wr": ctx.param("wr", (dm, 4, dm), ("d_ff", None, "d_ff"),
+                        scale=0.02),
+        "b": ctx.param("b", (4, dm), (None, "d_ff"), init="zeros"),
+        "down": ctx.param("down", (dm, dm), ("d_ff", "d_model_fsdp")),
     }
 
 
@@ -235,19 +256,30 @@ def slstm_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
     B, S, dm = x.shape
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     xg = _glu_in(h, p["wx"])                               # [B,S,4,dm]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    state = (torch.zeros((B, dm), **f32), torch.zeros((B, dm), **f32),
-             torch.zeros((B, dm), dtype=x.dtype, device=x.device),
-             torch.full((B, dm), NEG, **f32))
-    hs = []
-    for t in range(S):
-        state = _slstm_cell(p, xg[:, t], state)
-        hs.append(state[2])
-    out = x + torch.stack(hs, dim=1) @ p["down"].to(x.dtype)
+    hs, c_f, n_f, h_f, m_f = local_batch(
+        lambda xg_, wr, b: _slstm_scan({"wr": wr, "b": b}, xg_), (xg,),
+        (p["wr"], p["b"]), n_out=5)
+    out = x + shard_act(matmul(hs, p["down"]), ("batch", "seq", "d_model"))
     if return_state:
-        c_f, n_f, h_f, m_f = state
         return out, {"c": c_f, "n": n_f, "h": h_f, "m": m_f}
     return out
+
+
+def _slstm_scan(p: dict, xg: torch.Tensor):
+    """The sLSTM steps in turn over ``xg [B, S, 4, dm]``: (the outputs ``[B,
+    S, dm]`` and the final c, n, h, m). Per rank on its batch shard under
+    a mesh (``local_batch``)."""
+    B, S, _, dm = xg.shape
+    f32 = dict(dtype=torch.float32, device=xg.device)
+    state = (torch.zeros((B, dm), **f32), torch.zeros((B, dm), **f32),
+             torch.zeros((B, dm), dtype=xg.dtype, device=xg.device),
+             torch.full((B, dm), NEG, **f32))
+    hs = []
+    for t in opcount.trips(range(S)):
+        state = _slstm_cell(p, xg[:, t], state)
+        hs.append(state[2])
+    hs = opcount.fill(hs, S)
+    return (torch.stack(hs, dim=1), *state)
 
 
 def slstm_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -272,7 +304,7 @@ def slstm_step(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     xg = _glu_in(h, p["wx"])[:, 0]
     new = _slstm_cell(p, xg, (cache["c"], cache["n"], cache["h"],
                               cache["m"]))
-    out = new[2] @ p["down"].to(x.dtype)
+    out = matmul(new[2], p["down"])
     for name, t in zip(("c", "n", "h", "m"), new):
-        cache[name].copy_(t)
+        store(cache[name], t)
     return x + out[:, None], cache

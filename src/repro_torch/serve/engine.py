@@ -179,6 +179,7 @@ import torch
 from ..core.packing import unpack
 from ..core.sparse_tensor import SparseTensor
 from ..core.validate import ValidationError
+from ..dist.sharding import whole
 from ..models import transformer as tf
 from ..models.common import ModelConfig
 from ..obs import CounterView, MetricsRegistry, span
@@ -889,7 +890,7 @@ class ServeEngine:
         for sk, blocks in self.state.items():
             for bk, leaves in blocks.items():
                 for name, leaf in leaves.items():
-                    one = one_state[sk][bk][name][:, 0]
+                    one = whole(one_state[sk][bk][name])[:, 0]
                     if one.shape != leaf[:, slot].shape:
                         raise ValueError(
                             f"prefill state {sk}/{bk}/{name} of shape "
@@ -907,7 +908,7 @@ class ServeEngine:
                                 self.cache_len, backend=self.backend)
         self._merge_state(slot, st)
         self.pos[slot] = len(req.prompt)
-        req.out.append(self._sample(logits[0, -1], req))
+        req.out.append(self._sample(whole(logits)[0, -1], req))
         self.active[slot] = req
         return True
 
@@ -926,7 +927,7 @@ class ServeEngine:
         place. No host read and no host copy: what the graph captures."""
         logits, _ = tf.decode_step(self.params, self.cfg, self.state,
                                    {"tokens": self._tokens}, self._pos)
-        lg = logits[:, 0]
+        lg = whole(logits)[:, 0]
         return lg, lg.argmax(-1)
 
     def _decode(self) -> Tuple[torch.Tensor, torch.Tensor]:

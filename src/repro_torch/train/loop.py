@@ -19,6 +19,15 @@ per layer. The AdamW update runs per layer slice as well
 one layer's leaf. The update is elementwise, so it computes what the
 reference's does; only the gradient norm's sum runs in another order
 (each stacked leaf's layers in turn, not the whole leaf at once).
+
+Under a mesh the step runs on DTensor parameters and moments
+(``dist.distribute_params``) inside ``dist.sharding_ctx``: the batch is
+placed on ``("pod", "data")`` (``dist.sharding.shard_batch``), each
+gradient is brought to its parameter's placement (a partial sum over the
+data axis becomes its shard: a reduce-scatter) before the update, and the
+gradient norm sums each rank's partial sums and all-reduces them (another
+add order across ranks; at world size 1 the same). The loss and the norm
+come back as plain tensors.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..dist.sharding import is_dtensor, shard_batch, whole
 from ..models import transformer as tf
 from ..models.common import ModelConfig
 from . import compression
@@ -103,6 +113,13 @@ def _micro(x, n: int, i: int):
     return x[i * b:(i + 1) * b]
 
 
+def _placed(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placement; else ``g``."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """Returns ``step(params, opt_state, batch[, residual]) → (params,
     opt_state, metrics[, residual])``, updating ``params`` and the moments
@@ -121,6 +138,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
         return loss.detach(), list(grads)
 
     def step(params, opt_state: OptState, batch, residual=None):
+        ref = params["final_norm"]
+        if is_dtensor(ref):
+            batch = shard_batch(batch, ref.device_mesh, ref.to_local().device)
         tree, entries = step_leaves(params)
         flat = [x for _, leaf in entries
                 for x in (leaf if isinstance(leaf, tuple) else (leaf,))]
@@ -160,12 +180,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
             p = _get(params, path)
             m, v = _get(opt_state.mu, path), _get(opt_state.nu, path)
             if isinstance(leaf, tuple):
-                parts += [(p[r], g, m[r], v[r]) for r, g in enumerate(gs)]
+                parts += [(p[r], _placed(g, p[r]), m[r], v[r])
+                          for r, g in enumerate(gs)]
             else:
-                parts.append((p, gs[0], m, v))
+                parts.append((p, _placed(gs[0], p), m, v))
         del entries
         opt_state, metrics = apply_updates_parts(parts, opt_state, tcfg.opt)
-        metrics["loss"] = loss
+        metrics["loss"] = whole(loss)
+        metrics["grad_norm"] = whole(metrics["grad_norm"])
         if tcfg.compress_grads:
             return params, opt_state, metrics, residual
         return params, opt_state, metrics
@@ -219,7 +241,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: Iterator,
     SIGTERM (then stops); logs a step that takes ``watchdog_factor`` times
     the median (after 5 steps). Returns ``(params, opt_state, metrics)``."""
     if params is None:
-        params = tf.init_params(cfg, 0, device=device)
+        params = tf.init_params(cfg, 0, device=device)[0]
     if opt_state is None:
         opt_state = init_opt_state(params, tcfg.opt)
     step_fn = make_train_step(cfg, tcfg)

@@ -41,13 +41,15 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params: dict, cfg: AdamWConfig) -> OptState:
-    """Zero moments in ``cfg.state_dtype`` shaped as ``params`` (a dict of
-    tensors, possibly nested), step 0."""
+    """Zero moments in ``cfg.state_dtype`` shaped (and, for DTensor
+    parameters, placed) as ``params`` (a dict of tensors, possibly nested),
+    step 0."""
     dt = getattr(torch, cfg.state_dtype)
 
     def zeros(tree):
         return {k: zeros(p) if isinstance(p, dict)
-                else torch.zeros(p.shape, dtype=dt, device=p.device)
+                else torch.zeros_like(p, dtype=dt,
+                                      memory_format=torch.contiguous_format)
                 for k, p in tree.items()}
     return OptState(mu=zeros(params), nu=zeros(params), step=0)
 

@@ -1096,7 +1096,7 @@ def test_lm_prefill_and_decode_on_card(dev, dtype):
     """Prefill through the kernel (one launch per layer) against the plain
     path; the decode step launches nothing and matches the CPU."""
     cfg = _tiny_lm(dtype)
-    params = lm.init_params(cfg, 0, device=dev)
+    params = lm.init_params(cfg, 0, device=dev)[0]
     tok = torch.randint(0, cfg.vocab, (1, 77), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(2))
     reset_launch_counts()
@@ -1119,7 +1119,7 @@ def test_lm_serve_engine_on_card(dev):
     """Greedy tokens through the kernel equal the plain path's (fp32), and
     the engine launches the kernel once per layer per request."""
     cfg = _tiny_lm("float32")
-    params = lm.init_params(cfg, 0, device=dev)
+    params = lm.init_params(cfg, 0, device=dev)[0]
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
                for n in (7, 70, 12)]
@@ -1581,7 +1581,7 @@ def test_session_and_decode_bodies_do_not_sync(dev):
         bodies.append(lambda e=e, stp=stp: e._body(0, stp.packed,
                                                     stp.features))
     cfg = _tiny_lm("bfloat16")
-    eng = ServeEngine(cfg, lm.init_params(cfg, 0, device=dev),
+    eng = ServeEngine(cfg, lm.init_params(cfg, 0, device=dev)[0],
                       batch_slots=2, cache_len=96, cuda_graphs=False)
     eng.submit(Request(prompt=np.arange(9, dtype=np.int32), max_new=4))
     eng.step()
@@ -1603,7 +1603,7 @@ def test_decode_graph_tokens_equal_eager(dev, dtype):
     every step) gives the eager step's greedy tokens, more requests than
     slots."""
     cfg = _tiny_lm(dtype)
-    params = lm.init_params(cfg, 0, device=dev)
+    params = lm.init_params(cfg, 0, device=dev)[0]
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
                for n in (7, 70, 12)]

@@ -95,7 +95,7 @@ def test_prefill_on_card_against_plain_path_and_cpu(dev, arch):
     the cell state by 1.3e-4 of its max while one 1e-7 perturbation moved
     the CPU's by less than 1e-4."""
     cfg = _cfg(arch)
-    params = lm.init_params(cfg, 0, device=dev)
+    params = lm.init_params(cfg, 0, device=dev)[0]
     b = _batch(arch, cfg, 70, dev)
     reset_launch_counts()
     lk, sk = lm.prefill(params, cfg, b, 96)
@@ -129,7 +129,7 @@ def test_decode_graph_equals_eager_bitwise(dev, kind, dtype):
     requests on 2 slots (a slot recycled), stepped in turns: greedy tokens
     equal and every state leaf bitwise equal after every step."""
     cfg = _cfg(RECURRENT[kind], dtype)
-    params = lm.init_params(cfg, 0, device=dev)
+    params = lm.init_params(cfg, 0, device=dev)[0]
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
                for n in (7, 70, 12)]
@@ -158,7 +158,7 @@ def test_moe_decode_step_captures_without_a_host_sync(dev):
     sync debug mode "error", and a CUDA graph captured from it by hand
     replays the eager step's logits bitwise."""
     cfg = _cfg("qwen3-moe-30b-a3b", "bfloat16")
-    params = lm.init_params(cfg, 0, device=dev)
+    params = lm.init_params(cfg, 0, device=dev)[0]
     eng = ServeEngine(cfg, params, batch_slots=4, cache_len=64,
                       cuda_graphs=False)
     for n in (5, 9):

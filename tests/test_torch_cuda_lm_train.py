@@ -205,7 +205,7 @@ def test_smoke_step_on_card_matches_cpu(dev):
                                 global_batch=2, seed=1), 0)
     grads, metrics = {}, {}
     for where in ("cpu", "cuda"):
-        p = lm.init_params(cfg, 0, device="cpu")
+        p = lm.init_params(cfg, 0, device="cpu")[0]
         p = {k: (v.to(where) if torch.is_tensor(v) else
                  {kk: {n: t.to(where) for n, t in vv.items()}
                   for kk, vv in v.items()}) for k, v in p.items()}
@@ -232,7 +232,7 @@ def test_smoke_step_on_card_matches_cpu(dev):
     assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) <= 1e-4 * \
         float(mc["grad_norm"])
     reset_launch_counts()
-    p = lm.init_params(cfg, 0, device=dev)
+    p = lm.init_params(cfg, 0, device=dev)[0]
     make_train_step(cfg, TrainConfig(remat=True))(
         p, init_opt_state(p, AdamWConfig()), batch)
     assert launch_counts()["flash_attention"] == 2 * cfg.n_layers

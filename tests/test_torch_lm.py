@@ -124,8 +124,8 @@ def test_lm_params_from_jax_checks_shapes():
 
 def test_init_params_follow_the_references_distributions():
     _, tc = _cfgs("yi-9b")
-    p = ttf.init_params(tc, 0, device="cpu")
-    q = ttf.init_params(tc, 0, device="cpu")
+    p = ttf.init_params(tc, 0, device="cpu")[0]
+    q = ttf.init_params(tc, 0, device="cpu")[0]
     jp = jtf.init_params(_cfgs("yi-9b")[0], jax.random.key(0))[0]
     shapes = jax.tree.map(lambda a: a.shape, jp)
     got = jax.tree.map(lambda t: tuple(t.shape), p)

@@ -135,7 +135,7 @@ def test_check_supported_refuses_unknown_kinds():
     bad = dataclasses.replace(tc, superblocks=(tcommon.SuperBlock(
         blocks=(("rnn", "none"),), repeat=1),))
     with pytest.raises(ValueError, match="rnn"):
-        ttf.init_params(bad, 0, device="cpu")
+        ttf.init_params(bad, 0, device="cpu")[0]
 
 
 def test_init_params_of_the_new_leaves():
@@ -145,8 +145,8 @@ def test_init_params_of_the_new_leaves():
     and the forget-gate bias ones, norms zero; the experts' weights at
     1/√fan_in."""
     jc, tc, _, _ = _params(JAMBA)
-    p = ttf.init_params(tc, 0, device="cpu")
-    q = ttf.init_params(tc, 0, device="cpu")
+    p = ttf.init_params(tc, 0, device="cpu")[0]
+    q = ttf.init_params(tc, 0, device="cpu")[0]
     assert all(torch.equal(a, b) for a, b in zip(jax.tree.leaves(p),
                                                  jax.tree.leaves(q)))
     jp = jtf.init_params(jc, jax.random.key(0))[0]
@@ -157,11 +157,11 @@ def test_init_params_of_the_new_leaves():
     assert float(mb["norm"].abs().max()) == 0.0
     wi = p["sb0"]["f0"]["wi"]                     # [R, E, dm, 2, dff]
     assert abs(float(wi.std()) * np.sqrt(wi.shape[-2]) - 1) < 0.05
-    xp = ttf.init_params(_params(XLSTM)[1], 0, device="cpu")
+    xp = ttf.init_params(_params(XLSTM)[1], 0, device="cpu")[0]
     assert float((xp["sb0"]["b0"]["bf"] - 1).abs().max()) == 0.0
     assert "embed" in xp and "lm_head" not in xp           # tied
     mg = ttf.init_params(tconfigs.get_config("musicgen-medium", smoke=True),
-                         0, device="cpu")
+                         0, device="cpu")[0]
     assert "embed" not in mg and "lm_head" in mg           # embedding inputs
 
 
@@ -171,10 +171,10 @@ def test_large_leaves_are_drawn_in_slices(monkeypatch):
     monkeypatch.setattr(tcommon, "DRAW_LIMIT", 64 * 32)
     gen = torch.Generator().manual_seed(3)
     sliced = tcommon.ParamCtx(gen, torch.float32, "cpu", stack=2).param(
-        (4, 64, 32))
+        "w", (4, 64, 32), (None, None, None))
     gen = torch.Generator().manual_seed(3)
     again = tcommon.ParamCtx(gen, torch.float32, "cpu", stack=2).param(
-        (4, 64, 32))
+        "w", (4, 64, 32), (None, None, None))
     assert torch.equal(sliced, again)
     assert abs(float(sliced.std()) * np.sqrt(64) - 1) < 0.05
     assert not torch.equal(sliced[0, 0], sliced[0, 1])

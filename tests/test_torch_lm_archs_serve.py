@@ -80,7 +80,7 @@ def test_engine_refuses_a_prompt_shorter_than_the_conv_window():
 
 def test_engine_refuses_embedding_input_archs():
     cfg = tconfigs.get_config("musicgen-medium", smoke=True)
-    params = ttf.init_params(cfg, 0, device="cpu")
+    params = ttf.init_params(cfg, 0, device="cpu")[0]
     with pytest.raises(ValueError, match="frontend driver"):
         ServeEngine(cfg, params, batch_slots=2, cache_len=16)
 

@@ -94,7 +94,7 @@ def test_train_loss_decreases():
                                  log=None, device=CPU)
     first = batch_at(dcfg, 0)
     l_end = float(ttf.loss_fn(params, cfg, first))
-    p0 = ttf.init_params(cfg, 0, device=CPU)
+    p0 = ttf.init_params(cfg, 0, device=CPU)[0]
     l_start = float(ttf.loss_fn(p0, cfg, first))
     assert l_end < l_start - 0.2, (l_start, l_end)
 
@@ -106,7 +106,7 @@ def _clone(tree):
 
 def test_grad_accum_matches_single_batch():
     cfg = tiny()
-    params = ttf.init_params(cfg, 0, device=CPU)
+    params = ttf.init_params(cfg, 0, device=CPU)[0]
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=2)
     batch = batch_at(dcfg, 0)
     out = []
@@ -133,7 +133,7 @@ def test_checkpoint_restart_bitexact(tmp_path):
     train(cfg, tcfg, stream(dcfg), n_steps=3, ckpt_manager=mgr, log=None,
           device=CPU)
     mgr.wait()
-    tmpl_p = ttf.init_params(cfg, 5, device=CPU)
+    tmpl_p = ttf.init_params(cfg, 5, device=CPU)[0]
     pR, oR, step = restore(mgr, tmpl_p, init_opt_state(tmpl_p, tcfg.opt))
     assert step == 2 and oR.step == 3
     pC, oC, _ = train(cfg, tcfg, stream(dcfg, start_step=3), n_steps=6,
@@ -266,7 +266,7 @@ def test_lm_checkpoint_jax_to_port(tmp_path):
     jp, jo = _trained_pair()
     d = str(tmp_path / "ck")
     JManager(d, async_save=False).save(5, jp, jo)
-    tp = ttf.init_params(tiny(), 9, device=CPU)
+    tp = ttf.init_params(tiny(), 9, device=CPU)[0]
     to = init_opt_state(tp, AdamWConfig())
     ids = [id(t) for t in _leaves(tp)]
     mgr = CheckpointManager(d, async_save=False)
@@ -308,13 +308,13 @@ def test_bf16_checkpoint_round_trip(tmp_path):
     restore bitwise."""
     cfg = tcommon.dense_lm("tinyb", n_layers=2, d_model=64, n_heads=4,
                            n_kv=2, d_ff=128, vocab=128)
-    p = ttf.init_params(cfg, 1, device=CPU)
+    p = ttf.init_params(cfg, 1, device=CPU)[0]
     o = init_opt_state(p, AdamWConfig())
     mgr = CheckpointManager(str(tmp_path / "ck"), async_save=False)
     mgr.save(0, *checkpoint_trees(p, o))
     with np.load(os.path.join(mgr.dir, "ckpt_00000000.npz")) as z:
         assert z["params::embed"].dtype.str == "|V2"
-    q = ttf.init_params(cfg, 2, device=CPU)
+    q = ttf.init_params(cfg, 2, device=CPU)[0]
     restore(mgr, q, init_opt_state(q, AdamWConfig()), verify=True)
     assert all(torch.equal(a, b) for a, b in zip(_leaves(p), _leaves(q)))
 
@@ -342,7 +342,7 @@ def test_launcher_runs_and_resumes_bitwise(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,why", [
-    (["--mesh", "16x16"], "sharded"), (["--fsdp"], "sharded"),
+    (["--mesh", "16x16"], "sharded"), (["--mesh", "2x16x16"], "sharded"),
     (["--arch", "musicgen-medium"], "embedding-input")])
 def test_launcher_refuses(tmp_path, extra, why):
     args = ["--arch", "yi-9b", "--smoke", "--steps", "1", "--device", "cpu",
