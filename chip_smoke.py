@@ -289,7 +289,10 @@ card in ``cfg.dtype``, bf16; ``LM_SLOTS`` slots, cache ``LM_CACHE``):
    launch per prefill); the graph engine bitwise the eager one over all
    16 steps (the recurrent state restored after the capture's warm-up);
    one 2,048-token prefill with the Mamba block's and the Mamba scan's
-   spans on the card (CUDA events around each call), then profiled;
+   spans on the card (CUDA events around each call), then profiled; then
+   the same prefill with ``REPRO_MAMBA_PREMAT=1`` against the default in
+   turns (``premat_ab``): ms and peak memory of each, the premat logits
+   within ``PREMAT_GATE`` of max|logits| of the default's;
 12c. xlstm-350m at full width and depth (24 layers, 7 mLSTM : 1 sLSTM),
    the checks of 12b on 4 drawn prompts plus one of 1,024 tokens; it has
    no attention, so it launches no kernel (its lines say so); the mLSTM
@@ -374,6 +377,25 @@ The multi-card layer (phase 14, after 13d; ``dist.sharding`` on DTensor,
 
 The kernel table's flash rows add 14a's launches under the path ``yi-16
 sharded``.
+
+The examples on the card (phase 15, after 14d): each of
+``examples/torch_{quickstart,pointcloud_inference,train_pointcloud,
+robust_train,serve_lm,train_lm}.py`` in its full mode, ``main(["--device",
+"cuda"])`` in this process with autograd on, its own asserts and ✓ lines
+included, the launch counts set to 0 just before and read just after
+(``Sampler``: the first and the latest launch of each kernel recorded):
+every kernel the example's path runs launched, and those two launches of
+each held against its plain version by the check of the phase that
+introduced it (``check_search``, ``check_repair``, ``check_os`` with the
+float64 gate, ``check_ws``, ``check_segsum``, ``check_dw``,
+``check_flash`` with 13b's lse gate; the attention backward twice
+bitwise and against float64 by the float64 gate of the fp32 OS, WS and
+dW launches, ``check_bwd_samples``; a training example's OS sample at
+phase 6's dF gate and its segment sums as gradients); one ``[15x ...]``
+line each with its seconds, its launches
+and its headline number. The kernel table's paths gain the keys
+``ex-quickstart``, ``ex-pc-infer``, ``ex-train-pc``, ``ex-robust-train``,
+``ex-serve-lm`` and ``ex-train-lm``.
 
 After each phase a ``[seconds]`` line gives its seconds and the run's so
 far. The second-to-last lines are the kernel table as JSON and the raw
@@ -905,7 +927,7 @@ def ws_map(m, cols):
     return m if cols is None else m[:, cols.long()]
 
 
-def check_ws(calls, names) -> dict:
+def check_ws(calls, names, label: str = "3 cp ws") -> dict:
     """WS launches: fp32 within ``1e-5 * max(1, max|ref|)`` of the plain
     version, and every fp32 launch against the same function in float64
     (the OS gather-GEMM over the kept map): the kernel's max|error| within
@@ -941,7 +963,7 @@ def check_ws(calls, names) -> dict:
                                    f"float64: kernel max|err| {e_k} > max(4 "
                                    f"* plain {e_p}, 1e-6 * {scale})")
             f64_worst = max(f64_worst, e_k / gate)
-            log(f"[3 cp ws f64 {i} {names[i]}] vs float64: kernel max|err| "
+            log(f"[{label} f64 {i} {names[i]}] vs float64: kernel max|err| "
                 f"{e_k:.3e}, plain {e_p:.3e}, max|ref| {scale:.3e}, gate "
                 f"{gate:.3e}")
             del ref64
@@ -1028,7 +1050,7 @@ def dw_packed_ops(m, cin: int, cout: int, dtype) -> float:
     return 2.0 * rows * pad_i * pad_j
 
 
-def check_dw(calls) -> dict:
+def check_dw(calls, label: str = "6 dW") -> dict:
     """dW launches: within ``1e-4 * max|ref|`` of the plain version
     (``chunked_rowdot`` with the same panel: the library matmul in its own
     blocking over up to 262,144 rows), and every fp32 launch against the
@@ -1065,7 +1087,7 @@ def check_dw(calls) -> dict:
                                    f"kernel max|err| {e_k} > max(4 * plain "
                                    f"{e_p}, 1e-6 * {s64})")
             f64_worst = max(f64_worst, e_k / gate)
-            log(f"[6 dW f64 {i} {what}] vs float64: kernel max|err| "
+            log(f"[{label} f64 {i} {what}] vs float64: kernel max|err| "
                 f"{e_k:.3e}, plain {e_p:.3e}, max|ref| {s64:.3e}, gate "
                 f"{gate:.3e}; kernel {ms:.4f} ms")
             del ref64
@@ -3049,6 +3071,11 @@ ARCH_RUNS = {                     # arch: (drawn prompts, long prompt)
     "xlstm-350m": (4, 1024),
 }
 JAMBA_CUT = (3, 4)                # 12b: positions of jamba's period of 8
+# 12b premat A/B: the bf16 cut's logits, premat against chunked. The CPU
+# test (tests/test_torch_mamba_premat.py) finds the fp32 forward bitwise;
+# here the full-sequence x_proj product can take another cuBLAS kernel than
+# the per-chunk ones, rounding bf16 differently: the bf16 kernels' gate
+PREMAT_GATE = 2e-2
 MUSICGEN_FRAMES = 1024
 
 
@@ -3276,6 +3303,60 @@ def arch_graph_phase(label: str, cfg, params, prompts, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def premat_ab(cfg, params, prompt, card: str) -> None:
+    """12b's A/B of ``REPRO_MAMBA_PREMAT=1`` (the whole sequence
+    discretised up front: ``dA`` and ``dBx`` ``[1, S, d_inner, d_state]``
+    fp32, 2 GiB each at S 2,048) against the chunked default: one prefill
+    of each warmed, then timed in turns (default, premat, premat, default)
+    with the peak memory above what was allocated before it; the premat
+    logits within ``PREMAT_GATE`` of max|logits| of the default's. The
+    variable is restored afterwards."""
+    import os
+    import torch
+    from repro_torch.models import transformer as tf
+    tok = torch.as_tensor(prompt[None], device=DEV)
+    saved = os.environ.get("REPRO_MAMBA_PREMAT")
+    ms, peak, logits = {}, {}, {}
+    try:
+        for mode in ("default", "premat", "premat", "default"):
+            if mode == "premat":
+                os.environ["REPRO_MAMBA_PREMAT"] = "1"
+            else:
+                os.environ.pop("REPRO_MAMBA_PREMAT", None)
+            if mode not in logits:              # warm-up, then the timed one
+                tf.prefill(params, cfg, {"tokens": tok}, LM_CACHE)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lg, _ = tf.prefill(params, cfg, {"tokens": tok}, LM_CACHE)
+            torch.cuda.synchronize()
+            ms.setdefault(mode, []).append((time.perf_counter() - t0) * 1e3)
+            peak.setdefault(mode, []).append(
+                (torch.cuda.max_memory_allocated() - base) / 2**30)
+            logits.setdefault(mode, lg.float())
+            del lg
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_MAMBA_PREMAT", None)
+        else:
+            os.environ["REPRO_MAMBA_PREMAT"] = saved
+    a, b = logits["default"], logits["premat"]
+    d = float((b - a).abs().max())
+    scale = float(a.abs().max())
+    if not (bool(torch.isfinite(b).all()) and d <= PREMAT_GATE * scale):
+        raise RuntimeError(f"12b premat: logits max|diff| {d:.3e} > "
+                           f"{PREMAT_GATE} x {scale:.3e}")
+    log(f"[12b premat] REPRO_MAMBA_PREMAT=1 against the chunked default, "
+        f"one {len(prompt)}-token prefill each, in turns: default "
+        + " / ".join(f"{x:.1f}" for x in ms["default"]) + " ms, premat "
+        + " / ".join(f"{x:.1f}" for x in ms["premat"]) + " ms; peak above "
+        f"the allocated base default {max(peak['default']):.2f} GiB, premat "
+        f"{max(peak['premat']):.2f} GiB; logits max|diff| {d:.3e} = "
+        f"{d / scale:.2e} of max|logits| (gate {PREMAT_GATE}; "
+        f"{'bitwise' if torch.equal(a, b) else 'not bitwise'}) | {card}")
+
+
 def arch_phases(results: dict, paths: dict, card: str, tick) -> None:
     """Phase 12 (module doc): qwen3-moe, jamba cut to two sub-layers,
     xlstm and musicgen on the card, weights random from seed 0; ``tick``
@@ -3374,6 +3455,7 @@ def arch_phases(results: dict, paths: dict, card: str, tick) -> None:
                  [(mamba, "mamba_fwd", "Mamba block"),
                   (mamba, "_scan", "Mamba scan")],
                  kernel=("the Mamba scan's recurrence", "addcmul"))
+    premat_ab(cfg, params, prompts[-1], card)
     del params
     tick("12b jamba-1.5-large, two sub-layers")
 
@@ -4387,6 +4469,229 @@ def sharded_phases(results: dict, paths: dict, card: str, tick) -> None:
     tick("14d roofline shares")
 
 
+# -- phase 15: the examples on the card ----------------------------------------
+
+LM_CKPT_DIR = ROOT / "build" / "chip_smoke_train_lm_ckpt"
+# (paths key, example, arguments beside --device cuda, kernels its run must
+# launch, its headline from what its main returns)
+EXAMPLES = (
+    ("ex-quickstart", "torch_quickstart", (),
+     ("spconv_gather_gemm", "ws_scatter_gemm"),
+     lambda out: "the three dataflows agree"),
+    ("ex-pc-infer", "torch_pointcloud_inference", (),
+     ("zdelta_superwindow_search", "zdelta_repair", "spconv_gather_gemm",
+      "segment_sum"),
+     lambda out: f"{out['per_scene']:.1f} ms per scene in the batch "
+                 f"({out['batch']:.1f} ms a batch, {out['single']:.1f} ms "
+                 f"one scene)"),
+    ("ex-train-pc", "torch_train_pointcloud", (),
+     ("zdelta_superwindow_search", "zdelta_repair", "spconv_gather_gemm",
+      "segment_sum", "dw_gather_gemm"),
+     lambda out: f"{out['step_ms']:.1f} ms per step, loss "
+                 f"{out['first']['loss']:.4f} -> {out['last']['loss']:.4f}"),
+    ("ex-robust-train", "torch_robust_train", (),
+     ("zdelta_superwindow_search", "zdelta_repair", "spconv_gather_gemm",
+      "segment_sum", "dw_gather_gemm"),
+     lambda out: f"{out['run_s'] / out['steps'] * 1e3:.1f} ms per guarded "
+                 f"step over the poisoned run ({out['steps']} steps, a "
+                 f"checkpoint every step)"),
+    ("ex-serve-lm", "torch_serve_lm", (), ("flash_attention",),
+     lambda out: f"{out['tokens_per_s']:.1f} tokens/s ({out['tokens']} "
+                 f"tokens in {out['seconds']:.2f} s, graph capture "
+                 f"included)"),
+    ("ex-train-lm", "torch_train_lm", ("--ckpt-dir", str(LM_CKPT_DIR)),
+     ("flash_attention", "flash_attention_bwd"),
+     lambda out: f"final loss {float(out['metrics']['loss']):.4f}, "
+                 f"checkpoints kept {out['ckpt_steps']}"),
+)
+
+
+class Sampler(Recorder):
+    """Keeps the first and the latest launch of each kernel (a whole
+    example's launches would hold every step's tensors: a
+    :class:`Recorder` keeps them all), and on leaving hands the launches
+    counted on a wrapper that replaced its own function (its module looks
+    the counter up by name) back to the original, so ``launch_counts``
+    after the block counts every launch of it."""
+
+    def __enter__(self):
+        self.first, self.last, self.saved = {}, {}, []
+        for mod, attr, name in self.targets:
+            orig = getattr(mod, attr)
+            self.saved.append((mod, attr, orig))
+
+            def sampled(*a, _orig=orig, _name=name, **kw):
+                if _name in self.first:
+                    self.last[_name] = (a, kw)
+                else:
+                    self.first[_name] = (a, kw)
+                return _orig(*a, **kw)
+            sampled.launches = 0
+            setattr(mod, attr, sampled)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self.saved:
+            orig.launches += getattr(mod, attr).launches
+            setattr(mod, attr, orig)
+        self.calls = {name: [self.first[name]] + ([self.last[name]]
+                                                  if name in self.last
+                                                  else [])
+                      for name in self.first}
+        return False
+
+
+def check_flash_samples(calls) -> dict:
+    """Sampled forward launches, a training forward's (``return_lse``)
+    too: outputs as :func:`check_flash` holds them, the row log-sum-exp
+    within 1e-3 of a float64 one (13b's gate)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    for i, (a, kw) in enumerate(calls):
+        if not kw.get("return_lse"):
+            continue
+        q, k, v = a
+        _, lse = flash_attention(q, k, v, **kw)
+        B, Sq, H, D = q.shape
+        s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()
+                         .repeat_interleave(H // k.shape[2], 2))
+        if kw["causal"]:
+            s = s.masked_fill(torch.ones((Sq, k.shape[1]), dtype=torch.bool,
+                                         device=q.device)
+                              .tril(k.shape[1] - Sq).logical_not(),
+                              float("-inf"))
+        d = float((lse.double() - torch.logsumexp(s, -1)).abs().max())
+        if not d <= 1e-3:
+            raise RuntimeError(f"flash sample {i}: lse max|diff| {d}")
+    r = check_flash([(a, {k_: v_ for k_, v_ in kw.items()
+                          if k_ != "return_lse"}) for a, kw in calls])
+    r.pop("by_len"), r.pop("gflop")
+    return r
+
+
+def check_bwd_samples(calls) -> dict:
+    """Sampled backward launches of a training run: twice bitwise, and
+    against the plain backward in float64 by the float64 gate of the
+    other fp32 launches (OS, WS, dW): the kernel's max|error| within
+    ``max(4 * the fp32 plain version's, BWD_FP32_GATE * max|ref|)`` per
+    gradient (bf16: 2e-2 of max|ref|), one line per launch; each timed
+    (``time_bwd``). A training step's gradients cancel more than 13a's
+    random inputs', so the fixed fp32 gate alone can sit below what fp32
+    itself reaches there."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_torch)
+    err, tot = 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    by = "bytes"
+    for i, (a, kw) in enumerate(calls):
+        q, k, v, out, do, lse = a
+        got = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        again = flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"15 backward sample {i}: two launches "
+                               "differ")
+        want = bwd_f64(q, k, v, out, do, kw["causal"])
+        plain = flash_attention_bwd_torch(q, k, v, out, do, **kw)
+        parts = []
+        for name, x, p, y in zip(("dq", "dk", "dv"), got, plain, want):
+            e_k = float((x.double() - y).abs().max())
+            e_p = float((p.double() - y).abs().max())
+            scale = max(float(y.abs().max()), 1e-30)
+            gate = (2e-2 * scale if q.dtype == torch.bfloat16
+                    else max(4.0 * e_p, BWD_FP32_GATE * scale))
+            if not (bool(torch.isfinite(x).all()) and e_k <= gate):
+                raise RuntimeError(f"15 backward sample {i} {name}: kernel "
+                                   f"max|err| {e_k:.3e} > gate {gate:.3e} "
+                                   f"(plain {e_p:.3e}, max|ref| {scale:.3e})")
+            err = max(err, e_k / scale)
+            parts.append(f"{name} kernel {e_k:.3e}, plain {e_p:.3e}, max|ref|"
+                         f" {scale:.3e}, gate {gate:.3e}")
+        log(f"[15 bwd f64 {i}] {tuple(q.shape)} {q.dtype} vs float64: "
+            + "; ".join(parts))
+        t = time_bwd(q, k, v, out, do, lse, kw["causal"])
+        for k_ in tot:
+            tot[k_] += t[k_]
+        by = "operations" if t["bound_by"] == "operations" else by
+    return dict(max_abs_err=err, bound_by=by, **tot)
+
+
+def check_samples(name: str, calls: dict, training: bool) -> dict:
+    """The sampled launches of one kernel held against its plain version by
+    the check of the phase that introduced it; the result of the check."""
+    if name == "zdelta_superwindow_search":
+        return check_search(calls[name], "superwindow")
+    if name == "zdelta_repair":
+        r = check_repair(calls["zdelta_superwindow_search"], calls[name],
+                         "superwindow")
+        r.pop("unflagged")
+        return r
+    if name == "spconv_gather_gemm":
+        # a training run's sample may be a dF launch: phase 6's gate
+        r = check_os(calls[name], rel=1e-4 if training else 0.0,
+                     label="15 os")
+        r.pop("groups")
+        return r
+    if name == "ws_scatter_gemm":
+        r = check_ws(calls[name], [f"sample {i}" for i in
+                                   range(len(calls[name]))], label="15 ws")
+        for k_ in ("passes", "peak", "f64_worst"):
+            r.pop(k_)
+        return r
+    if name == "segment_sum":
+        r = check_segsum(calls[name], gradients=training)
+        r.pop("passes")
+        return r
+    if name == "dw_gather_gemm":
+        r = check_dw(calls[name], label="15 dW")
+        for k_ in ("passes", "rel_err", "packed_gflop", "f64_worst"):
+            r.pop(k_)
+        return r
+    if name == "flash_attention":
+        return check_flash_samples(calls[name])
+    return check_bwd_samples(calls[name])
+
+
+def examples_phase(results: dict, paths: dict, card: str, tick) -> None:
+    """Phase 15 (module doc): each example in full mode on the card,
+    in process, autograd on as in a user's process."""
+    import runpy
+    import shutil
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    for key, name, extra, kernels, headline in EXAMPLES:
+        free_card(f"15 {key}", 8)
+        shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+        main_fn = runpy.run_path(str(ROOT / "examples" / f"{name}.py"),
+                                 run_name=name)["main"]
+        reset_launch_counts()
+        with Sampler() as rec, torch.enable_grad():
+            t0 = time.perf_counter()
+            out = main_fn(["--device", DEV, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+        missing = [k_ for k_ in kernels if not counts.get(k_)]
+        if missing:
+            raise RuntimeError(f"15 {key}: no launch of {missing} "
+                               f"(launches {counts})")
+        training = bool({"dw_gather_gemm", "flash_attention_bwd"}
+                        & set(kernels))
+        for k_ in kernels:
+            r = check_samples(k_, rec.calls, training)
+            paths[k_][key] = dict(launches=counts[k_],
+                                  checked=len(rec.calls[k_]),
+                                  **per_forward(r))
+            row = results[k_]
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+        log(f"[15x {key}] examples/{name}.py, full mode on the card: "
+            f"{wall:.1f} s; launches {counts}; {headline(out)}; the "
+            f"first and last launch of each kernel held against its plain "
+            f"version | {card}")
+        del rec, out, main_fn
+        tick(f"15 {key}")
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+
+
 def dryrun_cfg(rec: dict, configs):
     """The config a dry-run record counted (its depth cut by ``layers``)."""
     from repro_torch.launch.dryrun import cut_config
@@ -5080,6 +5385,8 @@ def main() -> int:
     tick("13d launcher and every token architecture")
     # -- 14. the multi-card layer at world size 1, and the dry run ------------
     sharded_phases(results, paths, card, tick)
+    # -- 15. the examples on the card ------------------------------------------
+    examples_phase(results, paths, card, tick)
 
     # -- result ----------------------------------------------------------------
     table = []

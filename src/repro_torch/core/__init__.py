@@ -1,4 +1,5 @@
-"""Spira core on torch: packed-native voxel indexing + OS sparse conv."""
+"""Spira core on torch: packed-native voxel indexing + adaptive-dataflow
+sparse conv."""
 from .packing import BitLayout, pack, pack_offsets, unpack, offset_grid, offset_l1
 from .voxel import (CoordSet, build_coord_set, downsample, downsample_all,
                     downsample_merge, pad_value, resolve_downsample_method)
@@ -8,7 +9,10 @@ from .zdelta import (zdelta_offsets, zdelta_search, zdelta_search_symmetric,
                      simple_bsearch)
 from .kernel_map import (KernelMap, density_by_l1, l1_partition,
                          l1_norm_max, transpose_kernel_map)
-from .dataflow import output_stationary, os_torch
+from .dataflow import (output_stationary, weight_stationary, hybrid,
+                       hbm_bytes_model, os_torch, ws_torch, ws_kept_map,
+                       rowsum, bcast_rows, rowdot_matmul)
+from ..kernels.dw_gather_gemm import chunked_rowdot
 from .spconv import SpConv, SpConvSpec, init_spconv, apply_spconv
 from .sparse_tensor import SparseTensor, ensure_sparse_tensor
 from .validate import (ValidationError, ValidationReport,
@@ -19,4 +23,5 @@ from .tuner import (H100_COSTS, REFERENCE_COSTS, CostConstants,
                     LayerTuneResult, SegmentTuneResult, apply_tuning,
                     candidate_ts, plan_superwindow, plan_window,
                     tune_layer_cost_model, tune_layer_measure,
-                    tune_segment_backend_measure)
+                    tune_segment_backend_measure, tune_threshold_cost_model,
+                    tune_threshold_measure)

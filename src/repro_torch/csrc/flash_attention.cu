@@ -52,7 +52,9 @@
 //  * fp32 (flash_attention_kernel, the JAX sweep's shapes and the fp32 LM
 //    tests): the first version, on the CUDA cores: 256 threads, each
 //    owning a 4 x 4 tile of the 64 x 64 scores and 4 rows x D/16 columns
-//    of the output; Q, the K tile (then the V tile, in the same buffer)
+//    of the output (at D = 16 and 32, the fp32 mini LMs' head dims, 4
+//    columns of the first D/4 lanes of a row group; the other lanes own
+//    none); Q, the K tile (then the V tile, in the same buffer)
 //    and P are staged in shared memory as fp32 with 16-byte loads and
 //    stores, rows padded so that the 16-byte reads of a quarter warp hit
 //    distinct banks.
@@ -88,6 +90,15 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 
 template <int D> __host__ __device__ constexpr int row_stride() {
   return D + 4;
+}
+
+// float4 column groups of a thread's output rows: column 64 jj + 4 tx,
+// held when it lies inside D (always, for D a multiple of 64)
+template <int D> __host__ __device__ constexpr int out_groups() {
+  return (D + 63) / 64;
+}
+template <int D> __device__ __forceinline__ bool owns(int jj, int tx) {
+  return D % 64 == 0 || jj * 64 + tx * 4 < D;
 }
 
 template <int D> constexpr size_t smem_bytes() {
@@ -142,7 +153,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int64_t vsb, int64_t vss, int64_t vsh, int causal,
                        float scale) {
   constexpr int kLd = row_stride<D>();
-  constexpr int kCols = D / 64;            // float4 column groups per thread
+  constexpr int kCols = out_groups<D>();   // float4 column groups per thread
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);   // [64][kLd]
   float* kv_s = q_s + kBQ * kLd;                  // [64][kLd]: K, then V
@@ -251,6 +262,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
         for (int jj = 0; jj < kCols; ++jj) {
+          if (!owns<D>(jj, tx)) continue;
           const float4 vv = *reinterpret_cast<const float4*>(
               kv_s + (c + cc) * kLd + jj * 64 + tx * 4);
 #pragma unroll
@@ -277,9 +289,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* o = out + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < kCols; ++jj)
+      if (owns<D>(jj, tx))
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        o[jj * 64 + tx * 4 + t] = from_float<T>(acc[i][4 * jj + t] / denom);
+        for (int t = 0; t < 4; ++t)
+          o[jj * 64 + tx * 4 + t] = from_float<T>(acc[i][4 * jj + t] / denom);
   }
 }
 
@@ -547,6 +560,18 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (Skv <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if constexpr (std::is_same<T, float>::value) {   // the CUDA-core kernel
+    switch (D) {
+      case 16:
+        return launch_d<T, 16>(q, k, v, out, l, B, Sq, Skv, H, KV, strides,
+                               causal, scale, s);
+      case 32:
+        return launch_d<T, 32>(q, k, v, out, l, B, Sq, Skv, H, KV, strides,
+                               causal, scale, s);
+      default:
+        break;
+    }
+  }
   switch (D) {
     case 64:
       return launch_d<T, 64>(q, k, v, out, l, B, Sq, Skv, H, KV, strides,
@@ -567,7 +592,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // q: [B, Sq, H, D]; k, v: [B, Skv, KV, D], each read through its (batch,
 // seq, head) strides in elements (strides[0..2] q's, [3..5] k's, [6..8]
 // v's; D contiguous, every row 16-byte aligned); out: contiguous
-// [B, Sq, H, D]. One type for all four (fp32 or bf16); D in {64, 128, 256};
+// [B, Sq, H, D]. One type for all four (fp32 or bf16); D in {64, 128, 256},
+// fp32 also 16 and 32;
 // H a multiple of KV. lse: null, or a contiguous fp32 [B, H, Sq] that gets
 // each row's log-sum-exp m + log(l) (the backward's input; a null pointer
 // writes nothing else and changes no other value).

@@ -72,7 +72,8 @@
 // holds more than 128 accumulators. fp32 inputs run a CUDA-core variant
 // of the two kernels (the forward's 16 x 16 thread grid over 64 x 64
 // score tiles, fp32 tiles in shared memory, 32-row query tiles at D = 256
-// to fit shared memory); they are not on the speed path.
+// to fit shared memory; also at D = 16 and 32, the fp32 mini LMs' head
+// dims); they are not on the speed path.
 #include <cstdint>
 #include <type_traits>
 
@@ -427,6 +428,16 @@ constexpr int kLdP = kTile + 16;
 
 template <int D> __host__ __device__ constexpr int ld() { return D + 4; }
 
+// float4 column groups of a thread's rows (column 64 jj + 4 tx, held when
+// it lies inside D: always for D a multiple of 64; at D = 16 and 32 the
+// first D/4 lanes of a row group hold one group, the others none)
+template <int D> __host__ __device__ constexpr int groups() {
+  return (D + 63) / 64;
+}
+template <int D> __device__ __forceinline__ bool owns(int jj, int tx) {
+  return D % 64 == 0 || jj * 64 + tx * 4 < D;
+}
+
 // rows [row0, row0 + n) (rows `rs` elements apart, 16-byte aligned) into
 // dst[n][D + 4]; rows at or past S as zeros
 template <int D>
@@ -478,9 +489,9 @@ __device__ __forceinline__ void dots(float (&s)[I][J], const float* x_s,
 // acc[i][4 jj + e] += sum over n < N of w[ty + 16 i][n] * y[n][64 jj + 4 tx
 // + e], n in order (w: [64][kLdP], y: [N][D + 4])
 template <int D, int N>
-__device__ __forceinline__ void gemm_rows(float (&acc)[4][D / 16],
-                                          const float* w_s, const float* y_s,
-                                          int tx, int ty) {
+__device__ __forceinline__ void gemm_rows(float (&acc)[4][4 * groups<D>()],
+                                          const float* w_s,
+                                          const float* y_s, int tx, int ty) {
 #pragma unroll 2
   for (int n = 0; n < N; n += 4) {
     float4 w4[4];
@@ -491,7 +502,8 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[4][D / 16],
 #pragma unroll
     for (int nn = 0; nn < 4; ++nn) {
 #pragma unroll
-      for (int jj = 0; jj < D / 64; ++jj) {
+      for (int jj = 0; jj < groups<D>(); ++jj) {
+        if (!owns<D>(jj, tx)) continue;
         const float4 y = *reinterpret_cast<const float4*>(
             y_s + (n + nn) * ld<D>() + jj * 64 + tx * 4);
 #pragma unroll
@@ -567,11 +579,11 @@ __global__ void __launch_bounds__(kF32Threads) bwd_dq_f32(BwdArgs a) {
   if (a.causal)
     n_tiles = min(n_tiles, (min(q0 + kTile - 1, a.Sq - 1) + offset) / kTile
                                + 1);
-  float dq[4][D / 16];
+  float dq[4][4 * groups<D>()];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) dq[i][c] = 0.0f;
+    for (int c = 0; c < 4 * groups<D>(); ++c) dq[i][c] = 0.0f;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kTile;
@@ -606,10 +618,11 @@ __global__ void __launch_bounds__(kF32Threads) bwd_dq_f32(BwdArgs a) {
     if (row >= a.Sq) continue;
     float* o = out + ((static_cast<int64_t>(b) * a.Sq + row) * a.H + h) * D;
 #pragma unroll
-    for (int jj = 0; jj < D / 64; ++jj)
+    for (int jj = 0; jj < groups<D>(); ++jj)
+      if (owns<D>(jj, tx))
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[jj * 64 + tx * 4 + e] = dq[i][4 * jj + e] * a.scale;
+        for (int e = 0; e < 4; ++e)
+          o[jj * 64 + tx * 4 + e] = dq[i][4 * jj + e] * a.scale;
   }
 }
 
@@ -648,11 +661,11 @@ __global__ void __launch_bounds__(kF32Threads) bwd_dkdv_f32(BwdArgs a) {
   stage<D>(static_cast<const float*>(a.v) + b * a.vs.b + kvh * a.vs.h,
            a.vs.s, k0, kTile, a.Skv, v_s);
 
-  float dk[4][D / 16], dv[4][D / 16];
+  float dk[4][4 * groups<D>()], dv[4][4 * groups<D>()];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) dk[i][c] = dv[i][c] = 0.0f;
+    for (int c = 0; c < 4 * groups<D>(); ++c) dk[i][c] = dv[i][c] = 0.0f;
 
   const int qt_lo = a.causal ? max(0, k0 - offset) / kBQ : 0;
   const int n_qt = (a.Sq + kBQ - 1) / kBQ;
@@ -708,12 +721,13 @@ __global__ void __launch_bounds__(kF32Threads) bwd_dkdv_f32(BwdArgs a) {
     const int64_t at = ((static_cast<int64_t>(b) * a.Skv + key) * a.KV + kvh)
                        * D;
 #pragma unroll
-    for (int jj = 0; jj < D / 64; ++jj)
+    for (int jj = 0; jj < groups<D>(); ++jj)
+      if (owns<D>(jj, tx))
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dkb[at + jj * 64 + tx * 4 + e] = dk[i][4 * jj + e] * a.scale;
-        dvb[at + jj * 64 + tx * 4 + e] = dv[i][4 * jj + e];
-      }
+        for (int e = 0; e < 4; ++e) {
+          dkb[at + jj * 64 + tx * 4 + e] = dk[i][4 * jj + e] * a.scale;
+          dvb[at + jj * 64 + tx * 4 + e] = dv[i][4 * jj + e];
+        }
   }
 }
 
@@ -1438,7 +1452,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       default: return cudaErrorInvalidValue;
     }
   } else {
-    switch (D) {
+    switch (D) {       // the CUDA-core kernels, also at the mini LMs' 16, 32
+      case 16: return launch_d<T, 16>(a, B, s);
+      case 32: return launch_d<T, 32>(a, B, s);
       case 64: return launch_d<T, 64>(a, B, s);
       case 128: return launch_d<T, 128>(a, B, s);
       case 256: return launch_d<T, 256>(a, B, s);
@@ -1455,7 +1471,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // 16-byte aligned); lse: the forward's contiguous fp32 [B, H, Sq]; delta:
 // fp32 [B, H, Sq] scratch; dq: contiguous [B, Sq, H, D]; dk, dv:
 // contiguous [B, Skv, KV, D]. One type for q, k, v, o, dout and the
-// gradients (fp32 or bf16); D in {64, 128, 256}; H a multiple of KV;
+// gradients (fp32 or bf16); D in {64, 128, 256}, fp32 also 16 and 32; H a
+// multiple of KV;
 // `causal` needs Sq <= Skv. Two launches on the stream: dQ (and delta),
 // then dK/dV.
 extern "C" int spira_flash_attention_bwd_f32(

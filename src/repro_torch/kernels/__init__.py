@@ -35,6 +35,7 @@ from . import (dw_gather_gemm, flash_attention, masked_group_gemm, ops,
 from .segsum import (SegmentSpec, segment_sum, segment_gather,
                      segment_moments, segments_from_sizes,
                      segment_call_count, reset_segment_calls)
+from .zdelta_window import zdelta_window_search
 
 # kernel name -> the wrapper that launches it (and carries its counter)
 LAUNCHERS = {

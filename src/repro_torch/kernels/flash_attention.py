@@ -49,6 +49,9 @@ from . import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
+# fp32 runs the CUDA-core kernels, also at the mini LMs' head dims
+# (examples/torch_serve_lm.py, torch_train_lm.py)
+F32_HEAD_DIMS = (16, 32) + HEAD_DIMS
 WGMMA_HEAD_DIMS = (64, 128)       # the bf16 backward's wgmma kernels
 
 _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
@@ -162,9 +165,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D or KV == 0 or H % KV:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "match (batch, head dim, or H a multiple of KV)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel is compiled for "
-                         f"{HEAD_DIMS}")
+    dims = F32_HEAD_DIMS if dt == torch.float32 else HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"head dim {D}: the {dt} kernel is compiled for "
+                         f"{dims}")
     if Skv == 0:
         raise ValueError(f"{what} needs at least one key")
     if k.device != q.device or v.device != q.device:
@@ -175,7 +179,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, scale: float, return_lse: bool = False):
     """Launch the CUDA kernel on CUDA tensors (a CPU tensor raises). q
     ``[B, Sq, H, D]``, k/v ``[B, Skv, KV, D]``, one dtype (fp32 or bf16),
-    D in ``HEAD_DIMS``, H a multiple of KV; read through their strides.
+    D in ``HEAD_DIMS`` (fp32: ``F32_HEAD_DIMS``), H a multiple of KV; read
+    through their strides.
     Returns a contiguous ``[B, Sq, H, D]`` in that dtype, and with
     ``return_lse`` also each row's log-sum-exp, contiguous ``[B, H, Sq]``
     fp32 (the backward's input)."""

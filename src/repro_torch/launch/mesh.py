@@ -47,22 +47,23 @@ def init_fake(world_size: int, rank: int = 0) -> None:
                             world_size=world_size)
 
 
-def make_mesh(shape, names, device_type: str = "cpu"):
+def make_mesh(shape, names, device_type: str = "cuda"):
     """A named ``DeviceMesh`` of ``shape`` over the initialised group, whose
-    world size must equal the shape's product."""
+    world size must equal the shape's product; on the card unless the
+    caller asks for ``"cpu"``."""
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(names))
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str = "cpu"):
+                         device_type: str = "cuda"):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, device_type)
 
 
-def make_host_mesh(model: int = 1, device_type: str = "cpu"):
+def make_host_mesh(model: int = 1, device_type: str = "cuda"):
     """A ``(world // model, model)`` ``("data", "model")`` mesh over the
     ranks that exist: ``(1, 1)`` on one card."""
     n = dist.get_world_size()

@@ -12,14 +12,19 @@ it is): PyTorch has no associative scan, and
 the reference's parallel scan differs from it only in rounding. Decode is
 O(1) per token with the (conv window, ssm state) cache written in place.
 
-The reference's ``REPRO_MAMBA_PREMAT`` switch (its A/B of discretising the
-whole sequence up front, which changes no result) is not ported yet. Under
-a mesh the inner activation and the block's output pass through
-``shard_act`` at the reference's sites.
+Set ``REPRO_MAMBA_PREMAT=1`` (read at each call, as the reference reads
+it) to discretise the whole sequence up front: ``_ssm_inputs`` runs once
+and builds ``dA`` and ``dBx`` as ``[B, S, d_inner, d_state]`` fp32, and the
+chunk loop reads slices of them. That is the reference's A/B of its
+memory study (at jamba's width and a 2,048-token prefill, 2 GiB each); it
+changes no result beyond rounding, and autograd differentiates it as the
+chunked form. Under a mesh the inner activation and the block's output
+pass through ``shard_act`` at the reference's sites.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Tuple
 
 import torch
@@ -116,7 +121,8 @@ _SCAN_LEAVES = ("x_proj", "dt_proj", "dt_bias", "A_log")
 def _scan(p: dict, cfg: ModelConfig, xconv: torch.Tensor, chunk: int
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The selective scan over ``xconv [B, S, di]``, chunk by chunk, each
-    chunk discretised in turn: (``y [B, S, di]`` fp32, the last state
+    chunk discretised in turn (all of them up front under
+    ``REPRO_MAMBA_PREMAT=1``): (``y [B, S, di]`` fp32, the last state
     ``[B, di, ds]`` fp32). Per rank on its batch shard under a mesh
     (``dist.sharding.local_batch``)."""
     return local_batch(
@@ -133,9 +139,14 @@ def _scan_local(p: dict, cfg: ModelConfig, xconv: torch.Tensor, chunk: int
         chunk = S
     hstate = torch.zeros((B, di, cfg.mamba_d_state), dtype=torch.float32,
                          device=xconv.device)
+    premat = (_ssm_inputs(p, cfg, xconv)
+              if os.environ.get("REPRO_MAMBA_PREMAT") == "1" else None)
     ys = []
     for c0 in opcount.trips(range(0, S, chunk)):
-        dA, dBx, Cm = _ssm_inputs(p, cfg, xconv[:, c0:c0 + chunk])
+        if premat is None:
+            dA, dBx, Cm = _ssm_inputs(p, cfg, xconv[:, c0:c0 + chunk])
+        else:
+            dA, dBx, Cm = (t[:, c0:c0 + chunk] for t in premat)
         states = []
         for t in opcount.trips(range(dA.shape[1])):
             hstate = torch.addcmul(dBx[:, t], dA[:, t], hstate)

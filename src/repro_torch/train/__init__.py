@@ -15,4 +15,4 @@ from .pointcloud import (PointCloudTrainConfig, PointCloudTrainer,
                          make_grad_fn, make_pointcloud_train_step,
                          make_segmentation_loss_fn, scene_features,
                          read_metrics, scene_pool, segmentation_loss)
-from . import compression, loop
+from . import compression, faults, loop

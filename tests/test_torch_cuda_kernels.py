@@ -1068,10 +1068,31 @@ def test_flash_attention_kernel_reads_strided_views(dev, dtype):
                                        scale=1.0))
 
 
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Skv,H,KV", [(33, 33, 8, 4), (130, 61, 2, 2),
+                                         (256, 256, 8, 4), (1, 1, 2, 1)])
+def test_flash_attention_fp32_small_head_dims_match_plain(dev, D, causal, Sq,
+                                                          Skv, H, KV):
+    """fp32 at the mini LMs' head dims (16: serve-mini, 32: qwen3-mini of
+    the examples): the CUDA-core kernel, the first D/4 lanes of a row
+    group holding the output."""
+    q, k, v = _attn_inputs(dev, (2, Sq, H, D), (2, Skv, KV, D),
+                           torch.float32)
+    got, lse = flash_attention(q, k, v, causal=causal, scale=D ** -0.5,
+                               return_lse=True)
+    ref = flash_attention_torch(q, k, v, causal=causal, scale=D ** -0.5)
+    _attn_close(got, ref, torch.float32)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                            scale=D ** -0.5))
+    assert bool(torch.isfinite(lse).all())
+
+
 def test_flash_attention_kernel_rejects_what_it_cannot_run(dev):
-    q, k, v = _attn_inputs(dev, (1, 8, 2, 32), (1, 8, 2, 32), torch.float32)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q, k, v, causal=True, scale=1.0)
+    for D, dtype in ((48, torch.float32), (32, torch.bfloat16)):
+        q, k, v = _attn_inputs(dev, (1, 8, 2, D), (1, 8, 2, D), dtype)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q, k, v, causal=True, scale=1.0)
     q, k, v = _attn_inputs(dev, (1, 8, 2, 64), (1, 8, 2, 64), torch.float16)
     with pytest.raises(TypeError):
         flash_attention(q, k, v, causal=True, scale=1.0)

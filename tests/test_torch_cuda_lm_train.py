@@ -22,7 +22,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, flash_attention, flash_attention_bwd,
+    F32_HEAD_DIMS, HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_torch)
 from repro_torch.models import layers
 from repro_torch.models import transformer as lm
@@ -71,6 +71,19 @@ def _close(got, ref, gate, what):
 @pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_backward_kernel_vs_float64(dev, shape, D, dtype):
+    _backward_vs_float64(dev, shape, D, dtype)
+
+
+@pytest.mark.parametrize("D", sorted(set(F32_HEAD_DIMS) - set(HEAD_DIMS)))
+@pytest.mark.parametrize("shape", SHAPES[:4])
+def test_backward_kernel_vs_float64_fp32_small_head_dims(dev, shape, D):
+    """fp32 at the mini LMs' head dims 16 and 32 (the examples' LM
+    training): the CUDA-core kernels with the first D/4 lanes of a row
+    group holding the gradients' columns."""
+    _backward_vs_float64(dev, shape, D, torch.float32)
+
+
+def _backward_vs_float64(dev, shape, D, dtype):
     (q, k, v, do), causal = _inputs(shape, D, dtype, dev)
     out, lse = flash_attention(q, k, v, causal=causal, scale=1.0,
                                return_lse=True)
@@ -155,9 +168,12 @@ def test_backward_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(*(t.cpu() for t in (q, k, v, out, do, lse)),
                             causal=False, scale=1.0)
-    q2, k2, v2 = (t[..., :32].contiguous() for t in (q, k, v))
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd(q2, k2, v2, q2, q2, lse, causal=False, scale=1.0)
+    # fp32 is compiled at head dims 16, 32, 64, 128 and 256; bf16 at 64-256
+    for D, dt in ((48, torch.float32), (32, torch.bfloat16)):
+        q2, k2, v2 = (t[..., :D].to(dt).contiguous() for t in (q, k, v))
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention_bwd(q2, k2, v2, q2, q2, lse, causal=False,
+                                scale=1.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

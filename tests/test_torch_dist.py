@@ -78,7 +78,7 @@ def main(rank, world, port):
     p_ref, _, m_ref = step(p, init_opt_state(p, tcfg.opt), batch_at(dcfg, 0))
     # AdamW's first update is ±lr whatever the gradient's size: the
     # gradient norm is what holds the gradients' scale
-    mesh = make_mesh((2, 2), ("data", "model"))
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
     with sharding_ctx(mesh, fsdp=True):
         q, _ = tf.init_params(cfg, 0, device="cpu")
         sh = param_shardings(axes, q)
@@ -118,7 +118,8 @@ def main(rank, world, port):
         p, axes = tf.init_params(cfg, 0, device="cpu")
         _, _, m_ref = step(p, init_opt_state(p, AdamWConfig()),
                            batch_at(dcfg, 0))
-        with sharding_ctx(make_mesh((2, 2), ("data", "model")), fsdp=True):
+        with sharding_ctx(make_mesh((2, 2), ("data", "model"), "cpu"),
+                          fsdp=True):
             q = distribute_params(tf.init_params(cfg, 0, device="cpu")[0],
                                   axes)
             _, _, m = step(q, init_opt_state(q, AdamWConfig()),
@@ -158,14 +159,16 @@ def main(rank, world, port):
     p_ref, _, m_ref = steps(p, init_opt_state(p, tcfg.opt), 0, 6)
     mgr = CheckpointManager(CKDIR, async_save=False)
     # 3 steps on (2, 2), checkpoint
-    with sharding_ctx(make_mesh((2, 2), ("data", "model")), fsdp=True):
+    with sharding_ctx(make_mesh((2, 2), ("data", "model"), "cpu"),
+                      fsdp=True):
         q, _ = tf.init_params(cfg, 0, device="cpu")
         q = distribute_params(q, axes)
         q, o, _ = steps(q, init_opt_state(q, tcfg.opt), 0, 3)
         mgr.save(2, *checkpoint_trees(q, o))
     dist.barrier()
     # restart on a different mesh, (4, 1): restore into its DTensors
-    with sharding_ctx(make_mesh((4, 1), ("data", "model")), fsdp=True):
+    with sharding_ctx(make_mesh((4, 1), ("data", "model"), "cpu"),
+                      fsdp=True):
         r, _ = tf.init_params(cfg, 7, device="cpu")
         r = distribute_params(r, axes)
         r, o, at = restore(mgr, r, init_opt_state(r, tcfg.opt))

@@ -153,7 +153,7 @@ rec = dryrun.lower_cell("tiny", "train_tiny", mesh="2x2x2", cfg=cfg,
                         shape=ShapeSpec("train_tiny", "train", 64, 8))
 # a product on a fake 16x16 mesh counts each rank's local product
 dryrun._group(256)
-mesh = make_mesh((16, 16), ("data", "model"))
+mesh = make_mesh((16, 16), ("data", "model"), "cpu")
 with torch.device("meta"):
     x = torch.empty(256, 4096, 4096, dtype=torch.bfloat16)
     w = torch.empty(4096, 14336, dtype=torch.bfloat16)
