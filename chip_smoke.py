@@ -457,6 +457,7 @@ SERVE_OVERLOAD_REQUESTS = 24    # 10c's offered requests
 GRAPH_PAIRS = 10                # phase 11's timed graph/eager call pairs
 DECODE_PAIRS = 12               # 11d's timed graph/eager decode-step pairs
 DEV = "cuda"
+PROGRAM_SPANS = ("session/", "train/", "serve/", "ckpt/")  # obs.span paths
 
 
 def log(*args) -> None:
@@ -525,7 +526,11 @@ def short_kernel_name(name: str) -> str:
 
 def profile_call(fn) -> tuple[float, dict]:
     """Run ``fn`` once under ``torch.profiler``: its wall ms (host clock,
-    synchronised) and the device ms of every kernel and copy, by name."""
+    synchronised) and the device ms of every kernel and copy, by name. The
+    program's spans are ``record_function`` ranges under a profiler, which
+    the CUDA trace mirrors as device-side user annotations spanning the
+    kernels they enclose: those are left out, or busy time would count
+    the kernels again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -538,7 +543,9 @@ def profile_call(fn) -> tuple[float, dict]:
         wall = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith(PROGRAM_SPANS)):
             k = short_kernel_name(e.name)
             by_name[k] = by_name.get(k, 0.0) + e.device_time_total / 1e3
     return wall, by_name
@@ -2915,10 +2922,12 @@ def graph_case(label: str, net, layout, clouds, card: str, paths: dict,
         torch.cuda.empty_cache()
         mem0 = torch.cuda.memory_reserved()
         reset_launch_counts()
+        captured = reg.histogram("session/call/capture").sum
         t0 = time.perf_counter()
         out, h = g.run_with_health(st)
         torch.cuda.synchronize()
         first = (time.perf_counter() - t0) * 1e3
+        captured = reg.histogram("session/call/capture").sum - captured
         grown = torch.cuda.memory_reserved() - mem0
         counts = launch_counts()
         if counts != want:
@@ -2930,7 +2939,7 @@ def graph_case(label: str, net, layout, clouds, card: str, paths: dict,
                                "the eager call")
         log(f"[{label} capture {name}] key (bucket {h.bucket}, escalation "
             f"{h.escalation}): warm-up + capture "
-            f"{reg.gauge('session_graph_capture_seconds').value:.2f} s, "
+            f"{captured:.2f} s, "
             f"first call {first:.1f} ms; launches {WARMUP_RUNS + 1} x "
             f"{ {k: v for k, v in expected.items() if v} }; memory reserved "
             f"+{grown / 2**30:.2f} GiB (process "

@@ -11,12 +11,15 @@ format) call.
 
 Design constraints, in order:
 
-* **Zero overhead on the hot path.** Recording is a few dict/float ops
-  under one lock — never a device sync, never a trace. Instrumentation
-  must not change what the pipeline computes: results stay bitwise
-  identical, jit caches (``compile_count``) and the zdelta search-call
-  counters unchanged (pinned in tests/test_obs.py). The companion rule
-  that spans live OUTSIDE jitted graphs is stated in ``obs.trace``.
+* **Little cost on the hot path.** Recording is a few dict/float ops
+  under one lock, about a microsecond on a host core — never a device
+  sync, never a trace — so the hot path records a handful of metrics per
+  call, not one per layer. Instrumentation must not change what the
+  pipeline computes: results stay bitwise identical, the graph keys
+  (``compile_count``) and the zdelta search-call counters unchanged
+  (pinned in tests/test_torch_obs.py and
+  tests/test_torch_serve_engine.py). The companion rule that spans live
+  OUTSIDE CUDA graphs and kernel wrappers is stated in ``obs.trace``.
 * **Deterministic under an injectable clock.** The registry's ``clock``
   (default ``time.perf_counter``) is the single time source for spans and
   rates; tests drive it with ``serve.faults.FakeClock`` and pin exact
@@ -24,7 +27,8 @@ Design constraints, in order:
 * **Thread-safe.** The pack-ahead serving worker and the async checkpoint
   writer record from their own threads; every mutation takes the registry
   lock.
-* **Dependency-free.** Stdlib only — importable before (and without) jax.
+* **Dependency-free.** Stdlib only — importable before (and without)
+  torch.
 
 Histograms are fixed-edge log2 buckets: edges ``2**lo .. 2**hi`` seconds
 (defaults span ~1 µs to 64 s), one overflow bucket above. ``record(v)``
@@ -360,8 +364,8 @@ _DEFAULT = MetricsRegistry()
 
 def default_registry() -> MetricsRegistry:
     """The process-global registry — the home of module-level trace
-    counters (``core.zdelta``'s search calls) and the default sink for
-    standalone :func:`obs.trace.span` use. Pipeline components
+    counters (``core.zdelta``'s search calls); a standalone
+    :func:`obs.trace.span` records here when handed it. Pipeline components
     (session/engine/trainer/ckpt) prefer a per-session registry so tests
     stay isolated; pass ``metrics=default_registry()`` to merge a pipeline
     into the global surface."""

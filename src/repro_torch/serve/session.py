@@ -64,9 +64,19 @@ serving truncated logits. Lossy capacity is not batch-invariant (the first
 ``ws_capacity`` rows of a column survive across the whole batch), but once
 escalation has removed every drop the logits on real rows are bitwise those
 of a lossless run: every kernel on the path is zero-extension invariant.
+
+Observability (``repro_torch.obs``): a call records its stages as spans
+in ``session.metrics`` — ``session/admit``, ``session/call`` with
+``load`` / ``capture`` / ``replay`` / ``read`` inside, ``session/health``
+and ``session/finish`` (:meth:`SpiraSession.run_with_health`) — which are
+also ranges on a ``torch.profiler`` timeline while one records. Counters
+sum the runs, replans, graph captures and replays, dropped pairs and
+overflowed window cells; ``session.last_health`` keeps the last call's
+counts by layer.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -278,11 +288,10 @@ class SpiraSession:
     def _capture(self, key: tuple, esc: int, st: SparseTensor) -> _KeyGraph:
         """Warm up and capture one key's graph with ``st`` loaded
         (``serve.graphs.capture``); the key enters the session only if the
-        capture succeeds. The registry's gauges keep the last capture's
-        seconds (warm-up included) and the memory reserved after it."""
+        capture succeeds. A gauge keeps the memory reserved after the last
+        capture; the ``session/call/capture`` span its seconds."""
         bucket, dev = key[0], self.device
         reg = self.metrics
-        t0 = reg.clock()
         g = _KeyGraph(None,
                       torch.empty((bucket,), dtype=st.packed.dtype,
                                   device=dev),
@@ -296,7 +305,6 @@ class SpiraSession:
             self._pool = g.graph.pool()
         self._keys[key] = g
         reg.counter("session_graph_captures").inc()
-        reg.gauge("session_graph_capture_seconds").set(reg.clock() - t0)
         reg.gauge("session_graph_memory_reserved").set(
             torch.cuda.memory_reserved(dev))
         return g
@@ -304,21 +312,35 @@ class SpiraSession:
     def _run(self, bucket: int, esc: int, st: SparseTensor):
         """One key on ``st`` (already on the device when eager): the
         outputs (logits, words, count; a graph's own buffers when
-        replayed) and the counters, read to the host once."""
+        replayed) and the counters, read to the host once. Runs inside the
+        call's span, under which it records the stages ``load`` (the input
+        into the key's buffers, or padded to the bucket when eager),
+        ``capture`` (a key's first call on a graph session: load,
+        warm-up and capture), ``replay`` (the graph, or the eager body) and
+        ``read`` (the counters' copy, where the host waits for the
+        device)."""
         key = (bucket, esc, st.features.dtype)
+        reg = self.metrics
         if not self._graphs:
             self._keys.setdefault(key, None)
-            stp = st.pad_to(bucket)
-            *outs, counters = self._body(esc, stp.packed, stp.features)
-            return outs, counters.tolist()
+            with span("load", reg):
+                stp = st.pad_to(bucket)
+            with span("replay", reg):
+                *outs, counters = self._body(esc, stp.packed, stp.features)
+            with span("read", reg):
+                return outs, counters.tolist()
         g = self._keys.get(key)
         if g is None:
-            g = self._capture(key, esc, st)
+            with span("capture", reg):
+                g = self._capture(key, esc, st)
         else:
-            self._load(g, st)
-        g.graph.replay()
-        self.metrics.counter("session_graph_replays").inc()
-        return g.outputs[:3], g.outputs[3].tolist()
+            with span("load", reg):
+                self._load(g, st)
+        with span("replay", reg):
+            g.graph.replay()
+        reg.counter("session_graph_replays").inc()
+        with span("read", reg):
+            return g.outputs[:3], g.outputs[3].tolist()
 
     # -- hot path ---------------------------------------------------------
 
@@ -331,57 +353,73 @@ class SpiraSession:
                         ) -> Tuple[SparseTensor, HealthReport]:
         """Run with the escalation loop (module doc); returns
         ``(logits, health)``. ``max_replans`` can only tighten the
-        session's ``max_overflow_replans``."""
-        ensure_sparse_tensor(st, where="SpiraSession")
-        if st.layout != self.layout:
-            raise ValueError(
-                f"SparseTensor layout {st.layout} != session layout "
-                f"{self.layout}; build inputs against session.layout")
-        if st.channels != self.net.in_channels:
-            raise ValueError(
-                f"SparseTensor has {st.channels} feature channels; "
-                f"{self.net.name} expects {self.net.in_channels}.")
-        if not self._graphs:
-            st = st.to(self.device)
-        base = self._bucket(st.capacity)
-        budget = (self.max_overflow_replans if max_replans is None
-                  else min(max_replans, self.max_overflow_replans))
-        esc = replans = 0
-        with self._lock:
+        session's ``max_overflow_replans``.
+
+        Spans, in order: ``session/admit`` (validation, the eager
+        session's one copy of the input to the device, bucketing, the
+        session's lock), per escalation level ``session/call`` (level 0)
+        or ``session/replan`` with :meth:`_run`'s stages inside, and
+        ``session/health`` (the counters by layer), then
+        ``session/finish`` (the clones out of the graph's memory, the
+        health report, its registry entries, the output tensor)."""
+        reg = self.metrics
+        with contextlib.ExitStack() as held:
+            with span("session/admit", reg):
+                ensure_sparse_tensor(st, where="SpiraSession")
+                if st.layout != self.layout:
+                    raise ValueError(
+                        f"SparseTensor layout {st.layout} != session layout "
+                        f"{self.layout}; build inputs against "
+                        "session.layout")
+                if st.channels != self.net.in_channels:
+                    raise ValueError(
+                        f"SparseTensor has {st.channels} feature channels; "
+                        f"{self.net.name} expects {self.net.in_channels}.")
+                if not self._graphs:
+                    st = st.to(self.device)
+                base = self._bucket(st.capacity)
+                budget = (self.max_overflow_replans if max_replans is None
+                          else min(max_replans, self.max_overflow_replans))
+                held.enter_context(self._lock)
+            esc = replans = 0
             while True:
                 bucket = self._esc_bucket(base, esc)
                 with span("session/call" if esc == 0 else "session/replan",
-                          self.metrics):
+                          reg):
                     outs, counters = self._run(bucket, esc, st)
-                dropped, ovf = self._health_counters(esc, counters)
+                with span("session/health", reg):
+                    dropped, ovf = self._health_counters(esc, counters)
                 if sum(dropped.values()) == 0 or esc >= budget:
                     break
                 esc += 1
                 replans += 1
-            if self._graphs:
-                outs = [t.clone() for t in outs]
-        logits, out_packed, out_count = outs
-        health = HealthReport(
-            bucket=bucket, escalation=esc, replans=replans,
-            ws_dropped_pairs=dropped, window_overflow_cells=ovf)
-        self.last_health = health
-        self._record_health(health)
-        out = SparseTensor(features=logits, packed=out_packed,
-                           count=out_count, layout=self.layout)
+            with span("session/finish", reg):
+                if self._graphs:
+                    outs = [t.clone() for t in outs]
+                logits, out_packed, out_count = outs
+                health = HealthReport(
+                    bucket=bucket, escalation=esc, replans=replans,
+                    ws_dropped_pairs=dropped, window_overflow_cells=ovf)
+                self.last_health = health
+                self._record_health(health)
+                out = SparseTensor(features=logits, packed=out_packed,
+                                   count=out_count, layout=self.layout)
         return out, health
 
     def _record_health(self, health: HealthReport) -> None:
-        """Fold one call's HealthReport into the registry."""
+        """Fold one call's HealthReport into the registry: the runs and
+        replans, the bucket and escalation level, and the dropped pairs
+        and overflowed window cells summed over the layers and the calls
+        (``last_health`` keeps them by layer)."""
         reg = self.metrics
         reg.counter("session_runs").inc()
         if health.replans:
             reg.counter("session_replans").inc(health.replans)
         reg.gauge("session_bucket").set(health.bucket)
         reg.gauge("session_escalation").set(health.escalation)
-        for name, v in health.ws_dropped_pairs.items():
-            reg.gauge(f"session_ws_dropped_pairs_{name}").set(v)
-        for name, v in health.window_overflow_cells.items():
-            reg.gauge(f"plan_window_overflow_cells_{name}").set(v)
+        reg.counter("session_ws_dropped_pairs").inc(health.total_ws_dropped)
+        reg.counter("plan_window_overflow_cells").inc(
+            sum(health.window_overflow_cells.values()))
 
     def _esc_bucket(self, base_bucket: int, esc: int) -> int:
         """The next pow2 bucket per escalation level, clamped to

@@ -222,16 +222,18 @@ def make_guarded_train_step(
     segment: Optional[SegmentSpec] = None,
 ) -> Callable:
     """``make_pointcloud_train_step`` with the update staged through
-    :func:`guarded_apply_updates`: ``step(params, opt_state, packed, feats,
-    labels) -> (staged, metrics)``, one extra metric (``step_ok``)."""
+    :func:`guarded_apply_updates` (the span ``optimizer``): ``step(params,
+    opt_state, packed, feats, labels) -> (staged, metrics)``, one extra
+    metric (``step_ok``)."""
     grad_fn = make_grad_fn(net, layout, engine=engine,
                            downsample_method=downsample_method,
                            segment=segment)
 
     def step(params, opt_state: OptState, packed, feats, labels):
         named, grads, loss, acc = grad_fn(params, packed, feats, labels)
-        staged, metrics = guarded_apply_updates(named, grads, opt_state,
-                                                tcfg.opt, loss=loss)
+        with span("optimizer"):
+            staged, metrics = guarded_apply_updates(named, grads, opt_state,
+                                                    tcfg.opt, loss=loss)
         metrics.update(loss=loss, accuracy=acc)
         return staged, metrics
 

@@ -193,7 +193,10 @@ def make_segmentation_loss_fn(
     """The plan → forward → loss chain as ``loss_fn(params, packed, feats,
     labels) -> (loss, accuracy)``. The plan is built without autograd.
     Raises ``ValueError`` unless the net ends on its input level
-    (per-voxel supervision)."""
+    (per-voxel supervision). Spans ``plan`` and ``forward`` (the feature
+    pass and the loss) record into the enclosing span's registry:
+    ``train/step/plan`` and ``train/step/forward`` in a trainer's step,
+    nothing when no span encloses the call."""
     specs = net.conv_specs()
     in_level = specs[0].m_in if specs else 0
     out_level = specs[-1].m_out if specs else 0
@@ -205,16 +208,18 @@ def make_segmentation_loss_fn(
             "minkunet42) or pool the labels to the output level yourself.")
 
     def loss_fn(params: PointCloudModel, packed, feats, labels):
-        with torch.no_grad():
+        with span("plan"), torch.no_grad():
             plan = build_network_plan(packed, specs=specs, layout=layout,
                                       engine=engine,
                                       downsample_method=downsample_method)
-        logits = pointcloud_forward(params, net, plan, feats, layout=layout,
-                                    segment=segment)
-        out_cs = plan.coords[out_level]
-        seg = (packed_segments(out_cs.packed, out_cs.count, layout)
-               if layout.bb else None)
-        return segmentation_loss(logits, labels, seg=seg, segment=segment)
+        with span("forward"):
+            logits = pointcloud_forward(params, net, plan, feats,
+                                        layout=layout, segment=segment)
+            out_cs = plan.coords[out_level]
+            seg = (packed_segments(out_cs.packed, out_cs.count, layout)
+                   if layout.bb else None)
+            return segmentation_loss(logits, labels, seg=seg,
+                                     segment=segment)
 
     return loss_fn
 
@@ -230,7 +235,8 @@ def make_grad_fn(
     """The plan → forward → loss → backward chain as ``grad_fn(params,
     packed, feats, labels) -> (named, grads, loss, accuracy)``: the
     parameters by name, their gradients under the same names, and the
-    detached 0-d loss and accuracy."""
+    detached 0-d loss and accuracy. The backward is the span
+    ``backward``."""
     loss_fn = make_segmentation_loss_fn(
         net, layout, engine=engine, downsample_method=downsample_method,
         segment=segment)
@@ -239,7 +245,8 @@ def make_grad_fn(
         named = dict(params.named_parameters())
         with torch.enable_grad():
             loss, acc = loss_fn(params, packed, feats, labels)
-            grads = torch.autograd.grad(loss, list(named.values()))
+            with span("backward"):
+                grads = torch.autograd.grad(loss, list(named.values()))
         return named, dict(zip(named, grads)), loss.detach(), acc.detach()
 
     return grad_fn
@@ -258,7 +265,8 @@ def make_pointcloud_train_step(
     ``step(params, opt_state, packed, feats, labels) -> (params, opt_state,
     metrics)``. ``params`` (a :class:`PointCloudModel`) is updated in
     place and returned; ``metrics`` holds 0-d tensors ``loss``,
-    ``accuracy``, ``grad_norm`` and the float ``lr``."""
+    ``accuracy``, ``grad_norm`` and the float ``lr``. The update is the
+    span ``optimizer``."""
     grad_fn = make_grad_fn(net, layout, engine=engine,
                            downsample_method=downsample_method,
                            segment=segment)
@@ -266,8 +274,9 @@ def make_pointcloud_train_step(
     def step(params: PointCloudModel, opt_state: OptState, packed, feats,
              labels):
         named, grads, loss, acc = grad_fn(params, packed, feats, labels)
-        _, opt_state, metrics = apply_updates(named, grads, opt_state,
-                                              tcfg.opt)
+        with span("optimizer"):
+            _, opt_state, metrics = apply_updates(named, grads, opt_state,
+                                                  tcfg.opt)
         metrics.update(loss=loss, accuracy=acc)
         return params, opt_state, metrics
 
@@ -276,11 +285,13 @@ def make_pointcloud_train_step(
 
 def read_metrics(metrics: dict) -> dict:
     """A step's metrics as host floats, its 0-d tensors read in one
-    device-to-host copy (one sync per step, however many metrics)."""
+    device-to-host copy (one sync per step, however many metrics): the
+    span ``read``."""
     keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
     out = dict(metrics)
-    out.update(zip(keys, torch.stack([metrics[k].float() for k in keys])
-                   .tolist()))
+    with span("read"):
+        out.update(zip(keys, torch.stack([metrics[k].float() for k in keys])
+                       .tolist()))
     return out
 
 
@@ -296,7 +307,10 @@ class PointCloudTrainer:
     parameters in place on every :meth:`step`, so the session serves the
     trained weights at once. Inputs are bucketed with the session's pow2
     policy (labels padded with the ignore label); ``compile_count`` is the
-    number of distinct buckets seen, as inference's."""
+    number of distinct buckets seen, as inference's. A step records the
+    spans ``train/pack`` and ``train/step``, and inside the latter the
+    step's stages ``plan``, ``forward``, ``backward``, ``optimizer`` and
+    ``read``, in the session's registry."""
 
     def __init__(self, session, tcfg: Optional[PointCloudTrainConfig] = None,
                  *, opt_state: Optional[OptState] = None):
