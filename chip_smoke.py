@@ -445,6 +445,9 @@ PORT_ONLY = {
     # the JAX package differentiates its attention (grouped_attention) in XLA
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/models/layers.py:26"),
+    # the JAX package computes the bias, ReLU and per-scene BN in XLA
+    "relu_bn": ("src/repro_torch/csrc/segsum.cu",
+                "src/repro/models/pointcloud.py:234"),
 }
 TRAIN_STEPS = 5
 SPIKE_WARM_STEPS = 10           # phase 9b's clean commits before the spike
@@ -562,7 +565,7 @@ class Recorder:
 
     def __init__(self, names=None):
         from repro_torch.kernels import ops, segsum, zdelta_window
-        from repro_torch.models import layers
+        from repro_torch.models import layers, pointcloud
         self.targets = [(zdelta_window, "zdelta_superwindow_cuda",
                          "zdelta_superwindow_search"),
                         (ops, "spconv_gather_gemm", "spconv_gather_gemm"),
@@ -575,7 +578,8 @@ class Recorder:
                         (layers, "flash_attention_bwd",
                          "flash_attention_bwd"),
                         (zdelta_window, "zdelta_repair_cuda",
-                         "zdelta_repair")]
+                         "zdelta_repair"),
+                        (pointcloud, "relu_bn_cuda", "relu_bn")]
         if names is not None:
             self.targets = [t for t in self.targets if t[2] in names]
         self.calls = {name: [] for _, _, name in self.targets}
@@ -916,6 +920,102 @@ def log_segsum_passes(label: str, r: dict, card: str) -> None:
         f"offsets {p['chunk_offsets']:.3f}, chunk partials "
         f"{p['chunk_partials']:.3f}, combine {p['combine_partials']:.3f} "
         f"| {card}")
+
+
+def relu_bn_chain(a, kw):
+    """The chain of torch ops a fused epilogue launch replaces (the bias
+    add, the row mask and ``_relu_bn`` on the segment sum's kernel), on the
+    launch's own arguments."""
+    from repro_torch.core.spconv import SpConvSpec, add_bias
+    from repro_torch.kernels.segsum import SegmentSpec
+    from repro_torch.models.pointcloud import _relu_bn
+    x, count, seg = a
+    spec = SpConvSpec("l", 1, x.shape[1], dense=not kw["mask"])
+    return _relu_bn(add_bias(x, kw["bias"], spec, count), count, seg,
+                    segment=SegmentSpec(backend="cuda", q=kw["q"]))
+
+
+def chain_segsum_calls(calls) -> list:
+    """The segment-sum launches the chain would make for the recorded
+    fused epilogue launches (``concat([z, z²])`` over the same segments),
+    in ``segment_sum_cuda``'s arguments: what an inference forward
+    launched before the fused epilogue."""
+    import torch
+    from repro_torch.core.spconv import SpConvSpec, add_bias
+    out = []
+    for a, kw in calls:
+        x, count, seg = a
+        spec = SpConvSpec("l", 1, x.shape[1], dense=not kw["mask"])
+        z = torch.relu(add_bias(x, kw["bias"], spec, count))
+        if seg is None:
+            cap = x.shape[0]
+            sid = torch.where(torch.arange(cap, device=x.device) < count, 0,
+                              1).to(torch.int32)
+            seg = (sid, torch.zeros(1, dtype=torch.int32, device=x.device),
+                   count.to(torch.int32).reshape(1), 1)
+        sid, starts, counts, S = seg
+        out.append(((torch.cat([z, z * z], dim=1), sid, starts, counts),
+                    dict(num_segments=S, q=kw["q"])))
+    return out
+
+
+def check_relu_bn(calls, label: str) -> dict:
+    """Fused epilogue launches: bitwise equal to the chain they replace
+    (``relu_bn_chain``), both timed on the device with the host's enqueue
+    hidden (``queued_ms``: a launch's kernels take less device time than
+    its wrapper's host code), the wrapper also as called (``wrapper_ms``);
+    the bound counts each
+    valid row read twice (the moments, then the apply), every row written
+    once, and the bias, counts and statistics once; the device time of the
+    two kernels and the statistics' torch ops over one launch of every
+    call (``passes``)."""
+    import torch
+    from repro_torch.models import pointcloud as pc
+    t_k = t_w = t_p = b_tot = bytes_tot = 0.0
+    for i, (a, kw) in enumerate(calls):
+        x, count, seg = a
+        got = pc.relu_bn_cuda(*a, **kw)
+        ref = relu_bn_chain(a, kw)
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise RuntimeError(f"{label} launch {i}: not bitwise equal to "
+                               "the chain")
+        t_k += queued_ms(lambda: pc.relu_bn_cuda(*a, **kw), 5)
+        t_w += cuda_ms(lambda: pc.relu_bn_cuda(*a, **kw), 5)
+        t_p += queued_ms(lambda: relu_bn_chain(a, kw), 3)
+        cap, C = x.shape
+        rows = int(count)
+        S = 1 if seg is None else seg[3]
+        nb = (4 * C * (2 * rows + cap) + 4 * (0 if seg is None else cap)
+              + 4 * C * (1 + 4 * S))
+        b_tot += bound_ms(nb, 0.0)[0]
+        bytes_tot += nb
+
+    def every_call():
+        for a, kw in calls:
+            pc.relu_bn_cuda(*a, **kw)
+    every_call()
+    _, by_name = profile_call(every_call)
+    passes = {k: sum(v for n, v in by_name.items() if n.startswith(k))
+              for k in ("chunk_offsets", "chunk_partials",
+                        "combine_partials", "relu_bn_apply")}
+    passes["stats"] = sum(by_name.values()) - sum(passes.values())
+    return dict(max_abs_err=0.0, ms=t_k, wrapper_ms=t_w, plain_ms=t_p,
+                bound_ms=b_tot, bound_by="bytes", gbytes=bytes_tot / 1e9,
+                passes=passes)
+
+
+def log_relu_bn(label: str, r: dict, n: int, card: str) -> None:
+    p = r.pop("passes")
+    gbytes = r.pop("gbytes")
+    log(f"[{label}] {n} launches bitwise equal to the chain (bias add, "
+        f"mask, relu, x*x, cat, segment sum, gather, sub, mul, where); per "
+        f"forward device {r['ms']:.3f} ms, through the wrapper "
+        f"{r['wrapper_ms']:.3f} ms, chain {r['plain_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({gbytes:.3f} GB, "
+        f"{gbytes / r['ms']:.0f} GB/s); one launch of each, device ms: "
+        f"chunk offsets {p['chunk_offsets']:.3f}, moments partials "
+        f"{p['chunk_partials']:.3f}, combine {p['combine_partials']:.3f}, "
+        f"stats {p['stats']:.3f}, apply {p['relu_bn_apply']:.3f} | {card}")
 
 
 def ws_bound(F, m, W, capacity) -> tuple:
@@ -1873,7 +1973,7 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
     expected = {k: 0 for k in launch_counts()}
     expected.update({"zdelta_superwindow_search": 42,
                      "zdelta_repair": 42,
-                     "spconv_gather_gemm": 42, "segment_sum": 42})
+                     "spconv_gather_gemm": 42, "relu_bn": 42})
     outb, hb, times, counts = drive(session, (("scene0", st1),
                                               ("batch2", st2)),
                                     expected, "4e int64", kind, card)
@@ -1931,12 +2031,13 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
 
 def expected_launches(specs) -> dict:
     """Kernel launches of one forward of ``specs`` on the superwindow
-    engine: one search and one segment sum per layer, the OS kernel for a
-    layer with dense offsets, the WS kernel for one with sparse offsets."""
+    engine without autograd: one search and one fused epilogue per layer,
+    the OS kernel for a layer with dense offsets, the WS kernel for one
+    with sparse offsets."""
     from repro_torch.core.kernel_map import l1_partition
     from repro_torch.kernels import launch_counts
     exp = {k: 0 for k in launch_counts()}
-    exp["zdelta_superwindow_search"] = exp["segment_sum"] = len(specs)
+    exp["zdelta_superwindow_search"] = exp["relu_bn"] = len(specs)
     exp["zdelta_repair"] = len(specs)
     for s in specs:
         if s.dataflow == "hybrid":
@@ -4489,7 +4590,7 @@ EXAMPLES = (
      lambda out: "the three dataflows agree"),
     ("ex-pc-infer", "torch_pointcloud_inference", (),
      ("zdelta_superwindow_search", "zdelta_repair", "spconv_gather_gemm",
-      "segment_sum"),
+      "relu_bn"),
      lambda out: f"{out['per_scene']:.1f} ms per scene in the batch "
                  f"({out['batch']:.1f} ms a batch, {out['single']:.1f} ms "
                  f"one scene)"),
@@ -4649,6 +4750,11 @@ def check_samples(name: str, calls: dict, training: bool) -> dict:
     if name == "segment_sum":
         r = check_segsum(calls[name], gradients=training)
         r.pop("passes")
+        return r
+    if name == "relu_bn":
+        r = check_relu_bn(calls[name], "15 relu_bn")
+        for k_ in ("passes", "gbytes"):
+            r.pop(k_)
         return r
     if name == "dw_gather_gemm":
         r = check_dw(calls[name], label="15 dW")
@@ -4863,18 +4969,23 @@ def main() -> int:
                 f"max|diff| {d:.3e} (tol {tol:.1e}), kernel {ms:.4f} ms, "
                 f"plain {pms:.4f} ms")
 
-    # segment sums: bitwise
-    s_calls = rec.calls["segment_sum"]
+    # the fused epilogue: bitwise the chain
+    e_calls = rec.calls["relu_bn"]
+    r = results["relu_bn"] = check_relu_bn(e_calls, "3 relu_bn")
+    log_relu_bn("3 relu_bn", r, len(e_calls), card)
+    # segment sums: bitwise, on the chain's inputs (an inference forward
+    # launches none since the fused epilogue)
+    s_calls = chain_segsum_calls(e_calls)
     r = check_segsum(s_calls)
     f64_rel, lib_rel = r.pop("f64_rel"), r.pop("lib_rel")
     log_segsum_passes("3 segsum", r, card)
     results["segment_sum"] = r
-    log(f"[3 segsum] {len(s_calls)} launches bitwise equal (max rel diff "
+    log(f"[3 segsum] {len(s_calls)} chain launches bitwise equal (max rel diff "
         f"to an fp64 sum {f64_rel:.2e}); per forward "
         f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
         f"torch.segment_reduce {r['library_ms']:.3f} ms (max rel diff to "
         f"fp64 {lib_rel:.2e}), bound {r['bound_ms']:.4f} ms | {card}")
-    del rec, z, o, s_calls
+    del rec, z, o, s_calls, e_calls
     torch.cuda.empty_cache()
 
     tick("3 MinkUNet-42 kernels vs plain")
@@ -4882,15 +4993,16 @@ def main() -> int:
     expected = {k: 0 for k in launch_counts()}
     expected.update({"zdelta_superwindow_search": 42,
                      "zdelta_repair": 42,
-                     "spconv_gather_gemm": 42, "segment_sum": 42})
+                     "spconv_gather_gemm": 42, "relu_bn": 42})
     outb, hb, times, counts = drive(session, (("scene0", st1),
                                               ("batch2", st2)),
                                     expected, "4 main path", kind, card)
     for k in ("zdelta_superwindow_search", "spconv_gather_gemm",
-              "segment_sum", "zdelta_repair"):
+              "segment_sum", "zdelta_repair", "relu_bn"):
         paths[k] = {"minkunet42": dict(launches=counts[k],
                                        **per_forward(results[k]))}
     results["zdelta_repair"]["launches"] = counts["zdelta_repair"]
+    results["relu_bn"]["launches"] = counts["relu_bn"]
     profile_line("4", lambda: session(st2), times["batch2"][1], card)
 
     tick("4 MinkUNet-42 main path")
@@ -4990,6 +5102,13 @@ def main() -> int:
         log(f"[3 cp ws {name} bf16] max|diff| {d:.3e} (tol {tol:.1e}), "
             f"kernel {ms:.4f} ms")
     # the slice-1 kernels at CenterPoint's shapes
+    e_calls = rec.calls["relu_bn"]
+    r = check_relu_bn(e_calls, "3 cp relu_bn")
+    log_relu_bn("3 cp relu_bn", r, len(e_calls), card)
+    paths["relu_bn"]["centerpoint_large"] = dict(launches=len(e_calls),
+                                                 **per_forward(r))
+    # the segment sums on the chain's inputs, as in phase 3
+    rec.calls["segment_sum"] = chain_segsum_calls(e_calls)
     for kname, fn in (("zdelta_superwindow_search",
                        lambda c: check_search(c, "superwindow")),
                       ("spconv_gather_gemm",
@@ -5025,7 +5144,7 @@ def main() -> int:
         f"{r['ms']:.4f} ms, through the wrapper {r['wrapper_ms']:.4f} ms, "
         f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms"
         f"{note} | {card}")
-    del rec, w_calls, F, m, W
+    del rec, w_calls, F, m, W, e_calls
     torch.cuda.empty_cache()
 
     tick("3 CenterPoint-Large kernels vs plain")
@@ -5034,13 +5153,13 @@ def main() -> int:
     n_os = sum(1 for s in cp.specs
                if l1_partition(s.K, s.offset_stride, s.t)[0].size)
     expected.update({"zdelta_superwindow_search": 20,
-                     "zdelta_repair": 20, "segment_sum": 20,
+                     "zdelta_repair": 20, "relu_bn": 20,
                      "spconv_gather_gemm": n_os, "ws_scatter_gemm": 20})
     outb, hb, times, counts = drive(cps, (("scene0", st1), ("batch2", st2)),
                                     expected, "4b main path", kind, card)
     cp_untuned_ms = times["batch2"][1]
     for k in ("zdelta_superwindow_search", "spconv_gather_gemm",
-              "segment_sum"):
+              "segment_sum", "relu_bn"):
         paths[k]["centerpoint_large"]["launches"] = counts[k]
     results["ws_scatter_gemm"]["launches"] = counts["ws_scatter_gemm"]
     paths["ws_scatter_gemm"] = {"centerpoint_large": dict(

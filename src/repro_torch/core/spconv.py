@@ -115,35 +115,47 @@ class _BiasAdd(torch.autograd.Function):
         return g, db, None
 
 
-def apply_spconv(params: SpConv, spec: SpConvSpec, features: torch.Tensor,
-                 kmap: KernelMap) -> torch.Tensor:
-    """Feature computation with the spec's dataflow; output rows at and
-    beyond ``kmap.out_count`` are zero. Differentiable (``core.dataflow``);
-    a submanifold layer's map is its own transpose, so its backward skips
-    the mirror scatter."""
+def spconv_features(params: SpConv, spec: SpConvSpec,
+                    features: torch.Tensor, kmap: KernelMap) -> torch.Tensor:
+    """The convolution alone, before the bias: the spec's dataflow over the
+    map. Differentiable (``core.dataflow``); a submanifold layer's map is
+    its own transpose, so its backward skips the mirror scatter."""
     w = params.weight.to(features.dtype)
     cap = spec.ws_capacity or kmap.m.shape[0]
     st = spec.submanifold
     if spec.dataflow == "os":
-        out = output_stationary(features, kmap.m, w, fuse=spec.fuse_dense,
-                                backend=spec.backend, bm=spec.bm, bn=spec.bn,
-                                self_transpose=st)
-    elif spec.dataflow == "ws":
-        out = weight_stationary(features, kmap.m, w, capacity=cap,
-                                backend=spec.backend, bm=spec.bm, bn=spec.bn,
-                                self_transpose=st)
-    elif spec.dataflow == "hybrid":
-        out = hybrid(features, kmap, w, K=spec.K, stride=spec.offset_stride,
-                     t=spec.t, ws_capacity=cap, fuse_dense=spec.fuse_dense,
-                     backend=spec.backend, bm=spec.bm, bn=spec.bn,
-                     self_transpose=st)
-    else:
-        raise ValueError(f"layer {spec.name}: unknown dataflow "
-                         f"{spec.dataflow!r}; want os|ws|hybrid")
-    if params.bias is not None:
-        out = _BiasAdd.apply(out, params.bias.to(features.dtype),
-                             spec.backend)
-        # PAD rows picked up the bias; zero them unless the level is dense
-        if not spec.dense:
-            out = _mask_rows(out, kmap.out_count)
-    return out
+        return output_stationary(features, kmap.m, w, fuse=spec.fuse_dense,
+                                 backend=spec.backend, bm=spec.bm,
+                                 bn=spec.bn, self_transpose=st)
+    if spec.dataflow == "ws":
+        return weight_stationary(features, kmap.m, w, capacity=cap,
+                                 backend=spec.backend, bm=spec.bm,
+                                 bn=spec.bn, self_transpose=st)
+    if spec.dataflow == "hybrid":
+        return hybrid(features, kmap, w, K=spec.K, stride=spec.offset_stride,
+                      t=spec.t, ws_capacity=cap, fuse_dense=spec.fuse_dense,
+                      backend=spec.backend, bm=spec.bm, bn=spec.bn,
+                      self_transpose=st)
+    raise ValueError(f"layer {spec.name}: unknown dataflow "
+                     f"{spec.dataflow!r}; want os|ws|hybrid")
+
+
+def add_bias(out: torch.Tensor, bias: Optional[torch.Tensor],
+             spec: SpConvSpec, out_count: torch.Tensor) -> torch.Tensor:
+    """The bias (already in the features' dtype) on :func:`spconv_features`'
+    output, and the rows at and beyond ``out_count`` zeroed again unless
+    the level is dense."""
+    if bias is None:
+        return out
+    out = _BiasAdd.apply(out, bias, spec.backend)
+    # PAD rows picked up the bias; zero them unless the level is dense
+    return out if spec.dense else _mask_rows(out, out_count)
+
+
+def apply_spconv(params: SpConv, spec: SpConvSpec, features: torch.Tensor,
+                 kmap: KernelMap) -> torch.Tensor:
+    """Feature computation with the spec's dataflow and the bias; output
+    rows at and beyond ``kmap.out_count`` are zero. Differentiable."""
+    bias = None if params.bias is None else params.bias.to(features.dtype)
+    return add_bias(spconv_features(params, spec, features, kmap), bias,
+                    spec, kmap.out_count)

@@ -33,6 +33,22 @@
 //
 // Bound on this card: bytes (each valid row read once, one add per
 // element); the combine's chain of adds is the floor for a long segment.
+//
+// The fused ReLU + per-scene BN epilogue of an inference forward (fp32)
+// runs the same schedule on the raw convolution output:
+//   relu_bn_moments: chunk_partials reading z = relu(x + bias), rows at
+//      or past the valid count set to +0 before the ReLU, and summing z
+//      and z * z from one load into the [slots, 2C] partials that a
+//      segment sum of concat([z, z * z]) would hold; chunk_offsets and
+//      combine_partials run as above, so the moments are bitwise that sum.
+//   relu_bn_apply: y = (z - mean[sid]) * inv[sid] on the rows of a
+//      segment, +0 on every other row, z recomputed in registers; 16-byte
+//      loads and stores where C % 4 == 0.
+// The torch chain it replaces (bias add, row mask, relu, x * x, cat,
+// segment sum, segment gather, sub, mul, where) rounds after every op; each
+// op here is the same single IEEE op (__fadd_rn, __fmul_rn, __fsub_rn, no
+// contraction into an FMA), and the ReLU is ATen's clamp_min (NaN kept,
+// fmaxf otherwise), so the result is bitwise the chain's.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +71,73 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);    // exact
 }
+
+// ATen's CUDA relu (clamp_min at 0): NaN passes through, fmaxf otherwise.
+__device__ __forceinline__ float relu(float v) {
+  return isnan(v) ? v : fmaxf(v, 0.0f);
+}
+
+// The epilogue's input row: where(row < count, x + b, 0), then relu.
+// has_b false: no add; lim <= 0 masks the row (no count: never).
+__device__ __forceinline__ float relu_row(float x, bool has_b, float b,
+                                          int lim) {
+  if (lim <= 0) return relu(0.0f);
+  return relu(has_b ? __fadd_rn(x, b) : x);
+}
+
+// What chunk_partials sums. A Rows policy gives a thread's cursor over its
+// chunk's rows of one channel (load(t): row t of the chunk, read through
+// the read-only path; value(v, t): the loaded v as the row it stands for,
+// widened) and the kSums summands of that value, stored as kSums channel
+// blocks of C in each partial row. The loads of a batch are all issued
+// before the first value is formed.
+template <typename T>
+struct RawRows {                    // the rows as they are: a segment sum
+  static constexpr int kSums = 1;
+  const T* x;
+  struct Cursor {
+    const T* p;
+    int C;
+    __device__ __forceinline__ T load(int t) const {
+      return __ldg(p + static_cast<int64_t>(t) * C);
+    }
+    __device__ __forceinline__ float value(T v, int) const {
+      return widen(v);
+    }
+  };
+  __device__ __forceinline__ Cursor at(int row, int ch, int C) const {
+    return {x + static_cast<int64_t>(row) * C + ch, C};
+  }
+  static __device__ __forceinline__ float term(int, float v) { return v; }
+};
+
+struct ReluRows {                   // the epilogue's z: sums of z and z * z
+  static constexpr int kSums = 2;
+  const float* x;
+  const float* bias;                // null: no bias
+  const int32_t* count;             // null: no row mask
+  struct Cursor {
+    const float* p;
+    int C;
+    bool has_b;
+    float b;                        // the channel's bias
+    int lim;                        // rows of the chunk before the mask
+    __device__ __forceinline__ float load(int t) const {
+      return t < lim ? __ldg(p + static_cast<int64_t>(t) * C) : 0.0f;
+    }
+    __device__ __forceinline__ float value(float v, int t) const {
+      return relu_row(v, has_b, b, lim - t);
+    }
+  };
+  __device__ __forceinline__ Cursor at(int row, int ch, int C) const {
+    return {x + static_cast<int64_t>(row) * C + ch, C, bias != nullptr,
+            bias ? __ldg(bias + ch) : 0.0f,
+            count ? __ldg(count) - row : 0x7fffffff};
+  }
+  static __device__ __forceinline__ float term(int k, float v) {
+    return k == 0 ? v : __fmul_rn(v, v);
+  }
+};
 
 // choff[s] = sum_{s' < s} ceil(counts[s'] / q); choff[S] = the total.
 __global__ void __launch_bounds__(kScanThreads)
@@ -95,10 +178,10 @@ chunk_offsets(const int32_t* __restrict__ counts, int S, int q,
   if (threadIdx.x == 0) choff[S] = carry;
 }
 
-template <typename T>
+template <typename Rows>
 __global__ void __launch_bounds__(kThreads)
-chunk_partials(const T* __restrict__ x, int C, int q,
-               const int32_t* __restrict__ starts,
+chunk_partials(Rows rows_in, int C, int q,
+               const int32_t* __restrict__ starts,   // null: one from row 0
                const int32_t* __restrict__ counts,
                const int32_t* __restrict__ choff, int S,
                float* __restrict__ partial) {
@@ -119,7 +202,7 @@ chunk_partials(const T* __restrict__ x, int C, int q,
       if (choff[mid] <= c) lo = mid; else hi = mid;
     }
     const int j = c - choff[lo];
-    first_row[threadIdx.x] = starts[lo] + j * q;
+    first_row[threadIdx.x] = (starts ? starts[lo] : 0) + j * q;
     rows[threadIdx.x] = min(q, counts[lo] - j * q);
   }
   __syncthreads();
@@ -128,19 +211,29 @@ chunk_partials(const T* __restrict__ x, int C, int q,
   const int c = static_cast<int>(e / C);
   const int ch = static_cast<int>(e - static_cast<int64_t>(c) * C);
   const int len = rows[c - c0];
-  const T* src = x + static_cast<int64_t>(first_row[c - c0]) * C + ch;
-  float acc = 0.0f;
+  const auto src = rows_in.at(first_row[c - c0], ch, C);
+  float acc[Rows::kSums];
+#pragma unroll
+  for (int k = 0; k < Rows::kSums; ++k) acc[k] = 0.0f;
   for (int t0 = 0; t0 < len; t0 += kUnroll) {
-    float v[kUnroll];
+    using V = decltype(src.load(0));
+    V v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      v[u] = t0 + u < len ? widen(src[static_cast<int64_t>(t0 + u) * C])
-                          : 0.0f;
+      v[u] = t0 + u < len ? src.load(t0 + u) : V{};
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      if (t0 + u < len) acc = __fadd_rn(acc, v[u]);
+      if (t0 + u < len) {
+        const float z = src.value(v[u], t0 + u);
+#pragma unroll
+        for (int k = 0; k < Rows::kSums; ++k)
+          acc[k] = __fadd_rn(acc[k], Rows::term(k, z));
+      }
   }
-  partial[e] = acc;
+  float* dst = partial + static_cast<int64_t>(c) * Rows::kSums * C + ch;
+#pragma unroll
+  for (int k = 0; k < Rows::kSums; ++k) dst[static_cast<int64_t>(k) * C] =
+      acc[k];
 }
 
 // One tile of chunk partials [rows, cw] into shared memory ([row][32]).
@@ -213,10 +306,71 @@ combine_partials(const float* __restrict__ partial, int C,
   }
 }
 
-template <typename T>
-int launch(const void* x, int C, int q, const void* starts,
-           const void* counts, int S, int n2, void* choff, void* partial,
-           void* out, cudaStream_t st) {
+// V consecutive floats, one 16-byte access where V = 4.
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float* d) {
+  if constexpr (V == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) d[u] = p[u];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float* d) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) p[u] = d[u];
+  }
+}
+
+// y = (z - mean[s]) * inv[s] on rows of segment s < S, +0 on the others;
+// stats [S, 2C] = concat([mean, inv]). V channels a thread (V = 4: 16-byte
+// loads and stores, C % 4 == 0 and every pointer 16-byte aligned).
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+relu_bn_apply(const float* __restrict__ x, const float* __restrict__ bias,
+              const int32_t* __restrict__ count,
+              const int32_t* __restrict__ sid,     // null: row < counts[0]
+              const int32_t* __restrict__ counts,
+              const float* __restrict__ stats, int S, int cap, int C,
+              float* __restrict__ y) {
+  const int cv = C / V;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= static_cast<int64_t>(cap) * cv) return;
+  const int row = static_cast<int>(e / cv);
+  const int c = static_cast<int>(e - static_cast<int64_t>(row) * cv) * V;
+  const int s = sid ? sid[row] : (row < counts[0] ? 0 : 1);
+  float out[V];
+  if (s < S) {
+    float xv[V], bv[V], mv[V], iv[V];
+    const float* st = stats + static_cast<int64_t>(s) * 2 * C + c;
+    load_v<V>(x + static_cast<int64_t>(row) * C + c, xv);
+    load_v<V>(st, mv);
+    load_v<V>(st + C, iv);
+    if (bias) load_v<V>(bias + c, bv);
+    const int lim = (count ? *count : 0x7fffffff) - row;
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const float z = relu_row(xv[u], bias != nullptr, bias ? bv[u] : 0.0f,
+                               lim);
+      out[u] = __fmul_rn(__fsub_rn(z, mv[u]), iv[u]);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) out[u] = 0.0f;
+  }
+  store_v<V>(y + static_cast<int64_t>(row) * C + c, out);
+}
+
+template <typename Rows>
+int launch(Rows rows, int C, int q, const void* starts, const void* counts,
+           int S, int n2, void* choff, void* partial, void* out,
+           cudaStream_t st) {
   int32_t* off = static_cast<int32_t*>(choff);
   chunk_offsets<<<1, kScanThreads, 0, st>>>(
       static_cast<const int32_t*>(counts), S, q, off);
@@ -227,16 +381,17 @@ int launch(const void* x, int C, int q, const void* starts,
   const int64_t blocks = (static_cast<int64_t>(n2) * C + kThreads - 1) /
                          kThreads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  chunk_partials<T><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      static_cast<const T*>(x), C, q, static_cast<const int32_t*>(starts),
+  chunk_partials<Rows><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      rows, C, q, static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(counts), off, S,
       static_cast<float*>(partial));
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  combine_partials<<<dim3((C + kCombineChannels - 1) / kCombineChannels,
+  const int width = Rows::kSums * C;  // the partials' and sums' channels
+  combine_partials<<<dim3((width + kCombineChannels - 1) / kCombineChannels,
                           S < kMaxGridY ? S : kMaxGridY),
-                     32, 0, st>>>(static_cast<const float*>(partial), C, off,
-                                  S, static_cast<float*>(out));
+                     32, 0, st>>>(static_cast<const float*>(partial), width,
+                                  off, S, static_cast<float*>(out));
   return cudaGetLastError();
 }
 
@@ -253,8 +408,59 @@ extern "C" int spira_segment_sum(const void* x, int bf16, int C, int q,
   if (C <= 0 || S <= 0) return cudaSuccess;
   if (q <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(x, C, q, starts, counts, S, n2, choff,
-                                      partial, out, st)
-              : launch<float>(x, C, q, starts, counts, S, n2, choff, partial,
-                              out, st);
+  return bf16 ? launch(RawRows<__nv_bfloat16>{
+                           static_cast<const __nv_bfloat16*>(x)},
+                       C, q, starts, counts, S, n2, choff, partial, out, st)
+              : launch(RawRows<float>{static_cast<const float*>(x)}, C, q,
+                       starts, counts, S, n2, choff, partial, out, st);
+}
+
+// The epilogue's moments: out [S, 2C] = the segment sums of
+// concat([z, z * z]), z = relu(where(row < *count, x + bias, 0)). x: [cap,
+// C] fp32; bias: [C] fp32 or null (no add); count: int32 [1] or null (no
+// mask); starts: int32 [S] or null (S = 1, from row 0); partial: fp32
+// scratch [n2, 2C]; the rest as spira_segment_sum's.
+extern "C" int spira_relu_bn_moments(const void* x, const void* bias,
+                                     const void* count, int C, int q,
+                                     const void* starts, const void* counts,
+                                     int S, int n2, void* choff,
+                                     void* partial, void* out, void* stream) {
+  if (C <= 0 || S <= 0) return cudaSuccess;
+  if (q <= 0) return cudaErrorInvalidValue;
+  return launch(ReluRows{static_cast<const float*>(x),
+                         static_cast<const float*>(bias),
+                         static_cast<const int32_t*>(count)},
+                C, q, starts, counts, S, n2, choff, partial, out,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The epilogue's apply: y [cap, C] fp32 from x, bias and count as
+// spira_relu_bn_moments takes them and stats [S, 2C] = concat([mean, inv]);
+// sid: int32 [cap], or null with S = 1 and segment 0 the rows below
+// counts[0]. vec4: C % 4 == 0 and x, bias, stats, y 16-byte aligned.
+extern "C" int spira_relu_bn_apply(const void* x, const void* bias,
+                                   const void* count, const void* sid,
+                                   const void* counts, const void* stats,
+                                   int S, int cap, int C, int vec4, void* y,
+                                   void* stream) {
+  if (C <= 0 || cap <= 0) return cudaSuccess;
+  if (vec4 && C % 4 != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t work = static_cast<int64_t>(cap) * (vec4 ? C / 4 : C);
+  const int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  const float* bf = static_cast<const float*>(bias);
+  const int32_t* cn = static_cast<const int32_t*>(count);
+  const int32_t* sd = static_cast<const int32_t*>(sid);
+  const int32_t* cs = static_cast<const int32_t*>(counts);
+  const float* sf = static_cast<const float*>(stats);
+  float* yf = static_cast<float*>(y);
+  if (vec4)
+    relu_bn_apply<4><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        xf, bf, cn, sd, cs, sf, S, cap, C, yf);
+  else
+    relu_bn_apply<1><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        xf, bf, cn, sd, cs, sf, S, cap, C, yf);
+  return cudaGetLastError();
 }

@@ -11,8 +11,9 @@ plain PyTorch version and a launch counter on its wrapper:
                        (csrc/spconv_gather_gemm.cu)
   ws_scatter_gemm    — weight-stationary pair GEMM + ordered merge
                        (csrc/ws_scatter_gemm.cu)
-  segsum             — segment sums under the canonical add schedule
-                       (csrc/segsum.cu)
+  segsum             — segment sums under the canonical add schedule,
+                       and on that schedule the fused ReLU + per-scene
+                       BN epilogue of an inference forward (csrc/segsum.cu)
   masked_group_gemm  — the unfused OS baseline over a gathered
                        [M, Kd, Cin] tensor (csrc/masked_group_gemm.cu)
   dw_gather_gemm     — the per-offset weight gradient with the gather
@@ -49,6 +50,7 @@ LAUNCHERS = {
     "flash_attention": flash_attention.flash_attention,
     "flash_attention_bwd": flash_attention.flash_attention_bwd,
     "zdelta_repair": zdelta_window.zdelta_repair_cuda,
+    "relu_bn": segsum.relu_bn_cuda,
 }
 
 

@@ -27,6 +27,15 @@ torch — the chunk table, one gather, a q-step masked add chain, then the
 combine loop. It uses no ``torch.sum``; on the CPU it is bitwise equal to
 the JAX reference.
 
+:func:`relu_bn_cuda` is the fused ReLU + per-scene BN epilogue of an
+inference forward, two more kernels of ``csrc/segsum.cu``: the moments
+(the chunk partials of the schedule above reading ``z = relu(x + bias)``
+with PAD rows masked, summing ``z`` and ``z²`` from one load) and the
+apply (``(z − mean[sid]) · inv[sid]``, +0 on rows outside every segment),
+with :func:`bn_stats` between them. It is bitwise the chain of torch ops
+it replaces (``models.pointcloud``'s bias add, row mask and ``_relu_bn``)
+and records no autograd graph.
+
 :func:`segment_sum` and :func:`segment_gather` are each other's
 transposes and carry that as their backward passes (the reference's
 custom-VJP pair), so gradients of every per-scene statistic reduce under
@@ -281,6 +290,95 @@ def segments_from_sizes(sizes, cap: int):
         sid[pos:pos + sz] = b
         pos += sz
     return sid, starts, np.asarray(sizes, np.int32)
+
+
+def bn_stats(sx: torch.Tensor, sx2: torch.Tensor,
+             counts: torch.Tensor) -> torch.Tensor:
+    """Per-segment ``concat([mean, inv])`` [S, 2C] fp32 from the moments
+    ``Σz``, ``Σz²`` [S, C] and the row counts: one-pass var = E[z²] −
+    mean², clamped at 0, ``inv = rsqrt(var + 1e-5)``."""
+    denom = counts.to(torch.float32).clamp(min=1.0)[:, None]
+    mean = sx / denom
+    var = (sx2 / denom - mean * mean).clamp(min=0.0)
+    inv = torch.rsqrt(var + 1e-5)
+    return torch.cat([mean, inv], dim=1)
+
+
+_MOMENTS_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p]
+_APPLY_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def relu_bn_cuda(x: torch.Tensor, count: torch.Tensor,
+                 seg: tuple | None = None, *,
+                 bias: torch.Tensor | None = None, mask: bool = False,
+                 q: int = 64) -> torch.Tensor:
+    """The fused epilogue of one convolution on CUDA fp32 ``x`` [cap, C]
+    (the output before the bias): ``z = relu(x + bias)``, its rows at or
+    past ``count`` set to +0 before the ReLU when ``mask``, then per-scene
+    standardisation as ``models.pointcloud._relu_bn`` computes it, bitwise.
+    ``seg = (sid, starts, counts, S)``; ``None`` is the single scene over
+    the rows below ``count``. Two kernels with :func:`bn_stats` between;
+    no host sync, no autograd."""
+    if x.device.type != "cuda":
+        raise ValueError("relu_bn_cuda launches a CUDA kernel; got a tensor "
+                         f"on {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"relu_bn_cuda takes fp32 rows, got {x.dtype}")
+    cap, C = x.shape
+    x = x.contiguous()
+    dev = x.device
+    i32 = torch.int32
+    count = count.to(device=dev, dtype=i32).reshape(1)
+    if seg is None:
+        sid = starts = None
+        counts, S = count, 1
+    else:
+        sid, starts, counts, S = seg
+        sid = sid.to(device=dev, dtype=i32).contiguous()
+        starts = starts.to(device=dev, dtype=i32).contiguous()
+        counts = counts.to(device=dev, dtype=i32).contiguous()
+    if bias is not None:
+        bias = bias.to(device=dev, dtype=torch.float32).contiguous()
+    n2 = cap // q + S
+    choff = torch.empty(S + 1, dtype=i32, device=dev)
+    partial = torch.empty((n2, 2 * C), dtype=torch.float32, device=dev)
+    sums = torch.empty((S, 2 * C), dtype=torch.float32, device=dev)
+    fns = _fns.get("relu_bn")
+    if fns is None:
+        fns = _fns["relu_bn"] = (
+            _build.function("spira_relu_bn_moments", _MOMENTS_SIG),
+            _build.function("spira_relu_bn_apply", _APPLY_SIG))
+    moments, apply = fns
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mcount = count if mask else None
+    err = moments(x.data_ptr(), _ptr(bias), _ptr(mcount), C, q,
+                  _ptr(starts), counts.data_ptr(), S, n2, choff.data_ptr(),
+                  partial.data_ptr(), sums.data_ptr(), stream)
+    _build.check(err, "relu_bn moments")
+    stats = bn_stats(sums[:, :C], sums[:, C:], counts)
+    y = torch.empty_like(x)
+    vec4 = C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in
+                              (x, stats, y, *(() if bias is None
+                                              else (bias,))))
+    err = apply(x.data_ptr(), _ptr(bias), _ptr(mcount), _ptr(sid),
+                counts.data_ptr(), stats.data_ptr(), S, cap, C, int(vec4),
+                y.data_ptr(), stream)
+    relu_bn_cuda.launches += 1
+    _build.check(err, "relu_bn apply")
+    return y
+
+
+relu_bn_cuda.launches = 0
 
 
 def segment_moments(x: torch.Tensor, sid: torch.Tensor, starts: torch.Tensor,

@@ -37,8 +37,11 @@ from ..core.dataflow import (HEAD_ROWS, bcast_rows,  # noqa: F401
                              head_matmul, rowdot_matmul, rowsum)
 from ..core.network_plan import NetworkPlan
 from ..core.packing import BitLayout
-from ..core.spconv import SpConv, SpConvSpec, apply_spconv, init_spconv
-from ..kernels.segsum import SegmentSpec, segment_gather, segment_moments
+from ..core.spconv import (SpConv, SpConvSpec, add_bias, init_spconv,
+                           spconv_features)
+from ..kernels.ops import resolve_backend
+from ..kernels.segsum import (SegmentSpec, bn_stats, relu_bn_cuda,
+                              segment_gather, segment_moments)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,15 +256,54 @@ def _relu_bn(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,
         sid, starts, counts, S = seg
     sx, sx2 = segment_moments(x, sid, starts, counts, num_segments=S,
                               spec=segment)
-    denom = counts.to(torch.float32).clamp(min=1.0)[:, None]
-    mean = sx / denom
-    var = (sx2 / denom - mean * mean).clamp(min=0.0)
-    inv = torch.rsqrt(var + 1e-5)
-    stats = torch.cat([mean, inv], dim=1).to(x.dtype)
+    stats = bn_stats(sx, sx2, counts).to(x.dtype)
     r = segment_gather(stats, sid, starts, counts, num_segments=S,
                        spec=segment)
     return torch.where((sid < S)[:, None], (x - r[:, :c]) * r[:, c:],
                        torch.zeros((), dtype=x.dtype, device=dev))
+
+
+# layers of the feature pass through the fused epilogue (two kernels) and
+# through the chain of torch ops (bias add, row mask, _relu_bn)
+EPILOGUE_CALLS = {"fused": 0, "chain": 0}
+
+
+def reset_epilogue_calls() -> None:
+    EPILOGUE_CALLS["fused"] = EPILOGUE_CALLS["chain"] = 0
+
+
+def fused_epilogue_count() -> int:
+    return EPILOGUE_CALLS["fused"]
+
+
+def chain_epilogue_count() -> int:
+    return EPILOGUE_CALLS["chain"]
+
+
+def _conv_epilogue(out: torch.Tensor, bias: Optional[torch.Tensor],
+                   spec: SpConvSpec, count: torch.Tensor,
+                   seg: Optional[tuple], *,
+                   segment: Optional[SegmentSpec] = None) -> torch.Tensor:
+    """Bias, PAD-row mask, ReLU and per-scene BN after one convolution
+    (``out``: :func:`~repro_torch.core.spconv.spconv_features`' output;
+    ``bias`` in its dtype). The fused kernels (``kernels.segsum.relu_bn_cuda``)
+    where they give the chain's bits and autograd records nothing: fp32 on
+    CUDA with the segment engine's kernel backend, and no gradient to
+    carry; the chain (``add_bias``, then :func:`_relu_bn`) everywhere else,
+    training among it."""
+    sp = segment or SegmentSpec()
+    grad = torch.is_grad_enabled() and (
+        out.requires_grad or (bias is not None and bias.requires_grad))
+    if (not grad and out.device.type == "cuda"
+            and out.dtype == torch.float32
+            and (bias is None or bias.dtype == torch.float32)
+            and resolve_backend(sp.backend, out)):
+        EPILOGUE_CALLS["fused"] += 1
+        return relu_bn_cuda(out, count, seg, bias=bias,
+                            mask=bias is not None and not spec.dense, q=sp.q)
+    EPILOGUE_CALLS["chain"] += 1
+    return _relu_bn(add_bias(out, bias, spec, count), count, seg,
+                    segment=segment)
 
 
 # calls of the retired O(S·cap) BN baseline: no session or trainer path may
@@ -374,9 +416,11 @@ def pointcloud_forward(params: PointCloudModel, net: PointCloudNet,
             skip = skips.get(spec.m_in)
             if skip is not None:
                 x = torch.cat([x, skip], dim=-1)
-        x = apply_spconv(params.layers[spec.name], spec, x, kmap)
-        x = _relu_bn(x, kmap.out_count, segs.get(spec.m_out),
-                     segment=segment)
+        layer = params.layers[spec.name]
+        bias = None if layer.bias is None else layer.bias.to(x.dtype)
+        x = _conv_epilogue(spconv_features(layer, spec, x, kmap), bias, spec,
+                           kmap.out_count, segs.get(spec.m_out),
+                           segment=segment)
         if spec.name.startswith("enc") and spec.name.endswith("_b"):
             skips[spec.m_out] = x
         if spec.name.startswith("stem"):
