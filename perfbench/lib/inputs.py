@@ -46,14 +46,16 @@ def pool(seed: int, mix: dict, cfg: dict) -> List[Batch]:
 def weights(layers: Sequence, cfg: dict, seed: int, device,
             dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Every parameter from one draw of a generator on ``device``:
-    kernels ``N(0, 1 / (K^3 Cin))`` [K^3, Cin, Cout], biases and the head
-    ``N(0, 0.02^2)``; named as the program names its parameters."""
+    kernels ``N(0, 1 / (K^3 Cin))`` [K^3, Cin, Cout], the biases of the
+    layers that have one and the head ``N(0, 0.02^2)``; named as the
+    program names its parameters."""
     shapes = []
     for L in layers:
         k3 = L.K ** 3
         shapes.append((f"layers.{L.name}.weight", (k3, L.cin, L.cout),
                        (k3 * L.cin) ** -0.5))
-        shapes.append((f"layers.{L.name}.bias", (L.cout,), 0.02))
+        if L.bias:
+            shapes.append((f"layers.{L.name}.bias", (L.cout,), 0.02))
     shapes.append(("head", (layers[-1].cout, cfg["n_classes"]), 0.02))
     sizes = [int(np.prod(s)) for _, s, _ in shapes]
     gen = torch.Generator(device=device).manual_seed(seed % 2 ** 63)

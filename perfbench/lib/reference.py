@@ -5,9 +5,11 @@ benchmark made (guard-biased voxel coordinates per scene, features, labels,
 weights) it works out everything again: the coordinate set of every stride
 level (``floor(c / 2^m) * 2^m``), every layer's kernel map (the input row
 at ``out + delta_k`` for each offset ``delta_k`` of the ``K^3`` grid,
-x-major, z fastest), the feature pass (per offset a gather, a product and
-an add), ReLU and per-scene standardisation, the classifier, and for
-training the masked cross-entropy, its gradients and AdamW.
+x-major, z fastest; ``out - delta_k`` for a transposed layer), the feature
+pass (per offset a gather, a product and an add), the bias, ReLU and
+per-scene standardisation in the layer's order, residual adds, the
+classifier, and for training the masked cross-entropy, its gradients and
+AdamW.
 
 Rows are kept in (scene, x, y, z) order, the order of a packed word whose
 most significant field is the scene. The arithmetic runs in the dtype it is
@@ -29,9 +31,17 @@ EPS_BN = 1e-5
 
 @dataclasses.dataclass(frozen=True)
 class Layer:
-    """One sparse convolution of an architecture: ``concat`` names the
-    saved activation appended to its input channels, ``save`` the name its
-    output is kept under."""
+    """One sparse convolution of an architecture and what surrounds it.
+
+    Its input is the previous layer's output, or the saved activation
+    ``src``; ``concat`` names a saved activation appended to the input's
+    channels. The convolution's map reads the input at ``out + delta_k``,
+    or at ``out - delta_k`` where ``transposed`` (the transpose of the
+    matching strided map). ``bias`` adds a bias. ``norm`` is ``relu_bn``
+    (ReLU, then per-scene standardisation), ``bn_relu`` (the other way
+    round) or ``bn`` (standardisation alone); ``add`` then adds a saved
+    activation and takes the ReLU of the sum (a residual join). ``save``
+    is the name the result is kept under."""
 
     name: str
     cin: int
@@ -43,6 +53,16 @@ class Layer:
     save: Optional[str] = None
     dataflow: str = "os"     # "os", "ws" or "hybrid": which kernels run
     t: int = 0               # hybrid: offsets with L1 norm < t are OS
+    src: Optional[str] = None
+    norm: str = "relu_bn"
+    add: Optional[str] = None
+    transposed: bool = False
+    bias: bool = True
+
+    def __post_init__(self):
+        if self.norm not in NORMS:
+            raise ValueError(f"layer {self.name}: norm {self.norm!r} is "
+                             f"not one of {sorted(NORMS)}")
 
     def os_columns(self) -> np.ndarray:
         """Offset columns the output-stationary kernel computes."""
@@ -90,11 +110,12 @@ class Level:
 
 @dataclasses.dataclass
 class Plan:
-    """Every level and, per (m_in, m_out, K), each offset's valid
+    """Every level and, per map (``pair_key``), each offset's valid
     (output row, input row) pairs."""
 
     levels: Dict[int, Level]
-    pairs: Dict[Tuple[int, int, int], List[Tuple[torch.Tensor, torch.Tensor]]]
+    pairs: Dict[Tuple[int, int, int, bool],
+                List[Tuple[torch.Tensor, torch.Tensor]]]
     n_scenes: int
     order: torch.Tensor    # level-0 rows: position in the concatenated input
 
@@ -130,14 +151,15 @@ def build_plan(coords: Sequence[np.ndarray], layers: Sequence[Layer],
             levels[m] = _level(c, S)
     pairs = {}
     for L in layers:
-        key = (L.m_in, L.m_out, L.K)
+        key = pair_key(L)
         if key in pairs:
             continue
         src, dst = levels[L.m_in], levels[L.m_out]
         cols = []
         for d in offsets(L.K, L.stride):
             q = dst.bxyz.clone()
-            q[:, 1:] += torch.as_tensor(d, device=q.device)
+            q[:, 1:] += torch.as_tensor(-d if L.transposed else d,
+                                        device=q.device)
             qk = keys(q)
             pos = torch.searchsorted(src.keys, qk).clamp(
                 max=src.keys.numel() - 1)
@@ -148,10 +170,22 @@ def build_plan(coords: Sequence[np.ndarray], layers: Sequence[Layer],
     return Plan(levels, pairs, S, order)
 
 
+def pair_key(L: Layer) -> Tuple[int, int, int, bool]:
+    """Layers with the same key share one kernel map."""
+    return (L.m_in, L.m_out, L.K, L.transposed)
+
+
+def layer_cols(plan: Plan, L: Layer) -> List[Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """A layer's kernel map: per offset column its valid (output row,
+    input row) pairs."""
+    return plan.pairs[pair_key(L)]
+
+
 def layer_pairs(plan: Plan, L: Layer) -> np.ndarray:
     """Valid pairs of each offset column of a layer: int64 [K^3]."""
-    return np.array([int(r.numel()) for r, _ in
-                     plan.pairs[(L.m_in, L.m_out, L.K)]], np.int64)
+    return np.array([int(r.numel()) for r, _ in layer_cols(plan, L)],
+                    np.int64)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -204,10 +238,9 @@ class _SpConv(torch.autograd.Function):
         return dx, dw, None, None
 
 
-def relu_bn(y: torch.Tensor, lv: Level, n_scenes: int) -> torch.Tensor:
-    """ReLU, then per scene ``(y - mean) / sqrt(var + 1e-5)`` with the
-    one-pass variance ``E[y^2] - mean^2`` (floored at 0)."""
-    y = torch.relu(y)
+def standardise(y: torch.Tensor, lv: Level, n_scenes: int) -> torch.Tensor:
+    """Per scene ``(y - mean) / sqrt(var + 1e-5)`` with the one-pass
+    variance ``E[y^2] - mean^2`` (floored at 0), no affine."""
     S, C = n_scenes, y.shape[1]
     denom = lv.counts.to(y.dtype).clamp(min=1.0)[:, None]
     s1 = y.new_zeros((S, C)).index_add(0, lv.sid, y)
@@ -218,22 +251,34 @@ def relu_bn(y: torch.Tensor, lv: Level, n_scenes: int) -> torch.Tensor:
     return (y - mean[lv.sid]) * inv[lv.sid]
 
 
+NORMS = {
+    "relu_bn": lambda y, lv, S: standardise(torch.relu(y), lv, S),
+    "bn_relu": lambda y, lv, S: torch.relu(standardise(y, lv, S)),
+    "bn": standardise,
+}
+
+
 def forward(plan: Plan, layers: Sequence[Layer], feats: torch.Tensor,
             weights: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Logits on the last layer's output level, rows in key order.
     ``feats`` are the level-0 rows in key order; ``weights`` holds
     ``layers.<name>.weight`` [K^3, Cin, Cout], ``layers.<name>.bias``
-    [Cout] and ``head`` [C, n_classes]."""
+    [Cout] of the layers with a bias, and ``head`` [C, n_classes]."""
     saved: Dict[str, torch.Tensor] = {}
     x = feats
     for L in layers:
+        if L.src is not None:
+            x = saved[L.src]
         if L.concat is not None:
             x = torch.cat([x, saved[L.concat]], dim=1)
         lv = plan.levels[L.m_out]
         y = _SpConv.apply(x, weights[f"layers.{L.name}.weight"],
-                          lv.keys.numel(), plan.pairs[(L.m_in, L.m_out, L.K)])
-        y = y + weights[f"layers.{L.name}.bias"]
-        x = relu_bn(y, lv, plan.n_scenes)
+                          lv.keys.numel(), layer_cols(plan, L))
+        if L.bias:
+            y = y + weights[f"layers.{L.name}.bias"]
+        x = NORMS[L.norm](y, lv, plan.n_scenes)
+        if L.add is not None:
+            x = torch.relu(x + saved[L.add])
         if L.save is not None:
             saved[L.save] = x
     return mm(x, weights["head"])

@@ -20,16 +20,22 @@ CALL_SPAN = "session/call"
 
 def network(cfg: dict, layers: Sequence):
     """The program's network for a configuration, held to the reference
-    architecture layer by layer."""
-    kw = dict(in_channels=cfg["in_channels"], n_classes=cfg["n_classes"],
-              width=tuple(cfg["width"]), dataflow=cfg["dataflow"])
-    if cfg["dataflow"] == "hybrid":
-        kw["t"] = cfg["t"]
+    architecture layer by layer. The constructor takes the configuration's
+    own ``kwargs`` where it has them, else its channels, width and
+    dataflow."""
+    if "kwargs" in cfg:
+        kw = cfg["kwargs"]
+    else:
+        kw = dict(in_channels=cfg["in_channels"],
+                  n_classes=cfg["n_classes"], width=tuple(cfg["width"]),
+                  dataflow=cfg["dataflow"])
+        if cfg["dataflow"] == "hybrid":
+            kw["t"] = cfg["t"]
     net = NETWORKS[cfg["network"]](**kw)
-    got = [(s.name, s.cin, s.cout, s.K, s.m_in, s.m_out, s.dataflow, s.t)
-           for s in net.specs]
-    want = [(L.name, L.cin, L.cout, L.K, L.m_in, L.m_out, L.dataflow, L.t)
-            for L in layers]
+    got = [(s.name, s.cin, s.cout, s.K, s.m_in, s.m_out, s.dataflow, s.t,
+            s.bias) for s in net.specs]
+    want = [(L.name, L.cin, L.cout, L.K, L.m_in, L.m_out, L.dataflow, L.t,
+             L.bias) for L in layers]
     if got != want:
         bad = next(i for i, (a, b) in enumerate(zip(got + [None] * 99,
                                                     want + [None] * 99))
@@ -42,9 +48,13 @@ def network(cfg: dict, layers: Sequence):
 
 def model(net, weights: Dict[str, torch.Tensor]) -> PointCloudModel:
     """The program's parameters, copied from the benchmark's weights (the
-    program updates its copy in place when it trains)."""
+    program updates its copy in place when it trains); a layer whose
+    reference has no bias gets none."""
+    def bias(name):
+        b = weights.get(f"layers.{name}.bias")
+        return None if b is None else b.clone()
     mods = {s.name: SpConv(s, weights[f"layers.{s.name}.weight"].clone(),
-                           weights[f"layers.{s.name}.bias"].clone())
+                           bias(s.name))
             for s in net.specs}
     return PointCloudModel(net, mods, weights["head"].clone())
 

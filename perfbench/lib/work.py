@@ -38,7 +38,9 @@ def call_work(layers: Sequence, pairs: Sequence[np.ndarray],
     every layer but the first through the same dataflow over the transposed
     map, and dW of every layer and of the head), and ``model`` holding the
     useful operations of the whole call. ``pairs[i]`` are layer i's valid
-    pairs per offset column, ``rows[i]`` its ``(n_in, n_out)`` valid rows."""
+    pairs per offset column, ``rows[i]`` its ``(n_in, n_out)`` valid rows:
+    a 1x1, a strided or a transposed layer counts from its pairs as any
+    other. Biases, standardisation and residual adds are not counted."""
     fam: Dict[str, list] = {"os": [], "ws": [], "dw": [], "model": []}
     useful = 0.0
     for i, (L, p, (n_in, n_out)) in enumerate(zip(layers, pairs, rows)):

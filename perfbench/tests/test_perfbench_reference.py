@@ -39,8 +39,7 @@ def test_maps_and_logits_match_the_program(name, monkeypatch):
     ref_plan = reference.build_plan(batch.coords, c.layers, "cpu")
     for L in c.layers:
         m = plan.kmaps[L.name].m
-        for k, (rows, src) in enumerate(ref_plan.pairs[(L.m_in, L.m_out,
-                                                        L.K)]):
+        for k, (rows, src) in enumerate(reference.layer_cols(ref_plan, L)):
             i = torch.nonzero(m[:, k] >= 0).flatten()
             assert torch.equal(i, rows), (L.name, k)
             assert torch.equal(m[i, k].long(), src), (L.name, k)

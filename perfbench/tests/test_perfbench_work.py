@@ -21,6 +21,7 @@ def brute_pairs(coords, L):
     index = {r: i for i, r in enumerate(lv[L.m_in])}
     out = []
     for d in reference.offsets(L.K, L.stride):
+        d = -d if L.transposed else d
         out.append(sorted((i, index[q]) for i, r in enumerate(lv[L.m_out])
                           for q in [(r[0], r[1] + d[0], r[2] + d[1],
                                      r[3] + d[2])] if q in index))
@@ -30,17 +31,43 @@ def brute_pairs(coords, L):
 @pytest.mark.parametrize("K,m_in,m_out", [(3, 0, 0), (3, 0, 1), (3, 1, 0),
                                           (5, 1, 1)])
 def test_reference_maps_match_brute_force(K, m_in, m_out):
+    maps_match_brute_force(K, m_in, m_out, False)
+
+
+@pytest.mark.parametrize("K,m_in,m_out,transposed", [
+    (1, 1, 1, False), (2, 0, 1, False), (2, 1, 2, False), (2, 1, 0, True),
+    (2, 2, 1, True)])
+def test_k1_k2_and_transposed_maps_match_brute_force(K, m_in, m_out,
+                                                     transposed):
+    maps_match_brute_force(K, m_in, m_out, transposed)
+
+
+def maps_match_brute_force(K, m_in, m_out, transposed):
     rng = np.random.default_rng(K * 10 + m_in * 3 + m_out)
     coords = [np.unique(rng.integers(16, 28, (60, 3)), axis=0)
               for _ in range(2)]
-    L = Layer("l", 4, 4, K, m_in, m_out)
+    L = Layer("l", 4, 4, K, m_in, m_out, transposed=transposed)
     plan = reference.build_plan(coords, [L], "cpu")
-    got = plan.pairs[(m_in, m_out, K)]
+    got = reference.layer_cols(plan, L)
     want = brute_pairs(coords, L)
     for (rows, src), w in zip(got, want):
         assert sorted(zip(rows.tolist(), src.tolist())) == w
     np.testing.assert_array_equal(reference.layer_pairs(plan, L),
                                   [len(w) for w in want])
+
+
+def test_a_transposed_map_is_kept_apart_from_the_untransposed_one():
+    rng = np.random.default_rng(5)
+    coords = [np.unique(rng.integers(16, 28, (60, 3)), axis=0)]
+    a = Layer("a", 4, 4, 2, 1, 0)
+    b = Layer("b", 4, 4, 2, 1, 0, transposed=True)
+    plan = reference.build_plan(coords, [a, b], "cpu")
+    for L in (a, b):
+        got = reference.layer_cols(plan, L)
+        assert [sorted(zip(r.tolist(), s.tolist())) for r, s in got] == \
+            brute_pairs(coords, L)
+    assert reference.layer_pairs(plan, a).sum() != \
+        reference.layer_pairs(plan, b).sum()
 
 
 def test_call_work_by_hand():
@@ -92,7 +119,7 @@ def test_work_matches_the_reference_products():
              plan.levels[L.m_out].keys.numel()) for L in layers]
     fam = work.call_work(layers, pairs, rows, n_classes=2)
     macs = sum(int(r.numel()) * L.cin * L.cout for L in layers
-               for r, _ in plan.pairs[(L.m_in, L.m_out, L.K)])
+               for r, _ in reference.layer_cols(plan, L))
     assert work.total_ops(fam["model"]) == 2 * macs + 2 * rows[1][1] * 5 * 2
     assert all(t["ops"] > 0 and t["bytes"] > 0 for t in fam["os"])
     assert torch.equal(plan.levels[1].keys, torch.sort(plan.levels[1].keys)
