@@ -59,7 +59,16 @@ MinkUNet-42 (OS dataflow):
    and its time by kernel;
 5. the same session on the plain path (engine "zdelta", backends "torch")
    on the same card: kernel maps equal, logits within
-   ``1e-3 * max|logits|``.
+   ``1e-3 * max|logits|``;
+5m. the published MinkUNet (``pc.minkunet()``, 49 bias-free layers) at
+   full width on four outdoor scenes, the shapes of the benchmark cell
+   ``minkunet42-outdoor-b4``: every superwindow launch of one batch-of-4
+   forward (the K = 2 ones also apart), every OS launch and every fused
+   epilogue launch against its plain version as in 3 (each epilogue
+   bitwise its chain, with the device ms, chain ms and bound of each norm
+   order); the main path as in 4 with the launches and the fused
+   epilogues by order per call; the plan's maps by kind and each equal to
+   the ``zdelta`` engine's; one profiled call.
 
 CenterPoint-Large (hybrid dataflow, t = 3, K = 5), same scenes:
 
@@ -449,6 +458,11 @@ PORT_ONLY = {
     "relu_bn": ("src/repro_torch/csrc/segsum.cu",
                 "src/repro/models/pointcloud.py:234"),
 }
+# the fused epilogue's apply kernels, one per norm order (csrc/segsum.cu)
+EPILOGUE_APPLY = ("relu_bn_apply", "bn_relu_apply", "bn_apply",
+                  "bn_add_relu_apply")
+PUB_EXTENT = (1024, 1024, 40)   # phase 5m: the cell minkunet42-outdoor-b4's
+PUB_SCENES = 4                  # sweeps, four a call
 TRAIN_STEPS = 5
 SPIKE_WARM_STEPS = 10           # phase 9b's clean commits before the spike
 GUARD_PAIRS = 12                # phase 9a's timed guarded/plain step pairs
@@ -923,16 +937,24 @@ def log_segsum_passes(label: str, r: dict, card: str) -> None:
 
 
 def relu_bn_chain(a, kw):
-    """The chain of torch ops a fused epilogue launch replaces (the bias
-    add, the row mask and ``_relu_bn`` on the segment sum's kernel), on the
-    launch's own arguments."""
+    """The chain of torch ops a fused epilogue launch replaces, on the
+    launch's own arguments and the segment sum's kernel: by its ``order``
+    the bias add, the row mask and ``_relu_bn`` (``relu_bn``), or
+    ``_bn_relu``, ``_bn`` or ``_bn_add_relu`` with its residual operand on
+    a bias-free layer's output."""
     from repro_torch.core.spconv import SpConvSpec, add_bias
     from repro_torch.kernels.segsum import SegmentSpec
-    from repro_torch.models.pointcloud import _relu_bn
+    from repro_torch.models import pointcloud as pc
     x, count, seg = a
+    sp = SegmentSpec(backend="cuda", q=kw["q"])
+    order = kw.get("order", "relu_bn")
+    if order == "bn_add_relu":
+        return pc._bn_add_relu(x, kw["residual"], count, seg, segment=sp)
+    if order != "relu_bn":
+        return pc._CHAIN_NORMS[order](x, count, seg, segment=sp)
     spec = SpConvSpec("l", 1, x.shape[1], dense=not kw["mask"])
-    return _relu_bn(add_bias(x, kw["bias"], spec, count), count, seg,
-                    segment=SegmentSpec(backend="cuda", q=kw["q"]))
+    return pc._relu_bn(add_bias(x, kw["bias"], spec, count), count, seg,
+                       segment=sp)
 
 
 def chain_segsum_calls(calls) -> list:
@@ -966,9 +988,10 @@ def check_relu_bn(calls, label: str) -> dict:
     its wrapper's host code), the wrapper also as called (``wrapper_ms``);
     the bound counts each
     valid row read twice (the moments, then the apply), every row written
-    once, and the bias, counts and statistics once; the device time of the
-    two kernels and the statistics' torch ops over one launch of every
-    call (``passes``)."""
+    once, a residual operand's every row read once, and the bias, counts
+    and statistics once; the device time of the two kernels (``apply``:
+    every order's apply kernel) and the statistics' torch ops over one
+    launch of every call (``passes``)."""
     import torch
     from repro_torch.models import pointcloud as pc
     t_k = t_w = t_p = b_tot = bytes_tot = 0.0
@@ -986,7 +1009,8 @@ def check_relu_bn(calls, label: str) -> dict:
         rows = int(count)
         S = 1 if seg is None else seg[3]
         nb = (4 * C * (2 * rows + cap) + 4 * (0 if seg is None else cap)
-              + 4 * C * (1 + 4 * S))
+              + 4 * C * (int(kw.get("bias") is not None) + 4 * S)
+              + (0 if kw.get("residual") is None else 4 * cap * C))
         b_tot += bound_ms(nb, 0.0)[0]
         bytes_tot += nb
 
@@ -997,8 +1021,9 @@ def check_relu_bn(calls, label: str) -> dict:
     _, by_name = profile_call(every_call)
     passes = {k: sum(v for n, v in by_name.items() if n.startswith(k))
               for k in ("chunk_offsets", "chunk_partials",
-                        "combine_partials", "relu_bn_apply")}
+                        "combine_partials", *EPILOGUE_APPLY)}
     passes["stats"] = sum(by_name.values()) - sum(passes.values())
+    passes["apply"] = sum(passes.pop(k) for k in EPILOGUE_APPLY)
     return dict(max_abs_err=0.0, ms=t_k, wrapper_ms=t_w, plain_ms=t_p,
                 bound_ms=b_tot, bound_by="bytes", gbytes=bytes_tot / 1e9,
                 passes=passes)
@@ -1007,15 +1032,16 @@ def check_relu_bn(calls, label: str) -> dict:
 def log_relu_bn(label: str, r: dict, n: int, card: str) -> None:
     p = r.pop("passes")
     gbytes = r.pop("gbytes")
-    log(f"[{label}] {n} launches bitwise equal to the chain (bias add, "
-        f"mask, relu, x*x, cat, segment sum, gather, sub, mul, where); per "
+    log(f"[{label}] {n} launches bitwise equal to the chain of torch ops "
+        f"they replace (relu_bn_chain); per "
         f"forward device {r['ms']:.3f} ms, through the wrapper "
         f"{r['wrapper_ms']:.3f} ms, chain {r['plain_ms']:.3f} ms, "
         f"bound {r['bound_ms']:.4f} ms ({gbytes:.3f} GB, "
-        f"{gbytes / r['ms']:.0f} GB/s); one launch of each, device ms: "
+        f"{gbytes / r['ms'] * 1e3:.0f} GB/s, {r['bound_ms'] / r['ms']:.1%} "
+        f"of the bound's rate); one launch of each, device ms: "
         f"chunk offsets {p['chunk_offsets']:.3f}, moments partials "
         f"{p['chunk_partials']:.3f}, combine {p['combine_partials']:.3f}, "
-        f"stats {p['stats']:.3f}, apply {p['relu_bn_apply']:.3f} | {card}")
+        f"stats {p['stats']:.3f}, apply {p['apply']:.3f} | {card}")
 
 
 def ws_bound(F, m, W, capacity) -> tuple:
@@ -1849,7 +1875,7 @@ def drive(session, inputs, expected: dict, label: str, kind: str,
         f"compile_count {session.compile_count} (buckets {h1.bucket}, "
         f"{hb.bucket}), launches {counts} ({per_call} per call)")
     log(f"[{label}] steady-state ms per call: scene0 "
-        f"{times[n1_name][1]:.1f} (first {times[n1_name][0]:.1f}), batch2 "
+        f"{times[n1_name][1]:.1f} (first {times[n1_name][0]:.1f}), {nb_name} "
         f"{times[nb_name][1]:.1f} (first {times[nb_name][0]:.1f}) | {kind} | "
         f"{card} | peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} "
         "GiB")
@@ -1914,6 +1940,161 @@ def plain_path(session, net_plain, st, out_kernel, label: str) -> float:
         f"max|diff| {d:.3e} vs 1e-3 * max|logits| = {1e-3 * scale:.3e} "
         f"({d / scale:.2e} relative); no kernel launched")
     return d / scale
+
+def published_minkunet_phase(paths: dict, kind: str, card: str) -> None:
+    """Phase 5m: the published MinkUNet (``pc.minkunet()``: cr = 1, 49
+    bias-free layers, K = 2 strided and transposed, 1x1 shortcuts, the
+    standardisation-first epilogues) at full width on the shapes of the
+    benchmark cell ``minkunet42-outdoor-b4``: four outdoor sweeps of
+    extent (1024, 1024, 40), overlap 0.5, in one call (bucket 524,288).
+    Every launch of one eager batch-of-4 forward against its plain
+    version: each superwindow search (the K = 2 ones also apart) with its
+    map and counters equal; each OS launch as in 3 (the 1x1, K = 2 and
+    transposed layers among them); each fused epilogue launch bitwise its
+    chain, by norm order, with each order's device, wrapper and chain ms
+    and its bound (the residual operand's bytes included). Then the main
+    path (``drive``: scene 0 alone, then the batch of 4, each twice) with
+    the launches per call of ``expected_launches`` and the fused epilogues
+    by order of ``expected_epilogues``, none on the chain; the plan's maps
+    by kind and every layer's map equal to the ``zdelta`` engine's; one
+    profiled call with each epilogue kernel's device ms."""
+    import torch
+    from repro_torch.core import network_plan
+    from repro_torch.core.sparse_tensor import SparseTensor
+    from repro_torch.data import scenes
+    from repro_torch.kernels.segsum import NORM_ORDERS
+    from repro_torch.models import pointcloud as pc
+    from repro_torch.serve import bucket_capacity, compile_network
+    t0 = time.perf_counter()
+    batch = scenes.scene_batch(seed=0, batch=PUB_SCENES, kind="outdoor",
+                               extent=PUB_EXTENT, overlap=0.5)
+    rng = np.random.default_rng(1)
+    clouds = [(sc.coords, rng.normal(size=(len(sc.coords), 4))
+               .astype(np.float32)) for sc in batch]
+    sizes = [len(c) for c, _ in clouds]
+    net = pc.minkunet()
+    session = compile_network(net, batch[0].layout, batch=PUB_SCENES,
+                              seed=0, cuda_graphs=False)
+    st1 = SparseTensor.from_point_clouds(clouds[:1], session.layout)
+    stb = SparseTensor.from_point_clouds(clouds, session.layout)
+    log(f"[5m inputs] {PUB_SCENES} outdoor scenes {sizes} voxels, layout "
+        f"{session.layout}, buckets {bucket_capacity(sizes[0])}/"
+        f"{bucket_capacity(sum(sizes))}; {net.name}: {len(net.specs)} "
+        f"layers ({sum(s.K == 1 for s in net.specs)} 1x1, "
+        f"{sum(s.K == 2 and not s.transposed for s in net.specs)} K = 2 "
+        f"strided, {sum(s.transposed for s in net.specs)} transposed), "
+        f"made in {time.perf_counter() - t0:.1f} s")
+
+    with Recorder(("zdelta_superwindow_search", "spconv_gather_gemm",
+                   "relu_bn")) as rec:
+        session(stb)
+    torch.cuda.synchronize()
+
+    # superwindow searches: maps and counters equal, the K = 2 ones apart
+    z = rec.calls["zdelta_superwindow_search"]
+    z2 = [c for c in z if c[1]["K"] == 2]
+    if len(z2) != 4:
+        raise RuntimeError(f"5m: {len(z2)} K = 2 searches, expected the 4 "
+                           "stride-2 layers'")
+    r = check_search(z2, "superwindow")
+    log(f"[5m superwindow K=2] {len(z2)} launches (the stride-2 maps; the "
+        f"transposed layers reuse them) equal to the plain version; per "
+        f"forward device {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.5f} ms; {search_rates(r)} | {card}")
+    paths.setdefault("zdelta_superwindow_search", {})[
+        "minkunet (published) K = 2 (5m)"] = dict(launches=len(z2),
+                                                  **per_forward(r))
+    r = check_search(z, "superwindow")
+    log(f"[5m superwindow] {len(z)} launches equal; per forward device "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms; {search_rates(r)} | {card}")
+    paths["zdelta_superwindow_search"]["minkunet (published) (5m)"] = dict(
+        launches=len(z), **per_forward(r))
+
+    # OS: every launch as in 3, the 1x1, K = 2 and transposed layers among
+    # them
+    o = rec.calls["spconv_gather_gemm"]
+    r = check_os(o, label="5m os", names=[s.name for s in net.specs])
+    gflop = r.pop("gflop")
+    log_os_groups("5m os", r, card)
+    r.pop("groups"), r.pop("f64_worst")
+    log(f"[5m os] {len(o)} launches within 1e-5*max(1,|ref|) and the "
+        f"float64 gate (max|diff| {r['max_abs_err']:.3e}); per forward "
+        f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({gflop:.1f} GFLOP useful, "
+        f"{gflop / r['ms']:.2f} TFLOP/s) | {card}")
+    paths.setdefault("spconv_gather_gemm", {})[
+        "minkunet (published) (5m)"] = dict(launches=len(o),
+                                            **per_forward(r))
+
+    # the fused epilogue: every launch bitwise its chain, by order
+    by_order: dict = {}
+    for a, kw in rec.calls["relu_bn"]:
+        by_order.setdefault(kw.get("order", "relu_bn"), []).append((a, kw))
+    want = expected_epilogues(net)
+    got = {k: len(v) for k, v in by_order.items()}
+    if got != {k: v for k, v in want.items() if k in NORM_ORDERS and v}:
+        raise RuntimeError(f"5m: fused epilogue launches by order {got}, "
+                           f"expected {want}")
+    for order, calls in by_order.items():
+        res = sum(kw.get("residual") is not None for _, kw in calls)
+        label = f"5m {order}"
+        r = check_relu_bn(calls, label)
+        log_relu_bn(label, r, len(calls), card)
+        log(f"[{label}] C {sorted({a[0].shape[1] for a, _ in calls})}, "
+            f"rows {sorted({a[0].shape[0] for a, _ in calls})}, "
+            f"{res} with a residual operand")
+        paths.setdefault("relu_bn", {})[
+            f"minkunet (published) {order} (5m)"] = dict(
+                launches=len(calls), **per_forward(r))
+    del rec, z, z2, o, by_order
+    torch.cuda.empty_cache()
+
+    # the main path: launches per call, fused epilogues by order
+    pc.reset_epilogue_calls()
+    outb, hb, times, counts = drive(session, (("scene0", st1),
+                                              ("batch4", stb)),
+                                    expected_launches(net.specs),
+                                    "5m main path", kind, card)
+    calls = 2 * 2
+    if dict(pc.EPILOGUE_CALLS) != {k: calls * v for k, v in want.items()}:
+        raise RuntimeError(f"5m main path: epilogues {pc.EPILOGUE_CALLS} "
+                           f"over {calls} calls, expected {want} a call")
+    log(f"[5m main path] fused epilogues a call {want}: none on the chain")
+
+    # maps by kind, and every layer's map equal to the zdelta engine's
+    network_plan.reset_plan_map_counts()
+    plan_k = session.plan(stb)
+    kinds = network_plan.plan_map_counts()
+    if kinds != {"searched": 38, "transposed": 4, "identity": 7}:
+        raise RuntimeError(f"5m: the plan's maps by kind {kinds}")
+    plain = compile_network(net, session.layout, batch=PUB_SCENES,
+                            params=session.params, engine="zdelta",
+                            cuda_graphs=False)
+    plan_z = plain.plan(stb)
+    for s in net.specs:
+        if not torch.equal(plan_k.kmaps[s.name].m, plan_z.kmaps[s.name].m):
+            raise RuntimeError(f"5m: the map of {s.name} (K = {s.K}, "
+                               f"transposed {s.transposed}) differs between "
+                               "zdelta_cuda and zdelta")
+    ovf = {k: int(v) for k, v in plan_k.stats.items() if int(v)}
+    log(f"[5m maps] by kind {kinds}; all {len(net.specs)} equal to the "
+        f"zdelta engine's (K = 2 strided, transposed and 1x1 among them); "
+        f"overflowed cells {ovf or 0}")
+    del plan_k, plan_z, plain
+    torch.cuda.empty_cache()
+
+    dev_ms = profile_line("5m", lambda: session(stb), times["batch4"][1],
+                          card, what="batch4")
+    parts = {k: sum(v for n, v in dev_ms.items() if n.startswith(k))
+             for k in ("chunk_offsets", "chunk_partials", "combine_partials",
+                       *EPILOGUE_APPLY)}
+    log(f"[5m epilogue profile] device ms a batch-4 call: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; total {sum(parts.values()):.3f} | {card}")
+    del session, outb, hb, st1, stb
+    torch.cuda.empty_cache()
+
 
 def int64_phase(paths: dict, kind: str, card: str) -> None:
     """Phase 4e: MinkUNet-42 at full width on int64 packed words (a
@@ -2031,14 +2212,22 @@ def int64_phase(paths: dict, kind: str, card: str) -> None:
 
 def expected_launches(specs) -> dict:
     """Kernel launches of one forward of ``specs`` on the superwindow
-    engine without autograd: one search and one fused epilogue per layer,
-    the OS kernel for a layer with dense offsets, the WS kernel for one
-    with sparse offsets."""
+    engine without autograd: one fused epilogue per layer; one search (and
+    its repair) per layer whose map is searched (``core.network_plan``: not
+    a 1x1 layer's identity, not a transposed layer's map where a strided
+    layer of the plan has searched its transpose); the OS kernel for a
+    layer with dense offsets, the WS kernel for one with sparse offsets."""
     from repro_torch.core.kernel_map import l1_partition
     from repro_torch.kernels import launch_counts
     exp = {k: 0 for k in launch_counts()}
-    exp["zdelta_superwindow_search"] = exp["relu_bn"] = len(specs)
-    exp["zdelta_repair"] = len(specs)
+    exp["relu_bn"] = len(specs)
+    kept = [s for s in specs
+            if not s.transposed and not (s.K == 1 and s.submanifold)]
+    strided = {(s.m_in, s.m_out, s.K) for s in kept}
+    searched = len(kept)
+    searched += len({(s.m_out, s.m_in, s.K) for s in specs
+                     if s.transposed} - strided)
+    exp["zdelta_superwindow_search"] = exp["zdelta_repair"] = searched
     for s in specs:
         if s.dataflow == "hybrid":
             dense, sparse = l1_partition(s.K, s.offset_stride, s.t)
@@ -2047,6 +2236,18 @@ def expected_launches(specs) -> dict:
             os_, ws_ = s.dataflow == "os", s.dataflow == "ws"
         exp["spconv_gather_gemm"] += os_
         exp["ws_scatter_gemm"] += ws_
+    return exp
+
+
+def expected_epilogues(net) -> dict:
+    """Fused epilogues of one forward of ``net`` without autograd on the
+    card, as ``models.pointcloud.EPILOGUE_CALLS`` counts them: every layer
+    fused, by the norm order its graph gives it, none on the chain."""
+    from repro_torch.models.pointcloud import EPILOGUE_CALLS
+    exp = {k: 0 for k in EPILOGUE_CALLS}
+    for g in net.graph:
+        exp[g.order] += 1
+    exp["fused"] = len(net.graph)
     return exp
 
 
@@ -5014,6 +5215,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     tick("5 MinkUNet-42 plain path")
+    published_minkunet_phase(paths, kind, card)
+    tick("5m published MinkUNet")
     # == CenterPoint-Large: hybrid (OS + WS), K = 5 ==========================
     t0 = time.perf_counter()
     rng = np.random.default_rng(1)

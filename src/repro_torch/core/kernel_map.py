@@ -5,7 +5,9 @@
 (−1: no input); columns are in z-delta group order. The hybrid dataflow's
 dense/sparse offset split is a host-static function of the offset L1 norm
 (Spira §4, property 3). :func:`transpose_kernel_map` mirrors a map for the
-backward pass (``M[i, k] = j ⇒ Mᵀ[j, mirror(k)] = i``).
+backward pass (``M[i, k] = j ⇒ Mᵀ[j, mirror(k)] = i``), and without the
+mirror gives a transposed convolution's map from its strided one
+(``M[i, k] = j ⇒ Mᵀ[j, k] = i``: output j reads input i at ``j − δ_k``).
 """
 from __future__ import annotations
 
@@ -39,12 +41,16 @@ class KernelMap:
                 / self.out_count.to(torch.float32).clamp(min=1.0))
 
 
-def transpose_kernel_map(m: torch.Tensor, *, n_in: int) -> torch.Tensor:
+def transpose_kernel_map(m: torch.Tensor, *, n_in: int,
+                         mirror: bool = True) -> torch.Tensor:
     """Transposed (mirrored) kernel map: ``mt[j, mirror(k)] = i`` wherever
     ``m[i, k] = j``, with ``mirror(k) = Kd − 1 − k`` (offset δ → −δ under
     the z-delta column order); ``n_in`` rows, −1 elsewhere. The backward
     pass of a sparse convolution runs over it: input j's cotangent reads
     output i's through −δ_k, so training needs no new kernel-map search.
+    With ``mirror=False`` column k stays k: the map of the transposed
+    convolution whose strided counterpart ``m`` is (output j reads input i
+    at ``j − δ_k``), for any column set.
 
     One flat int32 scatter over ``M · Kd`` entries. Targets of valid
     entries never collide (a kernel map is injective per column); invalid
@@ -62,8 +68,9 @@ def transpose_kernel_map(m: torch.Tensor, *, n_in: int) -> torch.Tensor:
         raise ValueError(f"transpose_kernel_map: {n_in}×{kd} flat index "
                          "overflows int32")
     dev = m.device
-    mirror = torch.arange(kd - 1, -1, -1, dtype=torch.int64, device=dev)
-    flat = torch.where(m >= 0, m.long() * kd + mirror[None, :], n_in * kd)
+    cols = (torch.arange(kd - 1, -1, -1, dtype=torch.int64, device=dev)
+            if mirror else torch.arange(kd, dtype=torch.int64, device=dev))
+    flat = torch.where(m >= 0, m.long() * kd + cols[None, :], n_in * kd)
     rows = torch.arange(mcap, dtype=torch.int32, device=dev)
     mt = torch.full((n_in * kd + 1,), -1, dtype=torch.int32, device=dev)
     mt.scatter_(0, flat.reshape(-1),
@@ -82,7 +89,10 @@ def l1_partition(K: int, stride: int, t: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def l1_norm_max(K: int, stride: int) -> int:
-    return 3 * ((K - 1) // 2) * stride
+    """The largest offset L1 norm of :func:`~.packing.offset_grid`'s grid:
+    ``3 (K − 1) / 2 · stride`` for an odd K, ``3 · stride`` for K = 2
+    (offsets ``{0, 1} · stride``)."""
+    return 3 * (K // 2) * stride
 
 
 def density_by_l1(kmap: KernelMap, K: int, stride: int) -> dict[int, float]:

@@ -39,6 +39,17 @@ The paper's baselines, in plain torch (yardsticks, not main paths):
   called back to back, every level paying its own sort (Fig. 12).
 
 Every engine gives the same kernel maps.
+
+Three kinds of map, counted on the obs registry (:func:`plan_map_counts`):
+
+* searched — a search over the input level at ``out + δ_k`` (the engine's);
+* transposed — a transposed layer's map (``spec.transposed``: output j
+  reads input i at ``j − δ_k``), the matching strided map (input and
+  output levels swapped) transposed without the backward pass's mirror:
+  ``M[i, k] = j ⇒ Mᵀ[j, k] = i``. The strided map is an earlier layer's
+  of the same plan where one has it, else searched here;
+* identity — a submanifold K = 1 layer's map, row i reading row i on the
+  valid rows: no search.
 """
 from __future__ import annotations
 
@@ -48,7 +59,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from . import hashmap
-from .kernel_map import KernelMap
+from .kernel_map import KernelMap, transpose_kernel_map
 from .packing import BitLayout, offset_grid, pack_offsets
 from .spconv import SpConvSpec
 from .voxel import (CoordSet, build_coord_set, downsample, downsample_all,
@@ -58,6 +69,29 @@ from .zdelta import (expand_half_map, simple_bsearch, symmetrize_kernel_map,
                      zdelta_search_symmetric)
 
 ENGINES = ("zdelta", "zdelta_cuda", "zdelta_cuda_window", "bsearch", "hash")
+
+# the plan's maps by kind: one registry counter each, bound lazily
+MAP_KINDS = ("searched", "transposed", "identity")
+_MAP_COUNTERS: dict = {}
+
+
+def _map_counter(kind: str):
+    c = _MAP_COUNTERS.get(kind)
+    if c is None:
+        from ..obs import default_registry
+        c = _MAP_COUNTERS[kind] = default_registry().counter(
+            f"plan_maps_{kind}")
+    return c
+
+
+def plan_map_counts() -> Dict[str, int]:
+    """Layer maps built since the last reset, by kind (module doc)."""
+    return {k: _map_counter(k).value for k in MAP_KINDS}
+
+
+def reset_plan_map_counts() -> None:
+    for k in MAP_KINDS:
+        _map_counter(k).set(0)
 
 
 @dataclasses.dataclass
@@ -193,22 +227,65 @@ def build_network_plan(packed_raw: torch.Tensor, *,
         levels, downsample_all(v0, layout, levels, method=downsample_method)))
     kmaps: Dict[str, KernelMap] = {}
     stats: Dict[str, torch.Tensor] = {}
+    searched: Dict[tuple, torch.Tensor] = {}
     for s in specs:
         inputs, outputs = coords[s.m_in], coords[s.m_out]
-        m, ovf = _layer_map(inputs, outputs, s, layout, engine)
+        m, ovf = _any_map(inputs, outputs, s, layout, engine, searched)
         kmaps[s.name] = KernelMap(m=m, out_count=outputs.count,
                                   in_count=inputs.count)
         stats[s.name] = ovf
     return NetworkPlan(coords=coords, kmaps=kmaps, stats=stats)
 
 
+def _identity_map(coords: CoordSet) -> torch.Tensor:
+    """A submanifold K = 1 map: int32 [cap, 1], row i on the valid rows,
+    −1 on the PAD tail."""
+    rows = torch.arange(coords.capacity, dtype=torch.int32,
+                        device=coords.packed.device)
+    return torch.where(rows < coords.count, rows, -1)[:, None]
+
+
+def _any_map(inputs: CoordSet, outputs: CoordSet, s: SpConvSpec,
+             layout: BitLayout, engine: str, searched: Dict[tuple,
+                                                            torch.Tensor]):
+    """One layer's map of any kind (module doc) and its overflowed window
+    cells; ``searched`` holds the plan's searched maps by ``(m_in, m_out,
+    K)``, which a transposed layer reuses."""
+    no_ovf = torch.zeros((), dtype=torch.int32, device=inputs.packed.device)
+    if s.transposed:
+        if s.m_in <= s.m_out:
+            raise ValueError(f"layer {s.name}: a transposed layer maps a "
+                             f"coarser level to a finer one, got m_in "
+                             f"{s.m_in}, m_out {s.m_out}")
+        key = (s.m_out, s.m_in, s.K)
+        ovf = no_ovf
+        if key not in searched:
+            strided = dataclasses.replace(s, m_in=s.m_out, m_out=s.m_in,
+                                          transposed=False, symmetry=False)
+            m, ovf = _layer_map(outputs, inputs, strided, layout, engine)
+            _map_counter("searched").inc()
+            searched[key] = m
+        _map_counter("transposed").inc()
+        return transpose_kernel_map(searched[key], n_in=outputs.capacity,
+                                    mirror=False), ovf
+    if s.K == 1 and s.submanifold:
+        _map_counter("identity").inc()
+        return _identity_map(outputs), no_ovf
+    m, ovf = _layer_map(inputs, outputs, s, layout, engine)
+    _map_counter("searched").inc()
+    searched.setdefault((s.m_in, s.m_out, s.K), m)
+    return m, ovf
+
+
 def sequential_plan_fns(specs: Tuple[SpConvSpec, ...], layout: BitLayout):
     """The sequential-indexing baseline of the paper's Fig. 12: a sort
     function for V0, one downsample function per coarser level (each its
     own full sort, ``method="sort"``) and one mapping function per layer
-    (the ``"zdelta"`` search), called back to back by the caller.
-    Returns ``(sort_fn, level_fns, map_fns)``; ``map_fns[name](inputs,
-    outputs)`` gives the layer's :class:`KernelMap`, equal to
+    (the full ``"zdelta"`` search; a transposed layer's the matching
+    strided layer's search transposed, a submanifold K = 1 layer's the
+    identity; none counted on the registry), called back to back by the
+    caller. Returns ``(sort_fn, level_fns, map_fns)``; ``map_fns[name](
+    inputs, outputs)`` gives the layer's :class:`KernelMap`, equal to
     :func:`build_network_plan`'s."""
     def sort_fn(packed_raw: torch.Tensor) -> CoordSet:
         return build_coord_set(packed_raw)
@@ -218,9 +295,17 @@ def sequential_plan_fns(specs: Tuple[SpConvSpec, ...], layout: BitLayout):
 
     def make(s: SpConvSpec):
         def one(inputs: CoordSet, outputs: CoordSet) -> KernelMap:
-            _, anchors, zstep = zdelta_offsets(s.K, s.offset_stride, layout,
-                                               device=inputs.packed.device)
-            m = zdelta_search(inputs, outputs, anchors, zstep, K=s.K)
+            if s.K == 1 and s.submanifold:
+                m = _identity_map(outputs)
+            else:
+                fine, coarse = ((outputs, inputs) if s.transposed
+                                else (inputs, outputs))
+                _, anchors, zstep = zdelta_offsets(
+                    s.K, s.offset_stride, layout, device=fine.packed.device)
+                m = zdelta_search(fine, coarse, anchors, zstep, K=s.K)
+                if s.transposed:
+                    m = transpose_kernel_map(m, n_in=outputs.capacity,
+                                             mirror=False)
             return KernelMap(m=m, out_count=outputs.count,
                              in_count=inputs.count)
         return one

@@ -206,7 +206,10 @@ def round_down(packed: torch.Tensor, layout: BitLayout, m: int) -> torch.Tensor:
 
 def offset_grid(K: int, stride: int = 1) -> np.ndarray:
     """All K³ offsets, each run of K forming one z-delta group (same (x, y),
-    z ascending by ``stride``): row-major (x, y, z). int32 [K^3, 3]."""
+    z ascending by ``stride``): row-major (x, y, z). int32 [K^3, 3]. An odd
+    K is centred (``−(K − 1) / 2 … (K − 1) / 2``), an even K starts at 0:
+    K = 2 gives ``{0, 1} · stride``, the strided convolution's window from
+    the output's corner; K = 1 the single offset 0."""
     half = (K - 1) // 2
     r = (np.arange(K) - half) * stride
     g = np.stack(np.meshgrid(r, r, r, indexing="ij"), axis=-1)

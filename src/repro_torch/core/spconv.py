@@ -25,7 +25,10 @@ Dataflow = Literal["os", "ws", "hybrid"]
 @dataclasses.dataclass(frozen=True)
 class SpConvSpec:
     """Static configuration of one sparse-convolution layer (the JAX spec's
-    fields; ``backend`` takes "auto" | "torch" | "cuda")."""
+    fields; ``backend`` takes "auto" | "torch" | "cuda"). K is odd
+    (a centred grid), 2 (offsets ``{0, 1} · stride``: a stride-2 window
+    and, ``transposed``, its inverse) or 1; a submanifold K = 1 layer's
+    map is the identity."""
 
     name: str
     cin: int
@@ -44,6 +47,7 @@ class SpConvSpec:
     window: int = 0               # superwindow size (0 = auto)
     symmetry: bool = False        # §5.4 half-search + mirror fill
     dense: bool = False           # output level statically has no PAD rows
+    transposed: bool = False      # map at out − δ_k (m_in > m_out)
 
     @property
     def submanifold(self) -> bool:

@@ -49,6 +49,17 @@
 // op here is the same single IEEE op (__fadd_rn, __fmul_rn, __fsub_rn, no
 // contraction into an FMA), and the ReLU is ATen's clamp_min (NaN kept,
 // fmaxf otherwise), so the result is bitwise the chain's.
+//
+// The other norm orders of a residual network's bias-free convolutions
+// (standardisation first) are variants of the same two kernels:
+//   moments: chunk_partials<ZRows>, the moments of z = x itself (no
+//      bias, no ReLU), then combine_partials as above;
+//   bn_relu_apply, bn_apply, bn_add_relu_apply: y = (x - mean[sid]) *
+//      inv[sid] on the rows of a segment, +0 on the others, then ReLU
+//      (bn_relu), nothing (bn), or the ReLU of y + r with a residual
+//      operand r [cap, C] read on every row (bn_add_relu: a residual join).
+// Each is the same single IEEE op as its chain's (relu(standardise(x)),
+// standardise(x), relu(standardise(x) + r)), so bitwise that chain.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,6 +144,18 @@ struct ReluRows {                   // the epilogue's z: sums of z and z * z
     return {x + static_cast<int64_t>(row) * C + ch, C, bias != nullptr,
             bias ? __ldg(bias + ch) : 0.0f,
             count ? __ldg(count) - row : 0x7fffffff};
+  }
+  static __device__ __forceinline__ float term(int k, float v) {
+    return k == 0 ? v : __fmul_rn(v, v);
+  }
+};
+
+struct ZRows {                      // z = x itself: sums of z and z * z
+  static constexpr int kSums = 2;
+  const float* x;
+  using Cursor = RawRows<float>::Cursor;
+  __device__ __forceinline__ Cursor at(int row, int ch, int C) const {
+    return {x + static_cast<int64_t>(row) * C + ch, C};
   }
   static __device__ __forceinline__ float term(int k, float v) {
     return k == 0 ? v : __fmul_rn(v, v);
@@ -328,17 +351,22 @@ __device__ __forceinline__ void store_v(float* p, const float* d) {
   }
 }
 
-// y = (z - mean[s]) * inv[s] on rows of segment s < S, +0 on the others;
-// stats [S, 2C] = concat([mean, inv]). V channels a thread (V = 4: 16-byte
-// loads and stores, C % 4 == 0 and every pointer 16-byte aligned).
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-relu_bn_apply(const float* __restrict__ x, const float* __restrict__ bias,
-              const int32_t* __restrict__ count,
-              const int32_t* __restrict__ sid,     // null: row < counts[0]
-              const int32_t* __restrict__ counts,
-              const float* __restrict__ stats, int S, int cap, int C,
-              float* __restrict__ y) {
+// The norm orders of the apply pass.
+enum Order { kReluBn, kBnRelu, kBn, kBnAddRelu };
+
+// y = (z - mean[s]) * inv[s] on rows of segment s < S, +0 on the others,
+// then as the order says (the file's head); stats [S, 2C] = concat([mean,
+// inv]). z = relu(where(row < *count, x + bias, 0)) for kReluBn, x itself
+// for the others (bias and count null). V channels a thread (V = 4:
+// 16-byte loads and stores, C % 4 == 0 and every pointer 16-byte aligned).
+template <int V, int O>
+__device__ __forceinline__ void norm_apply(
+    const float* __restrict__ x, const float* __restrict__ bias,
+    const int32_t* __restrict__ count,
+    const int32_t* __restrict__ sid,     // null: row < counts[0]
+    const int32_t* __restrict__ counts, const float* __restrict__ stats,
+    const float* __restrict__ res, int S, int cap, int C,
+    float* __restrict__ y) {
   const int cv = C / V;
   const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= static_cast<int64_t>(cap) * cv) return;
@@ -352,19 +380,70 @@ relu_bn_apply(const float* __restrict__ x, const float* __restrict__ bias,
     load_v<V>(x + static_cast<int64_t>(row) * C + c, xv);
     load_v<V>(st, mv);
     load_v<V>(st + C, iv);
-    if (bias) load_v<V>(bias + c, bv);
-    const int lim = (count ? *count : 0x7fffffff) - row;
+    if (O == kReluBn && bias) load_v<V>(bias + c, bv);
+    const int lim = (O == kReluBn && count ? *count : 0x7fffffff) - row;
 #pragma unroll
     for (int u = 0; u < V; ++u) {
-      const float z = relu_row(xv[u], bias != nullptr, bias ? bv[u] : 0.0f,
-                               lim);
+      const float z = O == kReluBn
+                          ? relu_row(xv[u], bias != nullptr,
+                                     bias ? bv[u] : 0.0f, lim)
+                          : xv[u];
       out[u] = __fmul_rn(__fsub_rn(z, mv[u]), iv[u]);
     }
   } else {
 #pragma unroll
     for (int u = 0; u < V; ++u) out[u] = 0.0f;
   }
+  if (O == kBnRelu) {
+#pragma unroll
+    for (int u = 0; u < V; ++u) out[u] = relu(out[u]);
+  }
+  if (O == kBnAddRelu) {
+    float rv[V];
+    load_v<V>(res + static_cast<int64_t>(row) * C + c, rv);
+#pragma unroll
+    for (int u = 0; u < V; ++u) out[u] = relu(__fadd_rn(out[u], rv[u]));
+  }
   store_v<V>(y + static_cast<int64_t>(row) * C + c, out);
+}
+
+// One kernel per order, named for it, so a device trace tells them apart.
+#define SPIRA_NORM_APPLY(NAME, O)                                            \
+  template <int V>                                                           \
+  __global__ void __launch_bounds__(kThreads)                                \
+  NAME(const float* __restrict__ x, const float* __restrict__ bias,          \
+       const int32_t* __restrict__ count, const int32_t* __restrict__ sid,   \
+       const int32_t* __restrict__ counts, const float* __restrict__ stats,  \
+       const float* __restrict__ res, int S, int cap, int C,                 \
+       float* __restrict__ y) {                                              \
+    norm_apply<V, O>(x, bias, count, sid, counts, stats, res, S, cap, C, y); \
+  }
+SPIRA_NORM_APPLY(relu_bn_apply, kReluBn)
+SPIRA_NORM_APPLY(bn_relu_apply, kBnRelu)
+SPIRA_NORM_APPLY(bn_apply, kBn)
+SPIRA_NORM_APPLY(bn_add_relu_apply, kBnAddRelu)
+#undef SPIRA_NORM_APPLY
+
+using ApplyKernel = void (*)(const float*, const float*, const int32_t*,
+                             const int32_t*, const int32_t*, const float*,
+                             const float*, int, int, int, float*);
+
+int launch_apply(ApplyKernel k4, ApplyKernel k1, const void* x,
+                 const void* bias, const void* count, const void* sid,
+                 const void* counts, const void* stats, const void* res,
+                 int S, int cap, int C, int vec4, void* y, void* stream) {
+  if (C <= 0 || cap <= 0) return cudaSuccess;
+  if (vec4 && C % 4 != 0) return cudaErrorInvalidValue;
+  const int64_t work = static_cast<int64_t>(cap) * (vec4 ? C / 4 : C);
+  const int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  (vec4 ? k4 : k1)<<<static_cast<unsigned>(blocks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(bias),
+      static_cast<const int32_t*>(count), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(counts), static_cast<const float*>(stats),
+      static_cast<const float*>(res), S, cap, C, static_cast<float*>(y));
+  return cudaGetLastError();
 }
 
 template <typename Rows>
@@ -416,51 +495,63 @@ extern "C" int spira_segment_sum(const void* x, int bf16, int C, int q,
 }
 
 // The epilogue's moments: out [S, 2C] = the segment sums of
-// concat([z, z * z]), z = relu(where(row < *count, x + bias, 0)). x: [cap,
-// C] fp32; bias: [C] fp32 or null (no add); count: int32 [1] or null (no
-// mask); starts: int32 [S] or null (S = 1, from row 0); partial: fp32
-// scratch [n2, 2C]; the rest as spira_segment_sum's.
-extern "C" int spira_relu_bn_moments(const void* x, const void* bias,
-                                     const void* count, int C, int q,
-                                     const void* starts, const void* counts,
-                                     int S, int n2, void* choff,
-                                     void* partial, void* out, void* stream) {
+// concat([z, z * z]). order (Order): kReluBn takes z = relu(where(row <
+// *count, x + bias, 0)), with bias [C] fp32 or null (no add) and count
+// int32 [1] or null (no mask); the other orders z = x itself, with bias
+// and count null. x: [cap, C] fp32; starts: int32 [S] or null (S = 1,
+// from row 0); partial: fp32 scratch [n2, 2C]; the rest as
+// spira_segment_sum's.
+extern "C" int spira_epilogue_moments(const void* x, const void* bias,
+                                      const void* count, int order, int C,
+                                      int q, const void* starts,
+                                      const void* counts, int S, int n2,
+                                      void* choff, void* partial, void* out,
+                                      void* stream) {
+  if (order < kReluBn || order > kBnAddRelu) return cudaErrorInvalidValue;
+  if (order != kReluBn && (bias || count)) return cudaErrorInvalidValue;
   if (C <= 0 || S <= 0) return cudaSuccess;
   if (q <= 0) return cudaErrorInvalidValue;
-  return launch(ReluRows{static_cast<const float*>(x),
-                         static_cast<const float*>(bias),
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  if (order != kReluBn)
+    return launch(ZRows{xf}, C, q, starts, counts, S, n2, choff, partial,
+                  out, st);
+  return launch(ReluRows{xf, static_cast<const float*>(bias),
                          static_cast<const int32_t*>(count)},
-                C, q, starts, counts, S, n2, choff, partial, out,
-                static_cast<cudaStream_t>(stream));
+                C, q, starts, counts, S, n2, choff, partial, out, st);
 }
 
 // The epilogue's apply: y [cap, C] fp32 from x, bias and count as
-// spira_relu_bn_moments takes them and stats [S, 2C] = concat([mean, inv]);
+// spira_epilogue_moments takes them for the order, and stats [S, 2C] =
+// concat([mean, inv]); res [cap, C] fp32 for kBnAddRelu, null otherwise;
 // sid: int32 [cap], or null with S = 1 and segment 0 the rows below
-// counts[0]. vec4: C % 4 == 0 and x, bias, stats, y 16-byte aligned.
-extern "C" int spira_relu_bn_apply(const void* x, const void* bias,
-                                   const void* count, const void* sid,
-                                   const void* counts, const void* stats,
-                                   int S, int cap, int C, int vec4, void* y,
-                                   void* stream) {
-  if (C <= 0 || cap <= 0) return cudaSuccess;
-  if (vec4 && C % 4 != 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t work = static_cast<int64_t>(cap) * (vec4 ? C / 4 : C);
-  const int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const float* bf = static_cast<const float*>(bias);
-  const int32_t* cn = static_cast<const int32_t*>(count);
-  const int32_t* sd = static_cast<const int32_t*>(sid);
-  const int32_t* cs = static_cast<const int32_t*>(counts);
-  const float* sf = static_cast<const float*>(stats);
-  float* yf = static_cast<float*>(y);
-  if (vec4)
-    relu_bn_apply<4><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        xf, bf, cn, sd, cs, sf, S, cap, C, yf);
-  else
-    relu_bn_apply<1><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        xf, bf, cn, sd, cs, sf, S, cap, C, yf);
-  return cudaGetLastError();
+// counts[0]. vec4: C % 4 == 0 and x, bias, stats, res, y 16-byte aligned.
+extern "C" int spira_epilogue_apply(const void* x, const void* bias,
+                                    const void* count, const void* sid,
+                                    const void* counts, const void* stats,
+                                    const void* res, int order, int S,
+                                    int cap, int C, int vec4, void* y,
+                                    void* stream) {
+  if (order != kReluBn && (bias || count)) return cudaErrorInvalidValue;
+  if ((order == kBnAddRelu) != (res != nullptr)) return cudaErrorInvalidValue;
+  switch (order) {
+    case kReluBn:
+      return launch_apply(relu_bn_apply<4>, relu_bn_apply<1>, x, bias, count,
+                          sid, counts, stats, res, S, cap, C, vec4, y,
+                          stream);
+    case kBnRelu:
+      return launch_apply(bn_relu_apply<4>, bn_relu_apply<1>, x, bias, count,
+                          sid, counts, stats, res, S, cap, C, vec4, y,
+                          stream);
+    case kBn:
+      return launch_apply(bn_apply<4>, bn_apply<1>, x, bias, count, sid,
+                          counts, stats, res, S, cap, C, vec4, y, stream);
+    case kBnAddRelu:
+      return launch_apply(bn_add_relu_apply<4>, bn_add_relu_apply<1>, x, bias,
+                          count, sid, counts, stats, res, S, cap, C, vec4, y,
+                          stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
+

@@ -202,10 +202,12 @@ int launch(const void* arr_v, int n, const void* outp_v, int n_tiles,
   int32_t* m_out = static_cast<int32_t*>(m_out_v);
   int32_t* ovf_out = static_cast<int32_t*>(ovf_out_v);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
-  // the plan's windows: 2,048 words (11 steps), K = 3 or 5
+  // the plan's windows: 2,048 words (11 steps), K = 3 or 5, and K = 2
+  // (the strided maps of a residual UNet's stride-2 windows)
 #define SPIRA_SW_LAUNCH(NB, KK)                                              \
   return launch_as<T, NB, KK>(arr, n, outp, n_tiles, anchors, G, zstep, K,   \
                               SW, nbits, rc_lg, smem, m_out, ovf_out, stream)
+  if (nbits == 11 && K == 2) SPIRA_SW_LAUNCH(11, 2);
   if (nbits == 11 && K == 3) SPIRA_SW_LAUNCH(11, 3);
   if (nbits == 11 && K == 5) SPIRA_SW_LAUNCH(11, 5);
   SPIRA_SW_LAUNCH(0, 0);

@@ -34,7 +34,11 @@ with PAD rows masked, summing ``z`` and ``z²`` from one load) and the
 apply (``(z − mean[sid]) · inv[sid]``, +0 on rows outside every segment),
 with :func:`bn_stats` between them. It is bitwise the chain of torch ops
 it replaces (``models.pointcloud``'s bias add, row mask and ``_relu_bn``)
-and records no autograd graph.
+and records no autograd graph. Its other orders (``NORM_ORDERS``) take
+the moments of the output itself and apply the standardisation first:
+then a ReLU (``bn_relu``), nothing (``bn``), or a residual operand added
+and the sum's ReLU (``bn_add_relu``), bitwise ``models.pointcloud``'s
+``_bn_relu``, ``_bn`` and ``_bn_add_relu``.
 
 :func:`segment_sum` and :func:`segment_gather` are each other's
 transposes and carry that as their backward passes (the reference's
@@ -305,13 +309,15 @@ def bn_stats(sx: torch.Tensor, sx2: torch.Tensor,
 
 
 _MOMENTS_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _APPLY_SIG = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_void_p]
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+# the fused epilogue's norm orders; the index is csrc/segsum.cu's Order
+NORM_ORDERS = ("relu_bn", "bn_relu", "bn", "bn_add_relu")
 
 
 def _ptr(t):
@@ -321,19 +327,36 @@ def _ptr(t):
 def relu_bn_cuda(x: torch.Tensor, count: torch.Tensor,
                  seg: tuple | None = None, *,
                  bias: torch.Tensor | None = None, mask: bool = False,
-                 q: int = 64) -> torch.Tensor:
+                 q: int = 64, order: str = "relu_bn",
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
     """The fused epilogue of one convolution on CUDA fp32 ``x`` [cap, C]
     (the output before the bias): ``z = relu(x + bias)``, its rows at or
     past ``count`` set to +0 before the ReLU when ``mask``, then per-scene
     standardisation as ``models.pointcloud._relu_bn`` computes it, bitwise.
     ``seg = (sid, starts, counts, S)``; ``None`` is the single scene over
     the rows below ``count``. Two kernels with :func:`bn_stats` between;
-    no host sync, no autograd."""
+    no host sync, no autograd. ``order`` (``NORM_ORDERS``) other than
+    ``relu_bn`` standardises ``x`` itself (no bias, no mask) and then takes
+    the ReLU (``bn_relu``), nothing (``bn``) or the ReLU of the sum with
+    ``residual`` [cap, C] fp32 (``bn_add_relu``), bitwise
+    ``models.pointcloud._bn_relu`` / ``_bn`` / ``_bn_add_relu``."""
     if x.device.type != "cuda":
         raise ValueError("relu_bn_cuda launches a CUDA kernel; got a tensor "
                          f"on {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"relu_bn_cuda takes fp32 rows, got {x.dtype}")
+    if order not in NORM_ORDERS:
+        raise ValueError(f"order {order!r} is not one of {NORM_ORDERS}")
+    if order != "relu_bn" and (bias is not None or mask):
+        raise ValueError(f"the {order} epilogue takes no bias or mask")
+    if (residual is not None) != (order == "bn_add_relu"):
+        raise ValueError("a residual operand goes with bn_add_relu alone")
+    if residual is not None:
+        if residual.dtype != torch.float32 or residual.shape != x.shape:
+            raise ValueError(f"residual {residual.dtype} "
+                             f"{tuple(residual.shape)} is not fp32 "
+                             f"{tuple(x.shape)}")
+        residual = residual.to(x.device).contiguous()
     cap, C = x.shape
     x = x.contiguous()
     dev = x.device
@@ -356,25 +379,26 @@ def relu_bn_cuda(x: torch.Tensor, count: torch.Tensor,
     fns = _fns.get("relu_bn")
     if fns is None:
         fns = _fns["relu_bn"] = (
-            _build.function("spira_relu_bn_moments", _MOMENTS_SIG),
-            _build.function("spira_relu_bn_apply", _APPLY_SIG))
+            _build.function("spira_epilogue_moments", _MOMENTS_SIG),
+            _build.function("spira_epilogue_apply", _APPLY_SIG))
     moments, apply = fns
     stream = torch.cuda.current_stream(dev).cuda_stream
     mcount = count if mask else None
-    err = moments(x.data_ptr(), _ptr(bias), _ptr(mcount), C, q,
+    o = NORM_ORDERS.index(order)
+    err = moments(x.data_ptr(), _ptr(bias), _ptr(mcount), o, C, q,
                   _ptr(starts), counts.data_ptr(), S, n2, choff.data_ptr(),
                   partial.data_ptr(), sums.data_ptr(), stream)
-    _build.check(err, "relu_bn moments")
+    _build.check(err, f"{order} moments")
     stats = bn_stats(sums[:, :C], sums[:, C:], counts)
     y = torch.empty_like(x)
     vec4 = C % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in
-                              (x, stats, y, *(() if bias is None
-                                              else (bias,))))
+                              (x, stats, y, *(t for t in (bias, residual)
+                                              if t is not None)))
     err = apply(x.data_ptr(), _ptr(bias), _ptr(mcount), _ptr(sid),
-                counts.data_ptr(), stats.data_ptr(), S, cap, C, int(vec4),
-                y.data_ptr(), stream)
+                counts.data_ptr(), stats.data_ptr(), _ptr(residual), o, S,
+                cap, C, int(vec4), y.data_ptr(), stream)
     relu_bn_cuda.launches += 1
-    _build.check(err, "relu_bn apply")
+    _build.check(err, f"{order} apply")
     return y
 
 

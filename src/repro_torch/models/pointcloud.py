@@ -1,12 +1,19 @@
 """The paper's evaluation networks on the Spira engine (torch port of
 ``repro.models.pointcloud``): SparseResNet-21, MinkUNet-42,
-CenterPoint-Large and the small ``tiny_segnet``.
+CenterPoint-Large and the small ``tiny_segnet``, and the published
+MinkUNet of SPVNAS / TorchSparse (:func:`minkunet`: residual blocks, K = 2
+stride-2 and transposed convolutions, 1x1 shortcuts, bias-free layers
+with BN before the ReLU).
 
-A network is a list of :class:`SpConvSpec`; its parameters are one
-:class:`PointCloudModel` holding a :class:`SpConv` per layer plus the
-classifier ``head`` [C, n_classes]. All voxel indexing happens once, up
-front (``core.build_network_plan``); :func:`pointcloud_forward` then reads
-the plan's kernel maps layer by layer.
+A network is a list of :class:`SpConvSpec` and, per layer, a
+:class:`LayerGraph` saying where its input comes from and what follows the
+convolution (which saved activation it reads or concatenates, the norm
+order, a residual add, the name its result is saved under); its
+parameters are one :class:`PointCloudModel` holding a :class:`SpConv` per
+layer plus the classifier ``head`` [C, n_classes]. All voxel indexing
+happens once, up front (``core.build_network_plan``);
+:func:`pointcloud_forward` then reads the plan's kernel maps layer by
+layer.
 
 Per-scene BN: batched rows are batch-major-sorted, so every per-scene
 statistic is a reduction over a contiguous row segment, computed by the
@@ -40,16 +47,75 @@ from ..core.packing import BitLayout
 from ..core.spconv import (SpConv, SpConvSpec, add_bias, init_spconv,
                            spconv_features)
 from ..kernels.ops import resolve_backend
-from ..kernels.segsum import (SegmentSpec, bn_stats, relu_bn_cuda,
-                              segment_gather, segment_moments)
+from ..kernels.segsum import (NORM_ORDERS, SegmentSpec, bn_stats,
+                              relu_bn_cuda, segment_gather, segment_moments)
+
+
+NORMS = ("relu_bn", "bn_relu", "bn")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGraph:
+    """What surrounds one convolution. Its input is the previous layer's
+    output, or the saved activation ``src``; ``concat`` appends a saved
+    activation's channels. After the convolution (and its bias) comes
+    ``norm``: ``relu_bn`` (ReLU, then per-scene standardisation),
+    ``bn_relu`` (the other way round) or ``bn`` (standardisation alone);
+    ``add``, after ``bn`` alone, then adds a saved activation and takes the
+    ReLU of the sum (a residual join). ``save`` keeps the result under a
+    name."""
+
+    src: Optional[str] = None
+    concat: Optional[str] = None
+    save: Optional[str] = None
+    norm: str = "relu_bn"
+    add: Optional[str] = None
+
+    def __post_init__(self):
+        if self.norm not in NORMS:
+            raise ValueError(f"norm {self.norm!r} is not one of {NORMS}")
+        if self.add is not None and self.norm != "bn":
+            raise ValueError(f"a residual join follows norm 'bn' alone, got "
+                             f"{self.norm!r}")
+
+    @property
+    def order(self) -> str:
+        """The fused epilogue's order (``kernels.segsum.NORM_ORDERS``): the
+        norm, or ``bn_add_relu`` for a residual join."""
+        return self.norm if self.add is None else "bn_add_relu"
 
 
 @dataclasses.dataclass(frozen=True)
 class PointCloudNet:
+    """Layers and their graph (``graph[i]`` surrounds ``specs[i]``; empty:
+    a plain chain, every layer reading the previous one's output under
+    ``relu_bn``)."""
+
     name: str
     specs: Tuple[SpConvSpec, ...]
     in_channels: int
     n_classes: int
+    graph: Tuple[LayerGraph, ...] = ()
+
+    def __post_init__(self):
+        if not self.graph:
+            object.__setattr__(self, "graph",
+                               tuple(LayerGraph() for _ in self.specs))
+        if len(self.graph) != len(self.specs):
+            raise ValueError(f"{self.name}: {len(self.graph)} graph entries "
+                             f"for {len(self.specs)} layers")
+        saved = set()
+        for s, g in zip(self.specs, self.graph):
+            if s.bias and g.norm != "relu_bn":
+                raise ValueError(f"{self.name}: layer {s.name} has a bias "
+                                 f"before norm {g.norm!r}, which only "
+                                 f"relu_bn follows")
+            for ref in (g.src, g.concat, g.add):
+                if ref is not None and ref not in saved:
+                    raise ValueError(f"{self.name}: layer {s.name} reads "
+                                     f"{ref!r}, saved by no earlier layer")
+            if g.save is not None:
+                saved.add(g.save)
 
     def conv_specs(self) -> Tuple[SpConvSpec, ...]:
         return self.specs
@@ -97,39 +163,41 @@ def minkunet42(in_channels: int = 4, n_classes: int = 20,
                width: Sequence[int] = (32, 64, 128, 256),
                dataflow: str = "os", backend: str = "auto") -> PointCloudNet:
     """Encoder (4 downsample stages) + decoder (4 inverse-conv stages) with
-    submanifold pairs at each level and UNet skips — 42 SpC layers."""
-    specs: List[SpConvSpec] = [
-        SpConvSpec("stem0", in_channels, width[0], K=3, m_in=0, m_out=0,
-                   dataflow=dataflow, backend=backend),
-        SpConvSpec("stem1", width[0], width[0], K=3, m_in=0, m_out=0,
-                   dataflow=dataflow, backend=backend)]
+    submanifold pairs at each level and UNet skips — 42 SpC layers. The
+    skips: the stem's and each encoder stage's last output, saved by level
+    (``l<m>``) and appended to the input of the decoder's first layer at
+    that level."""
+    specs: List[SpConvSpec] = []
+    graph: List[LayerGraph] = []
+
+    def conv(name, cin, cout, m_in, m_out, **g):
+        specs.append(SpConvSpec(name, cin, cout, K=3, m_in=m_in, m_out=m_out,
+                                dataflow=dataflow, backend=backend))
+        graph.append(LayerGraph(**g))
+
+    conv("stem0", in_channels, width[0], 0, 0)
+    conv("stem1", width[0], width[0], 0, 0, save="l0")
     c = width[0]
     for s, w in enumerate(width):
-        specs.append(SpConvSpec(f"enc{s}_down", c, w, K=3, m_in=s, m_out=s + 1,
-                                dataflow=dataflow, backend=backend))
-        specs.append(SpConvSpec(f"enc{s}_a", w, w, K=3, m_in=s + 1, m_out=s + 1,
-                                dataflow=dataflow, backend=backend))
-        specs.append(SpConvSpec(f"enc{s}_b", w, w, K=3, m_in=s + 1, m_out=s + 1,
-                                dataflow=dataflow, backend=backend))
+        conv(f"enc{s}_down", c, w, s, s + 1)
+        conv(f"enc{s}_a", w, w, s + 1, s + 1)
+        conv(f"enc{s}_b", w, w, s + 1, s + 1, save=f"l{s + 1}")
         c = w
     dec_width = (128, 96, 96, 96)
     for s in range(4):
         lvl = 4 - s - 1
         w = dec_width[s]
-        specs.append(SpConvSpec(f"dec{s}_up", c, w, K=3, m_in=lvl + 1,
-                                m_out=lvl, dataflow=dataflow, backend=backend))
+        conv(f"dec{s}_up", c, w, lvl + 1, lvl)
         skip_c = width[lvl - 1] if lvl > 0 else width[0]
-        specs.append(SpConvSpec(f"dec{s}_a", w + skip_c, w, K=3, m_in=lvl,
-                                m_out=lvl, dataflow=dataflow, backend=backend))
-        specs.append(SpConvSpec(f"dec{s}_b", w, w, K=3, m_in=lvl, m_out=lvl,
-                                dataflow=dataflow, backend=backend))
+        conv(f"dec{s}_a", w + skip_c, w, lvl, lvl, concat=f"l{lvl}")
+        conv(f"dec{s}_b", w, w, lvl, lvl)
         c = w
     i = 0
     while len(specs) < 42:
-        specs.append(SpConvSpec(f"tail{i}", c, c, K=3, m_in=0, m_out=0,
-                                dataflow=dataflow, backend=backend))
+        conv(f"tail{i}", c, c, 0, 0)
         i += 1
-    return PointCloudNet("minkunet42", tuple(specs), in_channels, n_classes)
+    return PointCloudNet("minkunet42", tuple(specs), in_channels, n_classes,
+                         tuple(graph))
 
 
 def centerpoint_large(in_channels: int = 5, n_classes: int = 10,
@@ -165,11 +233,77 @@ def tiny_segnet(in_channels: int = 4, n_classes: int = 8, width: int = 16,
     return PointCloudNet("tiny_segnet", tuple(specs), in_channels, n_classes)
 
 
+# the published MinkUNet's widths at cr = 1 (SPVNAS, core/models/
+# semantic_kitti/minkunet.py): stem, four encoder stages, four decoder stages
+MINKUNET_WIDTHS = (32, 32, 64, 128, 256, 256, 128, 96, 96)
+
+
+def minkunet(in_channels: int = 4, n_classes: int = 19, cr: float = 1.0,
+             dataflow: str = "os", backend: str = "auto") -> PointCloudNet:
+    """The published MinkUNet of SPVNAS / TorchSparse (``MinkUNet``,
+    widths ``MINKUNET_WIDTHS`` scaled by ``cr``): a stem of two K = 3
+    convolutions at level 0; four encoder stages, stage i a K = 2 stride-2
+    convolution from level i − 1 to i and two residual blocks; four decoder
+    stages, stage j a K = 2 transposed convolution from level 5 − j to
+    4 − j, its output concatenated with the encoder's (the stem's at level
+    0) and two residual blocks. A residual block is conv K3 → BN → ReLU →
+    conv K3 → BN, plus a shortcut (the identity, or a 1x1 convolution and
+    BN where the width changes), then the sum's ReLU; the other
+    convolutions are followed by BN and ReLU. 42 convolutions of K ≥ 2 and
+    seven 1x1 shortcuts, all without a bias. The classifier is the port's
+    bias-free head."""
+    cs = [int(cr * c) for c in MINKUNET_WIDTHS]
+    specs: List[SpConvSpec] = []
+    graph: List[LayerGraph] = []
+
+    def conv(name, cin, cout, K, m_in, m_out, transposed=False, **g):
+        specs.append(SpConvSpec(name, cin, cout, K=K, m_in=m_in, m_out=m_out,
+                                dataflow=dataflow, bias=False,
+                                backend=backend, transposed=transposed))
+        graph.append(LayerGraph(**g))
+
+    def res_blocks(stage, cin, cout, m, inp, concat=None, out=None):
+        """Two residual blocks at level m, the first reading ``inp`` (with
+        ``concat`` appended), its shortcut a 1x1 projection where the
+        width changes; the last block's result saved as ``out``."""
+        sc = inp
+        if cin != cout:
+            conv(f"{stage}_proj", cin, cout, 1, m, m, concat=concat,
+                 norm="bn", save=f"{stage}_sc")
+            sc = f"{stage}_sc"
+        conv(f"{stage}_b0a", cin, cout, 3, m, m, src=inp, concat=concat,
+             norm="bn_relu")
+        conv(f"{stage}_b0b", cout, cout, 3, m, m, norm="bn", add=sc,
+             save=f"{stage}_r")
+        conv(f"{stage}_b1a", cout, cout, 3, m, m, norm="bn_relu")
+        conv(f"{stage}_b1b", cout, cout, 3, m, m, norm="bn",
+             add=f"{stage}_r", save=out)
+
+    conv("stem0", in_channels, cs[0], 3, 0, 0, norm="bn_relu")
+    conv("stem1", cs[0], cs[0], 3, 0, 0, norm="bn_relu", save="x0")
+    for i in range(1, 5):
+        conv(f"enc{i}_down", cs[i - 1], cs[i - 1], 2, i - 1, i,
+             norm="bn_relu", save=f"enc{i}_in")
+        res_blocks(f"enc{i}", cs[i - 1], cs[i], i, f"enc{i}_in", out=f"x{i}")
+    c = cs[4]
+    for j in range(1, 5):
+        lvl = 4 - j
+        w = cs[4 + j]
+        conv(f"dec{j}_up", c, w, 2, lvl + 1, lvl, transposed=True,
+             norm="bn_relu", save=f"dec{j}_in")
+        res_blocks(f"dec{j}", w + cs[lvl], w, lvl, f"dec{j}_in",
+                   concat=f"x{lvl}")
+        c = w
+    return PointCloudNet("minkunet", tuple(specs), in_channels, n_classes,
+                         tuple(graph))
+
+
 NETWORKS = {
     "sparse_resnet21": sparse_resnet21,
     "minkunet42": minkunet42,
     "centerpoint_large": centerpoint_large,
     "tiny_segnet": tiny_segnet,
+    "minkunet": minkunet,
 }
 
 
@@ -235,15 +369,14 @@ def jax_tree(named: Mapping[str, object], net: PointCloudNet) -> dict:
     return tree
 
 
-def _relu_bn(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,
-             *, segment: Optional[SegmentSpec] = None) -> torch.Tensor:
-    """ReLU + masked per-scene feature standardization (train-mode BN) on
-    the segment engine. ``seg = (sid, starts, counts, S)``
+def _bn(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,
+        *, segment: Optional[SegmentSpec] = None) -> torch.Tensor:
+    """Masked per-scene feature standardization (train-mode BN, no affine)
+    on the segment engine. ``seg = (sid, starts, counts, S)``
     (:func:`level_segments`); ``None`` is the single-scene S=1 case over
     the valid prefix. Moments are one segment sum of ``concat([z, z²])``
     (one-pass var = E[x²] − mean²); the per-scene application is a segment
-    gather of ``concat([mean, inv])``."""
-    x = torch.relu(x)
+    gather of ``concat([mean, inv])``; rows outside every scene get +0."""
     cap, c = x.shape
     dev = x.device
     if seg is None:
@@ -263,13 +396,38 @@ def _relu_bn(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,
                        torch.zeros((), dtype=x.dtype, device=dev))
 
 
+def _relu_bn(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,
+             *, segment: Optional[SegmentSpec] = None) -> torch.Tensor:
+    """ReLU + masked per-scene feature standardization (:func:`_bn`)."""
+    return _bn(torch.relu(x), count, seg, segment=segment)
+
+
+def _bn_relu(x: torch.Tensor, count: torch.Tensor, seg: Optional[tuple] = None,
+             *, segment: Optional[SegmentSpec] = None) -> torch.Tensor:
+    """Per-scene standardization (:func:`_bn`), then ReLU."""
+    return torch.relu(_bn(x, count, seg, segment=segment))
+
+
+def _bn_add_relu(x: torch.Tensor, residual: torch.Tensor,
+                 count: torch.Tensor, seg: Optional[tuple] = None, *,
+                 segment: Optional[SegmentSpec] = None) -> torch.Tensor:
+    """A residual join: per-scene standardization (:func:`_bn`), plus the
+    shortcut ``residual``, then ReLU."""
+    return torch.relu(_bn(x, count, seg, segment=segment) + residual)
+
+
+_CHAIN_NORMS = {"relu_bn": _relu_bn, "bn_relu": _bn_relu, "bn": _bn}
+
 # layers of the feature pass through the fused epilogue (two kernels) and
-# through the chain of torch ops (bias add, row mask, _relu_bn)
-EPILOGUE_CALLS = {"fused": 0, "chain": 0}
+# through the chain of torch ops (bias add, row mask, norm, residual add);
+# beside them the fused layers by norm order (kernels.segsum.NORM_ORDERS)
+EPILOGUE_CALLS = {"fused": 0, "chain": 0,
+                  **{o: 0 for o in NORM_ORDERS}}
 
 
 def reset_epilogue_calls() -> None:
-    EPILOGUE_CALLS["fused"] = EPILOGUE_CALLS["chain"] = 0
+    for k in EPILOGUE_CALLS:
+        EPILOGUE_CALLS[k] = 0
 
 
 def fused_epilogue_count() -> int:
@@ -283,27 +441,39 @@ def chain_epilogue_count() -> int:
 def _conv_epilogue(out: torch.Tensor, bias: Optional[torch.Tensor],
                    spec: SpConvSpec, count: torch.Tensor,
                    seg: Optional[tuple], *,
-                   segment: Optional[SegmentSpec] = None) -> torch.Tensor:
-    """Bias, PAD-row mask, ReLU and per-scene BN after one convolution
-    (``out``: :func:`~repro_torch.core.spconv.spconv_features`' output;
-    ``bias`` in its dtype). The fused kernels (``kernels.segsum.relu_bn_cuda``)
+                   segment: Optional[SegmentSpec] = None,
+                   order: str = "relu_bn",
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bias, PAD-row mask, the norm and a residual join after one
+    convolution (``out``: :func:`~repro_torch.core.spconv.spconv_features`'
+    output; ``bias`` in its dtype, on a ``relu_bn`` layer alone; ``order``
+    as :attr:`LayerGraph.order`, ``residual`` the saved activation of
+    ``bn_add_relu``). The fused kernels (``kernels.segsum.relu_bn_cuda``)
     where they give the chain's bits and autograd records nothing: fp32 on
     CUDA with the segment engine's kernel backend, and no gradient to
-    carry; the chain (``add_bias``, then :func:`_relu_bn`) everywhere else,
-    training among it."""
+    carry; the chain (``add_bias``, then :func:`_relu_bn`, :func:`_bn_relu`,
+    :func:`_bn` or :func:`_bn_add_relu`) everywhere else, training among
+    it."""
     sp = segment or SegmentSpec()
     grad = torch.is_grad_enabled() and (
-        out.requires_grad or (bias is not None and bias.requires_grad))
+        out.requires_grad or (bias is not None and bias.requires_grad)
+        or (residual is not None and residual.requires_grad))
     if (not grad and out.device.type == "cuda"
             and out.dtype == torch.float32
             and (bias is None or bias.dtype == torch.float32)
+            and (residual is None or (residual.dtype == torch.float32
+                                      and residual.device == out.device))
             and resolve_backend(sp.backend, out)):
         EPILOGUE_CALLS["fused"] += 1
+        EPILOGUE_CALLS[order] += 1
         return relu_bn_cuda(out, count, seg, bias=bias,
-                            mask=bias is not None and not spec.dense, q=sp.q)
+                            mask=bias is not None and not spec.dense, q=sp.q,
+                            order=order, residual=residual)
     EPILOGUE_CALLS["chain"] += 1
-    return _relu_bn(add_bias(out, bias, spec, count), count, seg,
-                    segment=segment)
+    x = add_bias(out, bias, spec, count)
+    if order == "bn_add_relu":
+        return _bn_add_relu(x, residual, count, seg, segment=segment)
+    return _CHAIN_NORMS[order](x, count, seg, segment=segment)
 
 
 # calls of the retired O(S·cap) BN baseline: no session or trainer path may
@@ -393,9 +563,10 @@ def pointcloud_forward(params: PointCloudModel, net: PointCloudNet,
                        plan: NetworkPlan, features: torch.Tensor, *,
                        layout: Optional[BitLayout] = None,
                        segment: Optional[SegmentSpec] = None) -> torch.Tensor:
-    """The feature pass over a precomputed plan. UNet skips: encoder outputs
-    are stashed per level and concatenated (channels) at ``dec*_a``. With a
-    batched ``layout`` (``bb > 0``), BN statistics are per scene."""
+    """The feature pass over a precomputed plan, each layer's input, norm
+    and residual join as its :class:`LayerGraph` says (UNet skips are
+    saved activations appended with ``concat``). With a batched
+    ``layout`` (``bb > 0``), BN statistics are per scene."""
     missing = [s.name for s in net.specs if s.name not in plan.kmaps]
     if missing:
         raise ValueError(
@@ -408,23 +579,27 @@ def pointcloud_forward(params: PointCloudModel, net: PointCloudNet,
             f"features rows ({features.shape[0]}) != plan input capacity "
             f"({in_cap}); pad features to the plan's V0 capacity")
     segs = level_segments(plan, layout) if (layout and layout.bb) else {}
-    skips: Dict[int, torch.Tensor] = {}
+    # a saved activation is dropped after its last reader
+    last = {ref: i for i, g in enumerate(net.graph)
+            for ref in (g.src, g.concat, g.add) if ref is not None}
+    saved: Dict[str, torch.Tensor] = {}
     x = features
-    for spec in net.specs:
+    for i, (spec, g) in enumerate(zip(net.specs, net.graph)):
         kmap = plan.kmaps[spec.name]
-        if spec.name.startswith("dec") and spec.name.endswith("_a"):
-            skip = skips.get(spec.m_in)
-            if skip is not None:
-                x = torch.cat([x, skip], dim=-1)
+        if g.src is not None:
+            x = saved[g.src]
+        if g.concat is not None:
+            x = torch.cat([x, saved[g.concat]], dim=-1)
         layer = params.layers[spec.name]
         bias = None if layer.bias is None else layer.bias.to(x.dtype)
         x = _conv_epilogue(spconv_features(layer, spec, x, kmap), bias, spec,
                            kmap.out_count, segs.get(spec.m_out),
-                           segment=segment)
-        if spec.name.startswith("enc") and spec.name.endswith("_b"):
-            skips[spec.m_out] = x
-        if spec.name.startswith("stem"):
-            skips[0] = x
+                           segment=segment, order=g.order,
+                           residual=None if g.add is None else saved[g.add])
+        for ref in [r for r, at in last.items() if at == i]:
+            saved.pop(ref, None)
+        if g.save is not None:
+            saved[g.save] = x
     # the head's dW reduces over the capacity axis: rowdot_matmul keeps that
     # contraction's grouping capacity-stable (core.dataflow)
     return rowdot_matmul(x, params.head.to(x.dtype),

@@ -10,9 +10,13 @@ counters see only chain layers, in a forward and in a training step.
 Card (``cuda`` marker, skipped without one): the fused output bitwise the
 chain's on the same tensors (fp32; one scene and S = 1, 2, 4; with and
 without bias; C = 5, 16, 20, 96, 256; q = 64 and 32; NaN, ±0.0 and ±inf
-rows), a batch bitwise its single runs, zero extension to a larger bucket,
-no host sync, the counters of an eager forward and a training step, and a
-graph session's logits bitwise an eager forward run through the chain.
+rows), the same for the standardisation-first orders (``bn_relu``, ``bn``,
+``bn_add_relu`` with a residual operand holding NaN, ±0.0 and ±inf), a
+batch bitwise its single runs, zero extension to a larger bucket, no host
+sync, the counters of an eager forward and a training step, a graph
+session's logits bitwise an eager forward run through the chain, and a
+graph session of the published MinkUNet: no chain layer, the fused layers
+by order, its logits bitwise the chain's.
 Imports no JAX.
 """
 import dataclasses
@@ -360,6 +364,101 @@ def test_graph_session_logits_bitwise_the_chain(dev, name):
         ref = pc.pointcloud_forward(s.params, s.net, plan, stp.features,
                                     layout=s.layout, segment=s.segment)
     assert pc.fused_epilogue_count() == 0
+    assert pc.chain_epilogue_count() == len(net.specs)
+    torch.cuda.synchronize()
+    n = int(out.count)
+    assert n > 0 and _same(out.features[:n], ref.detach()[:n])
+
+
+ORDERS = {"bn_relu": 26, "bn": 7, "bn_add_relu": 16}   # layers of minkunet()
+
+
+def _chain_order(x, count, seg, order, res, q):
+    sp = SegmentSpec(backend="cuda", q=q)
+    if order == "bn_add_relu":
+        return pc._bn_add_relu(x, res, count, seg, segment=sp)
+    return {"bn_relu": pc._bn_relu, "bn": pc._bn}[order](x, count, seg,
+                                                        segment=sp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [64, 32])
+@pytest.mark.parametrize("order", list(ORDERS))
+@pytest.mark.parametrize("segs", list(SEGS))
+@pytest.mark.parametrize("C", [5, 16, 96, 256])
+def test_fused_norm_orders_bitwise_the_chain(dev, C, segs, order, q):
+    """The standardisation-first orders of a bias-free layer: fused output
+    bitwise ``_bn_relu`` / ``_bn`` / ``_bn_add_relu``, one fused layer of
+    that order counted; the residual holds NaN, ±inf and signed zeros, on
+    valid and PAD rows."""
+    sizes = SEGS[segs] or [333]
+    cap = 1024
+    x, _ = _case(dev, sizes, cap, C, seed=3 * C + q)
+    res, _ = _case(dev, sizes, cap, C, seed=5 * C + q)
+    res = res if order == "bn_add_relu" else None
+    count = torch.tensor(sum(sizes), dtype=torch.int32, device=dev)
+    seg = None if SEGS[segs] is None else _seg(dev, sizes, cap)
+    spec = SpConvSpec("l", 1, C, bias=False)
+    pc.reset_epilogue_calls()
+    with torch.no_grad():
+        got = pc._conv_epilogue(x, None, spec, count, seg, order=order,
+                                residual=res,
+                                segment=SegmentSpec(backend="cuda", q=q))
+    assert pc.fused_epilogue_count() == pc.EPILOGUE_CALLS[order] == 1
+    ref = _chain_order(x, count, seg, order, res, q)
+    torch.cuda.synchronize()
+    assert _same(got, ref)
+    assert bool(torch.isnan(got).any())
+
+
+@pytest.mark.cuda
+def test_fused_norm_orders_batch_equals_single_runs(dev):
+    """Scene b of a batch, in each order, is bitwise scene b alone."""
+    sizes = [500, 0, 123, 389]
+    cap, C = 2048, 20
+    x, _ = _case(dev, sizes, cap, C, seed=17, special=False)
+    res, _ = _case(dev, sizes, cap, C, seed=18, special=False)
+    count = torch.tensor(sum(sizes), dtype=torch.int32, device=dev)
+    for order in ORDERS:
+        r = res if order == "bn_add_relu" else None
+        got = segsum.relu_bn_cuda(x, count, _seg(dev, sizes, cap),
+                                  order=order, residual=r)
+        start = 0
+        for n in sizes:
+            one, r1 = torch.zeros((1024, C), device=dev), None
+            one[:n] = x[start:start + n]
+            if r is not None:
+                r1 = torch.zeros((1024, C), device=dev)
+                r1[:n] = r[start:start + n]
+            cnt = torch.tensor(n, dtype=torch.int32, device=dev)
+            y1 = segsum.relu_bn_cuda(one, cnt, None, order=order,
+                                     residual=r1)
+            assert _same(got[start:start + n], y1[:n]), order
+            start += n
+
+
+@pytest.mark.cuda
+def test_published_minkunet_graph_session_fuses_every_layer(dev):
+    """A graph session of ``minkunet(cr=0.25)``: every body run fuses all
+    49 layers (26 bn_relu, 7 bn, 16 bn_add_relu), none runs the chain;
+    the logits bitwise an eager forward through the chain."""
+    net = pc.minkunet(cr=0.25)
+    sb, clouds = _outdoor(dev, 4)
+    s = compile_network(net, sb[0].layout, batch=2, device=dev)
+    st = SparseTensor.from_point_clouds(clouds, s.layout, device=dev)
+    pc.reset_epilogue_calls()
+    out = s(st)
+    runs = pc.fused_epilogue_count() // len(net.specs)
+    assert runs >= 1 and pc.chain_epilogue_count() == 0
+    assert pc.fused_epilogue_count() == runs * len(net.specs)
+    assert {o: pc.EPILOGUE_CALLS[o] for o in segsum.NORM_ORDERS} == {
+        "relu_bn": 0, **{o: runs * n for o, n in ORDERS.items()}}
+    stp = st.pad_to(s._bucket(st.capacity))
+    plan = s.plan(stp)
+    pc.reset_epilogue_calls()
+    with torch.enable_grad():
+        ref = pc.pointcloud_forward(s.params, s.net, plan, stp.features,
+                                    layout=s.layout, segment=s.segment)
     assert pc.chain_epilogue_count() == len(net.specs)
     torch.cuda.synchronize()
     n = int(out.count)

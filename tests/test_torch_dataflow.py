@@ -231,7 +231,7 @@ def test_cuda_backend_on_cpu_raises_everywhere():
 @pytest.mark.parametrize("net", sorted(tpc.NETWORKS))
 def test_os_tile_choice_covers_every_layer(net, dtype):
     """The OS kernel's Cout tile is a pure function of (Cin, Cout, dtype):
-    for every layer of the four point-cloud nets, forward and dF (Cin and
+    for every layer of the port's point-cloud nets, forward and dF (Cin and
     Cout swapped), a compiled tile that covers Cout or is the widest; M is
     not among its inputs, so a row's add order is the same in every
     bucket."""

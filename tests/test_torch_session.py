@@ -158,8 +158,10 @@ def test_session_rejects_what_it_cannot_run():
 
 
 def test_net_factories_match_reference():
-    for name, fn in tpc.NETWORKS.items():
-        a, b = fn(), jpc.NETWORKS[name]()
+    # the published MinkUNet is the port's alone (no JAX twin)
+    assert set(tpc.NETWORKS) - set(jpc.NETWORKS) == {"minkunet"}
+    for name, fn in jpc.NETWORKS.items():
+        a, b = tpc.NETWORKS[name](), fn()
         assert (a.name, a.in_channels, a.n_classes) == (
             b.name, b.in_channels, b.n_classes)
         assert [(s.name, s.cin, s.cout, s.K, s.m_in, s.m_out, s.dataflow)
